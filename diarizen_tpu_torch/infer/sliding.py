@@ -1,0 +1,145 @@
+"""Sliding-window segmentation inference (port of diarizen_tpu/infer/sliding.py).
+
+The waveform is cut into windows of `duration` seconds every `step` seconds
+(an orphan last window when the remainder is non-zero), the windows run
+through the EEND model in batches, and the powerset scores become hard
+multilabel activity: a (num_chunks, num_frames, K) SlidingWindowFeature on
+the chunk window, stitched later by `ops/aggregate.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from diarizen_tpu_torch.core.segments import SlidingWindow, SlidingWindowFeature
+from diarizen_tpu_torch.models.eend import EendModel
+from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
+from diarizen_tpu_torch.utils import resolve_device
+
+
+def batch_row_spans(total: int, batch_size: int,
+                    tail_size: Callable[[int], int]) -> Iterator[Tuple[int, int, int]]:
+    """(offset, length, pad) spans covering [0, total) in `batch_size` rows:
+    full batches, then a tail of `tail_size(n_real)` rows drawn from the LAST
+    real rows (offset shifted back; the rows run twice give identical
+    values). A file smaller than one tail zero-pads instead (pad > 0)."""
+    for b0 in range(0, total, batch_size):
+        n_real = min(batch_size, total - b0)
+        if n_real == batch_size:
+            yield b0, batch_size, 0
+        else:
+            padded = tail_size(n_real)
+            if padded <= total:
+                yield total - padded, padded, 0
+            else:
+                yield 0, n_real, padded - n_real
+
+
+def tail_size(n_real: int, batch_size: int) -> int:
+    """Rows of a partial last batch: n_real rounded up to a multiple of 8,
+    capped at batch_size."""
+    return min(batch_size, ((n_real + 7) // 8) * 8)
+
+
+def gather_rows(source: torch.Tensor, starts: np.ndarray, length: int, pad: int) -> torch.Tensor:
+    """(len(starts) + pad, length, ...) windows source[s : s + length] of the
+    leading axis, pad rows of zeros at the end."""
+    idx = torch.as_tensor(starts, device=source.device)[:, None] + torch.arange(
+        length, device=source.device)
+    rows = source[idx]
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(rows.shape[1:]))])
+    return rows
+
+
+class SlidingInference:
+    """Callable: (waveform (C, num_samples), sample_rate) ->
+    SlidingWindowFeature (num_chunks, num_frames, K)."""
+
+    def __init__(
+        self,
+        model: EendModel,
+        duration: Optional[float] = None,
+        step: Optional[float] = None,
+        batch_size: int = 32,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = cfg = model.cfg
+        self.duration = duration if duration is not None else cfg.chunk_size
+        self.step = step if step is not None else 0.1 * self.duration
+        self.batch_size = batch_size
+        self.compute_dtype = compute_dtype
+        self.powerset = cfg.powerset
+        self.sample_rate = cfg.sample_rate
+        self.window_size = round(self.duration * self.sample_rate)
+        self.step_size = round(self.step * self.sample_rate)
+        self._frames_per_chunk = cfg.num_frames(self.window_size)
+
+    def num_chunks(self, num_samples: int) -> Tuple[int, bool]:
+        if num_samples >= self.window_size:
+            n_complete = 1 + (num_samples - self.window_size) // self.step_size
+        else:
+            n_complete = 0
+        has_last = (num_samples < self.window_size) or (
+            (num_samples - self.window_size) % self.step_size > 0
+        )
+        return n_complete, has_last
+
+    def prepare_wave(self, waveform: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
+        """Zero-pad channel 0 so every window is in bounds and copy it to the
+        device once; returns (wave on device, window start samples). The
+        device copy is shared with the embedding stage."""
+        if waveform.ndim == 2:
+            waveform = waveform[0]
+        n_complete, has_last = self.num_chunks(waveform.shape[0])
+        starts = np.arange(n_complete + has_last, dtype=np.int64) * self.step_size
+        wave = np.zeros(max(starts[-1] + self.window_size, waveform.shape[0]), np.float32)
+        wave[: waveform.shape[0]] = waveform
+        return torch.from_numpy(wave).to(self.device), starts
+
+    @torch.inference_mode()
+    def infer(self, wave: torch.Tensor, starts: np.ndarray) -> np.ndarray:
+        """Hard multilabel activity (num_chunks, num_frames, K) as float32."""
+        total = len(starts)
+        out = torch.zeros((total, self._frames_per_chunk, self.powerset.num_classes),
+                          dtype=torch.uint8, device=self.device)
+        for off, blen, pad in batch_row_spans(
+                total, self.batch_size, lambda n: tail_size(n, self.batch_size)):
+            chunks = gather_rows(wave, starts[off: off + blen], self.window_size, pad)
+            scores = self.model(chunks, compute_dtype=self.compute_dtype)
+            out[off: off + blen] = self.powerset.to_multilabel(scores)[:blen]
+        return out.cpu().numpy().astype(np.float32)
+
+    def __call__(
+        self,
+        waveform: np.ndarray,
+        sample_rate: Optional[int] = None,
+        prepared: Optional[Tuple[torch.Tensor, np.ndarray]] = None,
+    ) -> SlidingWindowFeature:
+        """`prepared` is an optional `prepare_wave(waveform)` result, so a
+        caller can share one device copy of the waveform across stages."""
+        if (sample_rate or self.sample_rate) != self.sample_rate:
+            raise ValueError(f"resample to {self.sample_rate} Hz before inference")
+        wave, starts = prepared if prepared is not None else self.prepare_wave(waveform)
+        data = self.infer(wave, starts)
+        chunks = SlidingWindow(start=0.0, duration=self.duration, step=self.step)
+        return SlidingWindowFeature(data, chunks)
+
+
+def receptive_field_window(cfg) -> SlidingWindow:
+    """Output frame resolution of a WavLM segmentation model as a
+    SlidingWindow (start at the receptive field of frame 0)."""
+    step, duration = cfg.rf_info()
+    kernels = [k for _, k, _ in cfg.wavlm.conv_layers]
+    strides = [s for _, _, s in cfg.wavlm.conv_layers]
+    center0 = multi_conv_receptive_field_center(0, kernels, strides)
+    # the reference offsets by half of (size - 1) samples, not size / 2
+    size = duration * cfg.sample_rate
+    start = (center0 - (size - 1) / 2) / cfg.sample_rate
+    return SlidingWindow(start=start, duration=duration, step=step)

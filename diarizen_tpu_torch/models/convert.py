@@ -1,0 +1,188 @@
+"""Weights into the port's modules.
+
+`eend_state_dict_from_jax` and `resnet_state_dict_from_jax` take the JAX
+package's parameter pytrees (nested dicts of numpy arrays) and return the
+port's `state_dict`, in the reference's torch key layout. They are the exact
+inverses of the JAX package's `eend_params_from_torch` and
+`resnet_params_from_torch`: linear weights transpose, conv weights go from
+(k, in/g, out) to (out, in/g, k), ResNet kernels from HWIO to OIHW, the
+pos-conv weight norm to `weight_g` (1, 1, K) / `weight_v`, and `weight_sum`
+from (L,) to (1, L).
+
+`random_state_dict` gives seeded random weights at a module's shapes, for
+runs without released checkpoints.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, dtype=np.float32))
+
+
+def _linear(sd: StateDict, key: str, p: dict) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[f"{key}.bias"] = _t(p["b"])
+
+
+def _norm(sd: StateDict, key: str, p: dict) -> None:
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _conv1d(sd: StateDict, key: str, p: dict) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["w"]).transpose(2, 1, 0))
+    if "b" in p:
+        sd[f"{key}.bias"] = _t(p["b"])
+
+
+def _batch_norm(sd: StateDict, key: str, scale, bias, mean, var) -> None:
+    sd[f"{key}.weight"] = _t(scale)
+    sd[f"{key}.bias"] = _t(bias)
+    sd[f"{key}.running_mean"] = _t(mean)
+    sd[f"{key}.running_var"] = _t(var)
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def wavlm_state_dict_from_jax(params: dict, cfg, prefix: str = "") -> StateDict:
+    sd: StateDict = {}
+    fe = params["feature_extractor"]
+    for i, block in enumerate(fe["conv_layers"]):
+        key = f"{prefix}feature_extractor.conv_layers.{i}"
+        _conv1d(sd, f"{key}.conv", block["conv"])
+        if "norm" in block:
+            _norm(sd, f"{key}.layer_norm", block["norm"])
+    sd[f"{prefix}feature_extractor.dummy_weight"] = _t(
+        fe.get("output_scale", np.ones(cfg.conv_out_channels, np.float32)))
+
+    enc = f"{prefix}encoder"
+    _norm(sd, f"{enc}.feature_projection.layer_norm", params["feature_projection"]["norm"])
+    _linear(sd, f"{enc}.feature_projection.projection", params["feature_projection"]["proj"])
+    pos = params["pos_conv"]
+    conv = f"{enc}.transformer.pos_conv_embed.conv"
+    sd[f"{conv}.weight_g"] = _t(np.asarray(pos["g"]).reshape(1, 1, -1))
+    sd[f"{conv}.weight_v"] = _t(np.asarray(pos["v"]).transpose(2, 1, 0))
+    sd[f"{conv}.bias"] = _t(pos["b"])
+    _norm(sd, f"{enc}.transformer.layer_norm", params["encoder_norm"])
+
+    for i, layer in enumerate(params["layers"]):
+        key = f"{enc}.transformer.layers.{i}"
+        _norm(sd, f"{key}.layer_norm", layer["attn_norm"])
+        _norm(sd, f"{key}.final_layer_norm", layer["final_norm"])
+        if "attn" in layer:
+            a, akey = layer["attn"], f"{key}.attention"
+            for name, jname in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                                ("out_proj", "out"), ("gru_rel_pos_linear", "gru_linear")):
+                _linear(sd, f"{akey}.{name}", a[jname])
+            sd[f"{akey}.gru_rel_pos_const"] = _t(a["gru_const"])
+            if i == 0:
+                sd[f"{akey}.rel_attn_embed.weight"] = _t(params["rel_attn_embed"])
+        if "ff" in layer:
+            _linear(sd, f"{key}.feed_forward.intermediate_dense", layer["ff"]["in"])
+            _linear(sd, f"{key}.feed_forward.output_dense", layer["ff"]["out"])
+    return sd
+
+
+def conformer_state_dict_from_jax(params: dict, state: dict, prefix: str = "") -> StateDict:
+    sd: StateDict = {}
+    for i, (block, bstate) in enumerate(zip(params["blocks"], state["blocks"])):
+        key = f"{prefix}conformer_layer.{i}"
+        for ffn in ("ffn1", "ffn2"):
+            _norm(sd, f"{key}.{ffn}.ln_norm", block[ffn]["norm"])
+            _linear(sd, f"{key}.{ffn}.w_1", block[ffn]["w1"])
+            _linear(sd, f"{key}.{ffn}.w_2", block[ffn]["w2"])
+        _norm(sd, f"{key}.mha.ln_norm", block["mha"]["norm"])
+        for name in ("q", "k", "v", "o"):
+            _linear(sd, f"{key}.mha.mha.linear{name.upper()}", block["mha"][name])
+        c = block["conv"]
+        _norm(sd, f"{key}.conv.ln_norm", c["norm"])
+        _conv1d(sd, f"{key}.conv.pointwise_conv1", c["pw1"])
+        _conv1d(sd, f"{key}.conv.depthwise_conv", c["dw"])
+        _batch_norm(sd, f"{key}.conv.bn_norm", c["bn"]["scale"], c["bn"]["bias"],
+                    bstate["bn"]["mean"], bstate["bn"]["var"])
+        _conv1d(sd, f"{key}.conv.pointwise_conv2", c["pw2"])
+        _norm(sd, f"{key}.ln_norm", block["final_norm"])
+    return sd
+
+
+def eend_state_dict_from_jax(params: dict, state: dict, cfg) -> StateDict:
+    """JAX EEND (params, state) -> the port's `EendModel` state dict."""
+    sd = wavlm_state_dict_from_jax(params["wavlm"], cfg.wavlm, prefix="wavlm_model.")
+    sd["weight_sum.weight"] = _t(np.asarray(params["weight_sum"]).reshape(1, -1))
+    _linear(sd, "proj", params["proj"])
+    _norm(sd, "lnorm", params["lnorm"])
+    sd.update(conformer_state_dict_from_jax(
+        params["conformer"], state["conformer"], prefix="conformer."))
+    _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def resnet_state_dict_from_jax(params: dict, cfg) -> StateDict:
+    """JAX ResNet params -> the port's `ResNet` state dict (WeSpeaker keys)."""
+    sd: StateDict = {}
+
+    def conv(key, p):
+        sd[f"{key}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+
+    def bn(key, p):
+        _batch_norm(sd, key, p["scale"], p["bias"], p["mean"], p["var"])
+
+    conv("conv1", params["conv1"])
+    bn("bn1", params["bn1"])
+    for li in range(1, len(cfg.num_blocks) + 1):
+        for bi, bp in enumerate(params[f"layer{li}"]):
+            key = f"layer{li}.{bi}"
+            conv(f"{key}.conv1", bp["conv1"])
+            bn(f"{key}.bn1", bp["bn1"])
+            conv(f"{key}.conv2", bp["conv2"])
+            bn(f"{key}.bn2", bp["bn2"])
+            if "shortcut_conv" in bp:
+                conv(f"{key}.shortcut.0", bp["shortcut_conv"])
+                bn(f"{key}.shortcut.1", bp["shortcut_bn"])
+    _linear(sd, "seg_1", params["seg1"])
+    return sd
+
+
+def random_state_dict(module: nn.Module, seed: int) -> StateDict:
+    """Seeded random weights at `module`'s shapes, drawn with numpy: linear
+    and conv weights uniform with variance 1 / fan_in, biases uniform in
+    +-1/sqrt(fan_in), norms the identity, embedding tables N(0, 0.02^2), and
+    weight-normed convs with g = ||v|| per tap."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, bound):
+        return torch.tensor(rng.uniform(-bound, bound, shape).astype(np.float32))
+
+    sd = module.state_dict()
+    out: StateDict = {}
+    for name, mod in module.named_modules():
+        key = f"{name}." if name else ""
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            fan_in = math.prod(mod.weight.shape[1:])
+            out[key + "weight"] = uniform(mod.weight.shape, math.sqrt(3.0 / fan_in))
+            if mod.bias is not None:
+                out[key + "bias"] = uniform(mod.bias.shape, math.sqrt(1.0 / fan_in))
+        elif isinstance(mod, nn.Embedding):
+            out[key + "weight"] = torch.tensor(
+                0.02 * rng.standard_normal(tuple(mod.weight.shape)).astype(np.float32))
+        elif hasattr(mod, "weight_v") and hasattr(mod, "weight_g"):
+            fan_in = math.prod(mod.weight_v.shape[1:])
+            v = uniform(mod.weight_v.shape, math.sqrt(3.0 / fan_in))
+            out[key + "weight_v"] = v
+            out[key + "weight_g"] = torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True))
+            out[key + "bias"] = uniform(mod.bias.shape, math.sqrt(1.0 / fan_in))
+    # everything else keeps its constructed value: norms (ones / zeros),
+    # running statistics, gates and per-channel scales (ones)
+    for name, value in sd.items():
+        out.setdefault(name, value.clone())
+    return out

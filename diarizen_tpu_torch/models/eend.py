@@ -1,0 +1,82 @@
+"""EEND segmentation model: WavLM + Conformer + powerset head (port of
+diarizen_tpu/models/eend.py, inference).
+
+Waveforms -> WavLM hidden states summed with learned layer weights (float32)
+-> Linear + LayerNorm -> Conformer -> Linear -> log-softmax over the powerset
+classes. Key layout as the reference's `pytorch_model.bin`: `wavlm_model.*`,
+`weight_sum.weight` (1, L), `proj`, `lnorm`, `conformer.*`, `classifier`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from diarizen_tpu_torch.models.common import layer_norm, linear
+from diarizen_tpu_torch.models.conformer import Conformer, ConformerConfig
+from diarizen_tpu_torch.models.wavlm import WavLM, WavLMConfig
+from diarizen_tpu_torch.ops.powerset import Powerset, num_powerset_classes
+from diarizen_tpu_torch.ops.receptive_field import (
+    multi_conv_receptive_field_center,
+    multi_conv_receptive_field_size,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EendConfig:
+    wavlm: WavLMConfig = WavLMConfig()
+    conformer: ConformerConfig = ConformerConfig()
+    wavlm_layer_num: int = 13  # hidden states incl. the conv output
+    wavlm_feat_dim: int = 768
+    attention_in: int = 256
+    max_speakers_per_chunk: int = 4
+    max_speakers_per_frame: int = 2
+    chunk_size: float = 8.0  # seconds
+    sample_rate: int = 16000
+    selected_channel: int = 0
+
+    @property
+    def num_powerset_classes(self) -> int:
+        return num_powerset_classes(self.max_speakers_per_chunk, self.max_speakers_per_frame)
+
+    @property
+    def powerset(self) -> Powerset:
+        return Powerset(self.max_speakers_per_chunk, self.max_speakers_per_frame)
+
+    def num_frames(self, num_samples: int) -> int:
+        return self.wavlm.num_frames(num_samples)
+
+    def rf_info(self) -> Tuple[float, float]:
+        """(frame step seconds, frame duration seconds) of the output frames."""
+        kernels = [k for _, k, _ in self.wavlm.conv_layers]
+        strides = [s for _, _, s in self.wavlm.conv_layers]
+        rf_size = multi_conv_receptive_field_size(1, kernels, strides)
+        c0 = multi_conv_receptive_field_center(0, kernels, strides)
+        c1 = multi_conv_receptive_field_center(1, kernels, strides)
+        return (c1 - c0) / self.sample_rate, rf_size / self.sample_rate
+
+
+class EendModel(nn.Module):
+    def __init__(self, cfg: EendConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.wavlm_model = WavLM(cfg.wavlm)
+        self.weight_sum = nn.Linear(cfg.wavlm_layer_num, 1, bias=False)
+        self.proj = nn.Linear(cfg.wavlm_feat_dim, cfg.attention_in)
+        self.lnorm = nn.LayerNorm(cfg.attention_in)
+        self.conformer = Conformer(cfg.conformer)
+        self.classifier = nn.Linear(cfg.attention_in, cfg.num_powerset_classes)
+
+    def forward(self, waveforms: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(B, C, num_samples) or (B, num_samples) -> float32 log-powerset
+        scores (B, F, P)."""
+        if waveforms.dim() == 3:
+            waveforms = waveforms[:, self.cfg.selected_channel]
+        feat = self.wavlm_model(waveforms, self.weight_sum.weight.reshape(-1), compute_dtype)
+        x = layer_norm(self.lnorm, linear(self.proj, feat.to(compute_dtype)))
+        x = self.conformer(x)
+        return torch.log_softmax(linear(self.classifier, x).float(), dim=-1)

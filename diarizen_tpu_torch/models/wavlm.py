@@ -1,0 +1,367 @@
+"""WavLM speech encoder (port of diarizen_tpu/models/wavlm.py, inference).
+
+Modules carry the reference's torch key layout (`feature_extractor.*`,
+`encoder.feature_projection.*`, `encoder.transformer.*`), so a reference
+WavLM state dict loads with `load_state_dict`. Heterogeneous pruned
+configurations (per-layer head subsets and FF widths, layers without
+attention) are supported. The self-attention with the gated relative-position
+bias runs through kernel K1 (`ops/flash_attention.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diarizen_tpu_torch.models.common import gelu, group_norm, layer_norm, linear
+from diarizen_tpu_torch.ops.flash_attention import flash_attention_gated_bias
+
+DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
+    (512, 10, 5),
+    (512, 3, 2),
+    (512, 3, 2),
+    (512, 3, 2),
+    (512, 3, 2),
+    (512, 2, 2),
+    (512, 2, 2),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class WavLMConfig:
+    """Architecture description; same fields as the JAX package's."""
+
+    extractor_mode: str = "group_norm"  # "group_norm" (Base) | "layer_norm" (Large)
+    conv_layers: Tuple[Tuple[int, int, int], ...] = DEFAULT_CONV_LAYERS
+    conv_bias: bool = False
+    embed_dim: int = 768
+    projection_dropout: float = 0.1
+    pos_conv_kernel: int = 128
+    pos_conv_groups: int = 16
+    num_layers: int = 12
+    use_attention: Tuple[bool, ...] = (True,) * 12
+    use_feed_forward: Tuple[bool, ...] = (True,) * 12
+    total_num_heads: Tuple[int, ...] = (12,) * 12
+    remaining_heads: Tuple[Tuple[int, ...], ...] = tuple(tuple(range(12)) for _ in range(12))
+    num_buckets: int = 320
+    max_distance: int = 800
+    attention_dropout: float = 0.1
+    ff_interm_features: Tuple[int, ...] = (3072,) * 12
+    ff_interm_dropout: float = 0.0
+    dropout: float = 0.1
+    layer_norm_first: bool = False  # False = post-LN (Base), True = pre-LN (Large)
+    layer_drop: float = 0.05
+    normalize_waveform: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.total_num_heads[0]
+
+    @property
+    def conv_out_channels(self) -> int:
+        return self.conv_layers[-1][0]
+
+    def num_frames(self, num_samples: int) -> int:
+        n = num_samples
+        for _, kernel, stride in self.conv_layers:
+            n = max(0, (n - kernel) // stride + 1)
+        return n
+
+    @staticmethod
+    def base_s80_md() -> "WavLMConfig":
+        """DiariZen-Base-s80 multi-domain pruned architecture (the released
+        checkpoint's shapes)."""
+        return WavLMConfig(
+            extractor_mode="group_norm",
+            conv_layers=((90, 10, 5), (161, 3, 2), (173, 3, 2), (181, 3, 2),
+                         (351, 3, 2), (155, 2, 2), (137, 2, 2)),
+            embed_dim=768,
+            num_layers=12,
+            use_attention=(True, True, True, True, True, True, True, True,
+                           False, False, True, True),
+            use_feed_forward=(True,) * 12,
+            total_num_heads=(12,) * 12,
+            remaining_heads=(
+                (1, 6), (5, 7, 8), (0, 3, 9), (0, 1, 4, 8, 11), (6, 8), (0,),
+                (7, 8, 10, 11), (0, 1, 4, 8), (), (), (4, 7), (5,),
+            ),
+            ff_interm_features=(666, 660, 649, 1080, 237, 299, 437, 573, 53,
+                                80, 211, 334),
+            layer_norm_first=False,
+            layer_drop=0.05,
+            normalize_waveform=False,
+        )
+
+
+@lru_cache(maxsize=32)
+def _rel_pos_buckets(seq_len: int, num_buckets: int, max_distance: int) -> np.ndarray:
+    """Static (T, T) bucket index matrix; the JAX package's numpy code
+    verbatim, float32/float64 mix included, so the buckets agree exactly."""
+    context = np.arange(seq_len, dtype=np.int64)[:, None]
+    memory = np.arange(seq_len, dtype=np.int64)[None, :]
+    rel = memory - context
+    nb = num_buckets // 2
+    buckets = (rel > 0).astype(np.int64) * nb
+    rel = np.abs(rel)
+    max_exact = nb // 2
+    is_small = rel < max_exact
+    large = max_exact + (
+        np.log(np.maximum(rel, 1).astype(np.float32) / max_exact)
+        / np.log(max_distance / max_exact)
+        * (nb - max_exact)
+    ).astype(np.int64)
+    large = np.minimum(large, nb - 1)
+    buckets += np.where(is_small, rel, large)
+    return buckets
+
+
+# ---------------------------------------------------------------------------
+# parameter containers (reference key layout)
+
+
+class _ConvLayerBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
+                 bias: bool, norm: Optional[str]):
+        super().__init__()
+        self.stride = stride
+        self.conv = nn.Conv1d(in_ch, out_ch, kernel, stride=stride, bias=bias)
+        if norm == "group":
+            self.layer_norm = nn.GroupNorm(out_ch, out_ch)
+        elif norm == "layer":
+            self.layer_norm = nn.LayerNorm(out_ch)
+        else:
+            self.layer_norm = None
+
+
+class _FeatureExtractor(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        blocks, in_ch = [], 1
+        for i, (out_ch, kernel, stride) in enumerate(cfg.conv_layers):
+            if cfg.extractor_mode == "layer_norm":
+                norm = "layer"
+            else:
+                norm = "group" if i == 0 else None
+            blocks.append(_ConvLayerBlock(in_ch, out_ch, kernel, stride, cfg.conv_bias, norm))
+            in_ch = out_ch
+        self.conv_layers = nn.ModuleList(blocks)
+        # per-channel scale on the extractor output (the reference's
+        # dummy_weight: ones, or the last conv layer's soft prune mask)
+        self.dummy_weight = nn.Parameter(torch.ones(cfg.conv_out_channels))
+
+
+class _FeatureProjection(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(in_dim)
+        self.projection = nn.Linear(in_dim, out_dim)
+
+
+class _WeightNormConv(nn.Module):
+    """Weight-normed grouped conv: w = g * v / ||v||, the norm taken over
+    (out, in / groups) for each kernel tap (torch weight_norm, dim=2)."""
+
+    def __init__(self, dim: int, kernel: int, groups: int):
+        super().__init__()
+        self.weight_g = nn.Parameter(torch.ones(1, 1, kernel))
+        self.weight_v = nn.Parameter(torch.zeros(dim, dim // groups, kernel))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # state dicts saved with torch.nn.utils.parametrizations.weight_norm
+        for name, old in (("weight_g", "parametrizations.weight.original0"),
+                          ("weight_v", "parametrizations.weight.original1")):
+            if prefix + old in state_dict:
+                state_dict[prefix + name] = state_dict.pop(prefix + old)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class _PosConvEmbed(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.conv = _WeightNormConv(cfg.embed_dim, cfg.pos_conv_kernel, cfg.pos_conv_groups)
+
+
+class _SelfAttention(nn.Module):
+    def __init__(self, cfg: WavLMConfig, i: int):
+        super().__init__()
+        d, hd = cfg.embed_dim, cfg.head_dim
+        inner = len(cfg.remaining_heads[i]) * hd
+        self.q_proj = nn.Linear(d, inner)
+        self.k_proj = nn.Linear(d, inner)
+        self.v_proj = nn.Linear(d, inner)
+        self.out_proj = nn.Linear(inner, d)
+        self.gru_rel_pos_linear = nn.Linear(hd, 8)
+        self.gru_rel_pos_const = nn.Parameter(torch.ones(1, cfg.total_num_heads[i], 1, 1))
+        if i == 0:  # the bias table of layer 0 serves every layer
+            self.rel_attn_embed = nn.Embedding(cfg.num_buckets, cfg.total_num_heads[0])
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, d: int, ff: int):
+        super().__init__()
+        self.intermediate_dense = nn.Linear(d, ff)
+        self.output_dense = nn.Linear(ff, d)
+
+
+class _EncoderLayer(nn.Module):
+    def __init__(self, cfg: WavLMConfig, i: int):
+        super().__init__()
+        d = cfg.embed_dim
+        self.attention = _SelfAttention(cfg, i) if cfg.use_attention[i] else None
+        self.layer_norm = nn.LayerNorm(d)
+        self.feed_forward = (
+            _FeedForward(d, cfg.ff_interm_features[i]) if cfg.use_feed_forward[i] else None
+        )
+        self.final_layer_norm = nn.LayerNorm(d)
+
+
+class _Transformer(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.pos_conv_embed = _PosConvEmbed(cfg)
+        self.layer_norm = nn.LayerNorm(cfg.embed_dim)
+        self.layers = nn.ModuleList(_EncoderLayer(cfg, i) for i in range(cfg.num_layers))
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.feature_projection = _FeatureProjection(cfg.conv_out_channels, cfg.embed_dim)
+        self.transformer = _Transformer(cfg)
+
+
+# ---------------------------------------------------------------------------
+# forward
+
+
+class WavLM(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        if not cfg.use_attention[0]:
+            raise ValueError("layer 0 holds the relative-position table and needs attention")
+        self.cfg = cfg
+        self.feature_extractor = _FeatureExtractor(cfg)
+        self.encoder = _Encoder(cfg)
+        self._buckets: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def forward(self, waveforms: torch.Tensor, layer_weights: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(B, num_samples) -> float32 (B, F, D) sum of the num_layers + 1
+        hidden states weighted by `layer_weights`, accumulated in float32."""
+        cfg = self.cfg
+        if cfg.num_frames(waveforms.shape[-1]) < 1:
+            raise ValueError(
+                f"input of {waveforms.shape[-1]} samples is shorter than the "
+                "conv receptive field: zero output frames"
+            )
+        if cfg.normalize_waveform:
+            waveforms = F.layer_norm(waveforms.float(), waveforms.shape[-1:], eps=1e-5)
+
+        x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype))
+        fp = self.encoder.feature_projection
+        x = linear(fp.projection, layer_norm(fp.layer_norm, x))
+
+        transformer = self.encoder.transformer
+        x = x + self._pos_conv(x)
+        if not cfg.layer_norm_first:
+            x = layer_norm(transformer.layer_norm, x)
+        position_bias = self._position_bias(x.shape[1], x.device)
+
+        w = layer_weights.float()
+        acc = w[0] * x.float()
+        for i, layer in enumerate(transformer.layers):
+            x = self._layer(i, layer, x, position_bias)
+            acc = acc + w[i + 1] * x.float()
+        return acc
+
+    def _feature_extractor(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1, num_samples) -> (B, F, C): conv stack, norm, GELU."""
+        fe = self.feature_extractor
+        for i, block in enumerate(fe.conv_layers):
+            conv = block.conv
+            bias = None if conv.bias is None else conv.bias.to(x.dtype)
+            x = F.conv1d(x, conv.weight.to(x.dtype), bias, stride=block.stride)
+            if isinstance(block.layer_norm, nn.GroupNorm):
+                x = group_norm(block.layer_norm, x, num_groups=x.shape[1])
+            elif block.layer_norm is not None:
+                x = layer_norm(block.layer_norm, x.transpose(1, 2)).transpose(1, 2)
+            x = gelu(x)
+        return x.transpose(1, 2) * fe.dummy_weight.to(x.dtype)
+
+    def _pos_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """Weight-normed grouped conv positional embedding on (B, T, D); an
+        even kernel's symmetric padding gives T + 1 frames, the last trimmed."""
+        conv = self.encoder.transformer.pos_conv_embed.conv
+        k = self.cfg.pos_conv_kernel
+        v = conv.weight_v.float()
+        norm = torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True))
+        w = conv.weight_g.float() * v / norm.clamp_min(1e-12)
+        y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), conv.bias.to(x.dtype),
+                     padding=k // 2, groups=self.cfg.pos_conv_groups)
+        if k % 2 == 0:
+            y = y[..., :-1]
+        return gelu(y.transpose(1, 2))
+
+    def _position_bias(self, t: int, device: torch.device) -> torch.Tensor:
+        """(H_total, T, T) float32 bias from layer 0's bucket embedding."""
+        key = (t, device)
+        if key not in self._buckets:
+            buckets = _rel_pos_buckets(t, self.cfg.num_buckets, self.cfg.max_distance)
+            self._buckets[key] = torch.as_tensor(buckets, device=device)
+        table = self.encoder.transformer.layers[0].attention.rel_attn_embed.weight
+        return table[self._buckets[key]].permute(2, 0, 1).float()
+
+    def _layer(self, i: int, layer: _EncoderLayer, x: torch.Tensor,
+               position_bias: torch.Tensor) -> torch.Tensor:
+        pre_ln = self.cfg.layer_norm_first
+        if layer.attention is not None:
+            h = layer_norm(layer.layer_norm, x) if pre_ln else x
+            x = x + self._self_attention(i, layer.attention, h, position_bias)
+        if pre_ln:
+            if layer.feed_forward is not None:
+                x = x + self._feed_forward(
+                    layer.feed_forward, layer_norm(layer.final_layer_norm, x))
+            return x
+        # post-LN: both norms apply even where a sublayer was pruned away
+        x = layer_norm(layer.layer_norm, x)
+        if layer.feed_forward is not None:
+            x = x + self._feed_forward(layer.feed_forward, x)
+        return layer_norm(layer.final_layer_norm, x)
+
+    def _self_attention(self, i: int, attn: _SelfAttention, x: torch.Tensor,
+                        position_bias: torch.Tensor) -> torch.Tensor:
+        """Gated relative-position self-attention over the layer's remaining
+        heads. The GRU gate reads the raw input of ALL total_num_heads heads;
+        the remaining heads are selected after it."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        total_heads = cfg.total_num_heads[i]
+        remaining = list(cfg.remaining_heads[i])
+        nh, hd = len(remaining), cfg.head_dim
+
+        weight = torch.cat([attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight])
+        bias = torch.cat([attn.q_proj.bias, attn.k_proj.bias, attn.v_proj.bias])
+        qkv = F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
+        q, k, v = (z.reshape(b, t, nh, hd).transpose(1, 2).contiguous()
+                   for z in qkv.split(nh * hd, dim=-1))
+
+        gru = linear(attn.gru_rel_pos_linear, x.reshape(b, t, total_heads, hd))
+        gates = torch.sigmoid(gru.float().reshape(b, t, total_heads, 2, 4).sum(-1))
+        const = attn.gru_rel_pos_const.float().reshape(1, 1, total_heads)
+        gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Ht)
+        gate = gate.transpose(1, 2)[:, remaining].contiguous()  # (B, nh, T)
+
+        pos = position_bias[remaining].to(q.dtype)  # (nh, T, T)
+        out = flash_attention_gated_bias(q, k, v, pos, gate)
+        return linear(attn.out_proj, out.transpose(1, 2).reshape(b, t, nh * hd))
+
+    @staticmethod
+    def _feed_forward(ff: _FeedForward, x: torch.Tensor) -> torch.Tensor:
+        return linear(ff.output_dense, gelu(linear(ff.intermediate_dense, x)))
