@@ -4,34 +4,49 @@
 
 Phases (any failure exits non-zero, before the last line is printed):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build kernel K1 (csrc/gated_bias_attention.cu) with nvcc;
-  3. K1 against its plain PyTorch version on the card at the main path's
+  2. build kernels K1 and K2 (csrc/gated_bias_attention.cu) with nvcc;
+  3. K1 against its plain PyTorch version on the card at the serving path's
      shapes, with CUDA-event timings of the kernel, the plain version and
      one PyTorch call computing the same function (yardstick only);
-  4. the slice: DiariZen-Base-s80 EEND and the WeSpeaker ResNet34 at full
+  4. K1's training instance (attention dropout) and K2 (the backward)
+     against the plain version and its autograd, output and all five
+     gradients, in float32 and bfloat16, at T in {37, 399, 799}, rate 0 and
+     0.1; then timed at the WavLM-Base training shapes;
+  5. serving: DiariZen-Base-s80 EEND and the WeSpeaker ResNet34 at full
      width with seeded random weights; the card's output checked against
      the CPU's on two windows; then a 120 s synthetic two-speaker file
      through DiarizationPipeline once to warm up and once timed, counting
      K1's launches over the timed call;
-  5. one more pipeline call under torch.profiler: device time by kernel and
+  6. one more pipeline call under torch.profiler: device time by kernel and
      the device's busy share;
-  6. a JSON line with the kernels' numbers, the nvidia-smi line, and a last
+  7. training: one float32 train step of a narrow model on the card against
+     the CPU; then WavLM-Base + Conformer (the flagship recipe's model) from
+     seeded random weights on a synthetic Kaldi directory, through the
+     DataLoader and the Trainer with the recipe's dual-LR optimizer: one
+     epoch of 8 steps at batch 16 x 8 s in bfloat16, a validation pass and a
+     checkpoint, counting K1's and K2's launches per step; the checkpoint
+     loaded back into EendModel; one more step under torch.profiler;
+  8. a JSON line with the kernels' numbers, the nvidia-smi line, and a last
      JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from diarizen_tpu_torch.cluster import AgglomerativeClustering
+from diarizen_tpu_torch.core.audio import write_wav
 from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
 from diarizen_tpu_torch.models.conformer import ConformerConfig
 from diarizen_tpu_torch.models.convert import random_state_dict
@@ -40,6 +55,10 @@ from diarizen_tpu_torch.models.fbank import wespeaker_fbank
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
 from diarizen_tpu_torch.models.wavlm import WavLMConfig
 from diarizen_tpu_torch.ops import flash_attention as k1
+from diarizen_tpu_torch.train import Trainer, TrainerConfig, dual_lr_optimizer, train_step
+from diarizen_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
+from diarizen_tpu_torch.train.step import create_train_state
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
@@ -47,6 +66,9 @@ BF16_FLOP_PER_S = 989e12
 
 BATCH, FRAMES, HEAD_DIM = 32, 399, 64  # one segmentation batch of 8 s windows
 AUDIO_SECONDS = 120
+TRAIN_BATCH, TRAIN_HEADS, TRAIN_STEPS = 16, 12, 8  # WavLM-Base, the recipe's batch
+DROPOUT_RATE, DROPOUT_SEED = 0.1, 1234
+LR_SMALL, LR_BIG = 2e-5, 1e-3  # the recipe's learning rates: WavLM, the rest
 
 
 def make_wave(dur_s: int, sr: int = 16000) -> np.ndarray:
@@ -175,6 +197,331 @@ def phase_kernel(heads_per_layer) -> dict:
     }
 
 
+def trainable_bound_s(b, h, t, d, itemsize) -> dict:
+    """(bytes / HBM rate, flops / bf16 peak) of K1's training instance and of
+    K2, one call each. K1: q, k, v read, o written, the bias and the gate
+    read, the f32 log-sum-exp written; two T x T x D products. K2: q, k, v,
+    o, dO read, dq, dk, dv written, the bias, gate and log-sum-exp read,
+    d pos_bias (f32) and dgate written; five T x T x D products."""
+    act, bias, row = b * h * t * d * itemsize, h * t * t, b * h * t * 4
+    return {
+        "fwd": ((4 * act + bias * itemsize + 2 * row) / HBM_BYTES_PER_S,
+                4 * b * h * t * t * d / BF16_FLOP_PER_S),
+        "bwd": ((8 * act + bias * itemsize + bias * 4 + 3 * row) / HBM_BYTES_PER_S,
+                10 * b * h * t * t * d / BF16_FLOP_PER_S),
+    }
+
+
+def trainable_inputs(b, h, t, dtype, gen):
+    q, k, v, do = (torch.randn((b, h, t, HEAD_DIM), generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    pos = torch.randn((h, t, t), generator=gen, device="cuda")  # float32, as WavLM's table
+    gate = 1.0 + torch.rand((b, h, t), generator=gen, device="cuda")
+    return (q, k, v, pos, gate), do
+
+
+def phase_trainable_kernels() -> list:
+    """K1's training instance and K2 against the plain version's forward and
+    autograd backward on the same inputs and cotangent. Tolerance, of each
+    tensor's largest magnitude: 1e-4 in float32 (reassociation; one wrong
+    mask bit at T = 399 costs about 2.5e-3), 2e-2 in bfloat16 (the kernels
+    round p, dS and W * m to bf16 for the tensor-core products, and sum in
+    another order)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    names = ("o", "dq", "dk", "dv", "dpos_bias", "dgate")
+    main_err = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, t in ((2, 3, 37), (TRAIN_BATCH, TRAIN_HEADS, FRAMES), (2, 3, 799)):
+            for rate in (0.0, DROPOUT_RATE):
+                inputs, do = trainable_inputs(b, h, t, dtype, gen)
+                results = []
+                for fn in (k1.flash_attention_gated_bias_trainable,
+                           k1.flash_attention_gated_bias_reference):
+                    leaves = [x.clone().requires_grad_() for x in inputs]
+                    out = fn(*leaves, dropout_rate=rate, seed=DROPOUT_SEED)
+                    out.backward(do)
+                    results.append([out.detach()] + [x.grad for x in leaves])
+                torch.cuda.synchronize()
+                rel = []
+                for name, got, want in zip(names, *results):
+                    err = (got.float() - want.float()).abs().max().item()
+                    scale = want.float().abs().max().item()
+                    rel.append(err / scale)
+                    check(np.isfinite(err) and err <= tolerance[dtype] * scale,
+                          f"{name} of K1/K2 disagrees with the plain version: {err} of "
+                          f"{scale} at {dtype} B={b} H={h} T={t} rate={rate}")
+                    if dtype == torch.bfloat16 and t == FRAMES and rate > 0:
+                        key = "fwd" if name == "o" else "bwd"
+                        main_err[key] = max(main_err[key], err)
+                print(f"K1+K2 vs plain {str(dtype)[6:]} B={b} H={h} T={t} rate={rate}: "
+                      + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, rel))
+                      + f" of max magnitude (tolerance {tolerance[dtype]:.0e})")
+
+    # timings at WavLM-Base training shapes, bf16, rate 0.1
+    (q, k, v, pos, gate), do = trainable_inputs(TRAIN_BATCH, TRAIN_HEADS, FRAMES,
+                                                torch.bfloat16, gen)
+    bias = pos.to(torch.bfloat16)
+    mask = (gate[..., None] * pos).to(torch.bfloat16)
+    args = (q, k, v, pos, gate, DROPOUT_RATE, DROPOUT_SEED)
+    out, lse = k1._forward_train(q, k, v, bias, gate, DROPOUT_RATE, DROPOUT_SEED)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+    plain = k1.flash_attention_gated_bias_reference(*leaves, DROPOUT_RATE, DROPOUT_SEED)
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v, mask)]
+    lib = F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
+                                         dropout_p=DROPOUT_RATE)
+    fwd = {
+        "ms": median_ms(lambda: k1._forward_train(q, k, v, bias, gate, DROPOUT_RATE,
+                                                  DROPOUT_SEED)),
+        "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(*args)),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=DROPOUT_RATE)),
+    }
+    bwd = {
+        "ms": median_ms(lambda: k1._backward(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE,
+                                             DROPOUT_SEED)),
+        "plain_ms": median_ms(lambda: torch.autograd.grad(plain, leaves, do,
+                                                          retain_graph=True)),
+        "library_ms": median_ms(lambda: torch.autograd.grad(lib, lib_leaves, do,
+                                                            retain_graph=True)),
+    }
+    bounds = trainable_bound_s(TRAIN_BATCH, TRAIN_HEADS, FRAMES, HEAD_DIM, 2)
+    entries = []
+    for key, row, name, replaces in (
+            ("fwd", fwd, "gated_bias_attention_train", "diarizen_tpu/ops/flash_attention.py:201"),
+            ("bwd", bwd, "gated_bias_attention_bwd", "diarizen_tpu/ops/flash_attention.py:326")):
+        mem_s, op_s = bounds[key]
+        print(f"{name} bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} T={FRAMES} rate={DROPOUT_RATE}: "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {1e3 * max(mem_s, op_s):.4f} ms "
+              f"({1e3 * mem_s:.4f} bytes, {1e3 * op_s:.4f} operations)")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "diarizen_tpu_torch/csrc/gated_bias_attention.cu", "replaces": replaces,
+            "max_abs_err": main_err[key], **row,
+            "bound_ms": 1e3 * max(mem_s, op_s),
+            "bound_by": "bytes" if mem_s >= op_s else "operations",
+        })
+    return entries
+
+
+def write_kaldi_dir(root: Path, name: str, durations, seed: int) -> Path:
+    """A synthetic Kaldi directory: per recording two to four speakers
+    (tones with noise) in turns of 1-5 s that overlap, PCM16 WAVs, RTTM and
+    UEM."""
+    rng = np.random.default_rng(seed)
+    out = root / name
+    out.mkdir(parents=True)
+    scp, rttm, uem = [], [], []
+    for r, dur in enumerate(durations):
+        rec = f"{name}{r}"
+        t = np.arange(dur * 16000) / 16000
+        wave = 0.005 * rng.standard_normal(t.shape)
+        num_spk = int(rng.integers(2, 5))
+        pos = 0.5
+        while pos < dur - 1.5:
+            spk = int(rng.integers(num_spk))
+            seg = float(rng.uniform(1.0, 5.0))
+            end = min(pos + seg, dur - 0.5)
+            m = (t >= pos) & (t < end)
+            wave[m] += 0.15 * np.sin(2 * np.pi * (150 + 70 * spk) * t[m])
+            rttm.append(f"SPEAKER {rec} 1 {pos:.2f} {end - pos:.2f} <NA> <NA> spk{spk} <NA> <NA>")
+            pos += seg * float(rng.uniform(0.6, 1.1))  # overlaps where < 1
+        path = out / f"{rec}.wav"
+        write_wav(path, wave[None].astype(np.float32), 16000)
+        scp.append(f"{rec} {path}")
+        uem.append(f"{rec} 1 0.00 {dur:.2f}")
+    for fname, lines in (("wav.scp", scp), ("rttm", rttm), ("all.uem", uem)):
+        (out / fname).write_text("\n".join(lines) + "\n")
+    return out
+
+
+def kaldi_dataset(path: Path, cfg: EendConfig, shift: float) -> DiarizationDataset:
+    step, dur = cfg.rf_info()
+    return DiarizationDataset(str(path / "wav.scp"), str(path / "rttm"), str(path / "all.uem"),
+                              model_num_frames=cfg.num_frames(128000), model_rf_duration=dur,
+                              model_rf_step=step, chunk_size=8.0, chunk_shift=shift)
+
+
+def recipe_optimizer(model: EendModel):
+    """The flagship recipe's optimizer: AdamW at 2e-5 on WavLM and 1e-3 on
+    the rest, behind percentile AutoClip at 90."""
+    return dual_lr_optimizer(model.param_groups(), lr_small=LR_SMALL, lr_big=LR_BIG,
+                             clip_percentile=90.0)
+
+
+# parameters whose gradient is zero in exact arithmetic: attention key biases
+# (softmax ignores a per-row shift) and the depthwise-conv bias in front of a
+# BatchNorm on batch statistics (the mean takes it out)
+NULL_GRADIENT = ("k_proj.bias", "linearK.bias", "depthwise_conv.bias")
+
+
+def phase_train_reference() -> None:
+    """One float32 train step of a narrow model (all dropouts 0) on the card
+    (K1 and K2 in float32) against the CPU (the plain attention): loss,
+    gradient norm and the updated parameters within 1e-3. Adam's first step
+    moves a parameter by about its learning rate whatever the size of its
+    gradient, so a parameter of NULL_GRADIENT, whose gradient is rounding
+    noise of either sign on each device, is held only to twice the step."""
+    wavlm = dataclasses.replace(
+        WavLMConfig.base(), embed_dim=256, num_layers=2, use_attention=(True,) * 2,
+        use_feed_forward=(True,) * 2, total_num_heads=(4,) * 2,
+        remaining_heads=((0, 1, 2, 3),) * 2, ff_interm_features=(512,) * 2,
+        projection_dropout=0.0, attention_dropout=0.0, dropout=0.0, layer_drop=0.0)
+    cfg = EendConfig(wavlm=wavlm, conformer=ConformerConfig(dim=64, ffn_hidden=128, num_layers=2,
+                                                            dropout=0.0),
+                     wavlm_layer_num=3, wavlm_feat_dim=256, attention_in=64)
+    rng = np.random.default_rng(5)
+    nf = cfg.num_frames(32000)
+    batch = {"xs": (0.1 * rng.standard_normal((4, 1, 32000))).astype(np.float32),
+             "target": (rng.uniform(size=(4, nf, 4)) > 0.6).astype(np.uint8)}
+    sd = random_state_dict(EendModel(cfg), seed=3)
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = EendModel(cfg)
+        model.load_state_dict(sd)
+        state = create_train_state(model, recipe_optimizer(model), device)
+        metrics = train_step(state, batch, seed=0, compute_dtype=torch.float32)
+        results[device] = (metrics, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (m_cpu, p_cpu), (m_gpu, p_gpu) = results["cpu"], results["cuda"]
+    errs = sorted(((p_gpu[k].float() - p_cpu[k].float()).abs().max().item(), k) for k in p_cpu
+                  if not k.endswith(NULL_GRADIENT))
+    param_err, worst = errs[-1]
+    null_err = max((p_gpu[k].float() - p_cpu[k].float()).abs().max().item() for k in p_cpu
+                   if k.endswith(NULL_GRADIENT))
+    moved = max((p_cpu[k].float() - sd[k].float()).abs().max().item() for k in p_cpu)
+    print(f"f32 train step card vs CPU: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, "
+          f"grad norm {m_gpu['grad_norm']:.6f} vs {m_cpu['grad_norm']:.6f}, updated parameters "
+          f"max abs err {param_err:.3e} in {worst}, {null_err:.3e} where the gradient is "
+          f"zero in exact arithmetic (largest move {moved:.3e})")
+    check(abs(m_gpu["loss"] - m_cpu["loss"]) <= 1e-3 * max(1.0, abs(m_cpu["loss"])),
+          "train-step loss on the card disagrees with the CPU")
+    check(abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) <= 1e-3 * max(1.0, m_cpu["grad_norm"]),
+          "train-step gradient norm on the card disagrees with the CPU")
+    check(param_err <= 1e-3 and null_err <= 2 * LR_BIG and moved > 0,
+          "updated parameters on the card disagree with the CPU")
+
+
+class StepRecorder:
+    """Trainer step hook: each step's metrics, wall time since the previous
+    step ended (the step reads its loss and gradient norm, so the device has
+    finished it), and K1's and K2's launches during the step."""
+
+    def __init__(self):
+        self.steps = []
+        self.last = time.perf_counter()
+        self.counts = (0, 0)
+
+    def __call__(self, metrics) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = (k1.train_launches, k1.bwd_launches)
+        self.steps.append({**metrics, "ms": 1e3 * (now - self.last),
+                           "k1": counts[0] - self.counts[0], "k2": counts[1] - self.counts[1]})
+        self.last, self.counts = now, counts
+
+
+def profile_train_step(trainer, batch, card: str, top: int = 12) -> None:
+    """One more train step under torch.profiler: device time by kernel, the
+    share of K1 and K2, and the operators (with their input shapes) whose
+    kernels take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        train_step(trainer.state, batch, trainer.tc.seed, trainer.compute_dtype)
+        torch.cuda.synchronize()
+    ops = sorted((a for a in prof.key_averages(group_by_input_shape=True)
+                  if a.device_type == DeviceType.CPU and a.key.startswith("aten::")
+                  and a.key not in ("aten::to", "aten::_to_copy")),
+                 key=lambda a: -a.device_time_total)
+    for a in ops[:5]:
+        print(f"  operator {a.device_time_total / 1e3:9.3f} ms device time x{a.count:<4d} "
+              f"{a.key} {str(a.input_shapes)[:120]}")
+    rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
+                  key=lambda a: -a.self_device_time_total)
+    check(len(rows) > 0, "the profiler recorded no device activity")
+    total = sum(a.self_device_time_total for a in rows) / 1e3
+    k1_ms = sum(a.self_device_time_total for a in rows
+                if "gated_bias_attention_bf16_kernel" in a.key) / 1e3
+    k2_ms = sum(a.self_device_time_total for a in rows if "attention_bwd_" in a.key) / 1e3
+    print(f"profiled train step {card}: {total:.3f} ms of device time; K1 {k1_ms:.3f} ms "
+          f"({100 * k1_ms / total:.1f}%), K2 {k2_ms:.3f} ms ({100 * k2_ms / total:.1f}%)")
+    for a in rows[:top]:
+        print(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:100]}")
+
+
+def phase_training(card: str) -> dict:
+    """WavLM-Base + Conformer trained for one epoch of TRAIN_STEPS steps on a
+    synthetic Kaldi directory through the DataLoader and the Trainer; returns
+    the launches of K1's training instance and K2 in that run."""
+    cfg = EendConfig(wavlm=WavLMConfig.base(), conformer=ConformerConfig())
+    model = EendModel(cfg)
+    model.load_state_dict(random_state_dict(model, seed=0))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # 4 x 200 s at 8 s / 6 s: 128 chunks = 8 batches of 16; dev 70 s at 8 s / 8 s: 8 chunks
+        train_ds = kaldi_dataset(write_kaldi_dir(root, "train", [200] * 4, seed=0), cfg, 6.0)
+        dev_ds = kaldi_dataset(write_kaldi_dir(root, "dev", [70], seed=1), cfg, 8.0)
+        train_loader = DataLoader(train_ds, batch_size=TRAIN_BATCH, shuffle=True, seed=3407)
+        val_loader = DataLoader(dev_ds, batch_size=8, shuffle=False)
+        check(len(train_loader) == TRAIN_STEPS and len(val_loader) == 1,
+              f"expected {TRAIN_STEPS} train batches and 1 dev batch")
+        recorder = StepRecorder()
+        trainer = Trainer(model, TrainerConfig(exp_dir=str(root / "exp"), max_epochs=1,
+                                               compute_dtype="bfloat16", log_every=1000,
+                                               max_num_checkpoints=1),
+                          recipe_optimizer(model), step_hook=recorder)
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k1.train_launches = k1.bwd_launches = 0
+        t0 = recorder.last = time.perf_counter()
+        val = trainer.train(train_loader, val_loader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"inference": k1.launches, "train": k1.train_launches, "bwd": k1.bwd_launches}
+        peak = torch.cuda.max_memory_allocated()
+
+        steps = recorder.steps
+        for i, st in enumerate(steps):
+            print(f"  train step {i}: loss {st['loss']:.5f} grad norm {st['grad_norm']:.4f} "
+                  f"{st['ms']:.2f} ms; attention layers {st['attention_layers']}, K1 "
+                  f"{st['k1']}, K2 {st['k2']}")
+        step_ms = float(np.median([st["ms"] for st in steps[2:]]))
+        print(f"training {card}: {len(steps)} steps of {TRAIN_BATCH} x 8 s in {seconds:.3f} s "
+              f"with validation and checkpoint; median {step_ms:.2f} ms/step after 2 warm-up "
+              f"steps; peak device memory {peak / 2**30:.3f} GiB")
+        print(f"validation: loss {val['loss']:.5f}, DER {val['der']:.5f}; launches in the run: "
+              f"K1 training {launches['train']}, K2 {launches['bwd']}, K1 inference "
+              f"{launches['inference']}")
+        check(len(steps) == TRAIN_STEPS and all(np.isfinite(st["loss"]) and not st["skipped"]
+                                                for st in steps), "a train step was not finite")
+        check(all(st["k1"] == st["k2"] == st["attention_layers"] > 0 for st in steps),
+              "K1/K2 launches per step differ from the attention layers the step ran")
+        check(launches["inference"] == cfg.wavlm.num_layers * len(val_loader),
+              f"expected {cfg.wavlm.num_layers} K1 inference launches in validation")
+        check(np.isfinite(val["loss"]) and np.isfinite(val["der"]), "validation not finite")
+
+        ckpt = latest_checkpoint(root / "exp" / "checkpoints")
+        check(ckpt is not None and ckpt.name == "epoch_0000", "no checkpoint was saved")
+        state_dict, _, meta = load_checkpoint(ckpt)
+        served = EendModel(cfg)
+        served.load_state_dict(state_dict)
+        trained = trainer.model.state_dict()
+        check(all(torch.equal(v, trained[k].cpu()) for k, v in served.state_dict().items()),
+              "the checkpoint does not hold the trained weights")
+        batch = next(iter(val_loader))
+        with torch.inference_mode():
+            scores = served.to("cuda").eval()(torch.from_numpy(batch["xs"]).cuda(),
+                                              torch.bfloat16)
+        check(scores.shape == (8, FRAMES, cfg.num_powerset_classes)
+              and bool(torch.isfinite(scores).all()), "the reloaded model's scores")
+        print(f"checkpoint {ckpt.name} (step {meta['step']}) reloaded into EendModel: scores "
+              f"{tuple(scores.shape)} finite")
+        profile_train_step(trainer, next(iter(train_loader)), card)
+    return launches
+
+
 def phase_reference(eend_sd, resnet_sd, eend_cfg, wave) -> None:
     """The card's float32 output (kernel path) against the CPU's (plain
     path) on two 8 s windows, for the segmentation scores and the masked
@@ -262,7 +609,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = k1.build()
-    print(f"K1 build: {time.perf_counter() - t0:.1f} s")
+    print(f"K1 + K2 build: {time.perf_counter() - t0:.1f} s")
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -275,6 +622,7 @@ def main() -> int:
     wave = make_wave(AUDIO_SECONDS)
     with strict_float32():
         kernel = phase_kernel(heads)
+        trainable = phase_trainable_kernels()
         phase_reference(eend_sd, resnet_sd, eend_cfg, wave)
 
     model = EendModel(eend_cfg)
@@ -294,7 +642,7 @@ def main() -> int:
     print(f"pipeline warm-up: {time.perf_counter() - t0:.3f} s")
 
     timer = StageTimer()
-    k1.launches = 0
+    k1.launches = k1.train_launches = k1.bwd_launches = 0
     t0 = timer.last = time.perf_counter()
     ann = pipeline(wave, 16000, uri="smoke", hook=timer)
     torch.cuda.synchronize()
@@ -320,8 +668,14 @@ def main() -> int:
 
     phase_profile(pipeline, wave)
 
+    with strict_float32():
+        phase_train_reference()
+    train_launches = phase_training(card)
+
     kernel["launches"] = launches
-    print(json.dumps({"kernels": [kernel]}))
+    trainable[0]["launches"] = train_launches["train"]
+    trainable[1]["launches"] = train_launches["bwd"]
+    print(json.dumps({"kernels": [kernel, *trainable]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

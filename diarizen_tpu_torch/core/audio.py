@@ -1,0 +1,108 @@
+"""Audio io for the training data (port of the WAV half of
+diarizen_tpu/core/audio.py).
+
+WAV files (any PCM width or IEEE float) are read with the standard library's
+byte layout and numpy, with random access by `start_frame` / `num_frames`,
+into float32 in [-1, 1]. FLAC is not decoded here.
+"""
+
+from __future__ import annotations
+
+import wave
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+def read_wav(path, start_frame: int = 0,
+             num_frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """Read a WAV file (path or seekable binary file object) into float32
+    (channels, samples) in [-1, 1]; returns (waveform, sample_rate)."""
+    if hasattr(path, "read"):
+        path.seek(0)
+        return _read_wav_stream(path, "<file-like>", start_frame, num_frames)
+    with open(path, "rb") as fh:
+        return _read_wav_stream(fh, str(path), start_frame, num_frames)
+
+
+def _read_wav_stream(fh, name: str, start_frame: int,
+                     num_frames: Optional[int]) -> Tuple[np.ndarray, int]:
+    header = fh.read(12)
+    if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
+        raise ValueError(f"{name}: not a RIFF/WAVE file")
+    fmt = data_offset = data_size = None
+    while True:
+        chunk_header = fh.read(8)
+        if len(chunk_header) < 8:
+            break
+        chunk_id = chunk_header[:4]
+        chunk_size = int.from_bytes(chunk_header[4:8], "little")
+        if chunk_id == b"fmt ":
+            fmt_bytes = fh.read(chunk_size)
+            audio_format = int.from_bytes(fmt_bytes[0:2], "little")
+            channels = int.from_bytes(fmt_bytes[2:4], "little")
+            sample_rate = int.from_bytes(fmt_bytes[4:8], "little")
+            bits = int.from_bytes(fmt_bytes[14:16], "little")
+            if audio_format == 0xFFFE and chunk_size >= 40:  # extensible
+                audio_format = int.from_bytes(fmt_bytes[24:26], "little")
+            fmt = (audio_format, channels, sample_rate, bits)
+            if chunk_size & 1:
+                fh.seek(1, 1)
+        elif chunk_id == b"data":
+            data_offset, data_size = fh.tell(), chunk_size
+            fh.seek(chunk_size + (chunk_size & 1), 1)
+        else:
+            fh.seek(chunk_size + (chunk_size & 1), 1)
+    if fmt is None or data_offset is None:
+        raise ValueError(f"{name}: missing fmt/data chunk")
+    audio_format, channels, sample_rate, bits = fmt
+    bytes_per_frame = channels * bits // 8
+    total_frames = data_size // bytes_per_frame
+    if num_frames is None:
+        num_frames = total_frames - start_frame
+    num_frames = max(0, min(num_frames, total_frames - start_frame))
+    fh.seek(data_offset + start_frame * bytes_per_frame)
+    raw = fh.read(num_frames * bytes_per_frame)
+
+    if audio_format == 3:  # IEEE float
+        x = np.frombuffer(raw, dtype=np.float32 if bits == 32 else np.float64).astype(np.float32)
+    elif audio_format == 1:  # PCM
+        if bits == 16:
+            x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+        elif bits == 32:
+            x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+        elif bits == 8:
+            x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+        elif bits == 24:
+            b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3).astype(np.int32)
+            x = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
+            x = np.where(x >= (1 << 23), x - (1 << 24), x).astype(np.float32) / float(1 << 23)
+        else:
+            raise ValueError(f"unsupported PCM width: {bits}")
+    else:
+        raise ValueError(f"unsupported WAV format code: {audio_format}")
+    return np.ascontiguousarray(x.reshape(-1, channels).T), sample_rate
+
+
+def read_audio(path, start_frame: int = 0,
+               num_frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """Read an audio file into float32 (channels, samples). Only WAV is
+    decoded; FLAC and other formats raise."""
+    if not hasattr(path, "read") and Path(path).suffix.lower() not in (".wav", ".wave"):
+        raise ValueError(
+            f"{path}: only WAV is decoded by diarizen_tpu_torch; convert to WAV "
+            "(e.g. ffmpeg -i in.flac out.wav)")
+    return read_wav(path, start_frame=start_frame, num_frames=num_frames)
+
+
+def write_wav(path, waveform: np.ndarray, sample_rate: int) -> None:
+    """Write a float waveform (channels, samples) or (samples,) as PCM16."""
+    if waveform.ndim == 1:
+        waveform = waveform[None]
+    pcm = np.clip(waveform.T * 32767.0, -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(waveform.shape[0])
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())

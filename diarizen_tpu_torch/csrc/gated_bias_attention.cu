@@ -1,29 +1,52 @@
-// Attention forward with a fused, query-gated relative-position bias (K1).
+// Attention with a fused, query-gated relative-position bias: the forward
+// (K1) and its backward (K2).
 //
-//   o[b,h,i,:] = softmax_j(q[b,h,i,:] . k[b,h,j,:] / sqrt(D)
-//                          + gate[b,h,i] * bias[h,i,j]) @ v[b,h,:,:]
+//   s[b,h,i,j] = q[b,h,i,:] . k[b,h,j,:] / sqrt(D) + gate[b,h,i] * bias[h,i,j]
+//   w = softmax_j(s),  o[b,h,i,:] = sum_j (w * m)[b,h,i,j] v[b,h,j,:]
 //
-// Replaces the Pallas TPU kernel diarizen_tpu/ops/flash_attention.py:_kernel
-// (launched by flash_attention_gated_bias) on the inference path, with the
-// same "deferred" softmax schedule: unnormalised p @ v accumulated in f32 and
-// one divide by the f32 row sum at the end; p is rounded to the input type
-// before the p @ v product, as the TPU kernel rounds it to v's type.
+// where m is the attention-dropout keep mask in {0, 1/(1-rate)} (all ones at
+// rate 0), a pure hash of (seed, b, h, i, j) that the backward replays.
 //
-// Bound on an H100: for WavLM's T = 399, D = 64 the kernel reads q, k, v
-// (B, H, T, D), the (H, T, T) bias and the (B, H, T) gate once and writes o:
-// about 6.9 MB per head of a batch of 32 in bf16, against 4 * 32 * T^2 * D =
-// 1.3 GFLOP of matrix products; at 3.35 TB/s and 989 TFLOP/s that is memory
-// bound (about 2.1 us of traffic per head against 1.3 us of tensor-core work).
+// K1 replaces the Pallas TPU kernel diarizen_tpu/ops/flash_attention.py:_kernel
+// (launched by flash_attention_gated_bias), with the "deferred" softmax
+// schedule: unnormalised p @ v accumulated in f32 and one divide by the f32
+// row sum at the end; p is rounded to the input type before the p @ v
+// product, as the TPU kernel rounds it to v's type. It has two instances:
+//  * inference (kTrain = false): rate 0, no side output;
+//  * training (kTrain = true): applies the dropout mask to p after the row
+//    sum (the sum is taken before the mask, as in the TPU kernel) and writes
+//    the f32 row log-sum-exp lse = max + log(sum) that K2 needs.
 //
-// Design: one block per (batch, head, 64-row query tile) walks the keys in
-// 64-key tiles staged in shared memory, keeps an online-softmax running max
-// and sum per row in registers, and never writes the (T, T) scores or the
-// gated bias to device memory; the bias tile is read straight from device
-// memory. Keys past T are masked in the kernel, so no input is padded.
-//  * bfloat16 (the inference path): four warps, 16 query rows each; both
-//    products on the tensor cores with mma.sync m16n8k16 (f32 accumulate).
-//    The score accumulator's register layout is the A-operand layout of the
-//    p @ v product, so p never leaves registers.
+// K2 replaces the Pallas TPU kernel ops/flash_attention.py:_bwd_kernel
+// (launched by _flash_bwd). With W = exp(s - lse), dW' = dO V^T,
+// D = rowsum(dO * O) and dS = W * (dW' * m - D), it writes
+//   dq = dS K / sqrt(D),  dk = dS^T Q / sqrt(D),  dv = (W * m)^T dO,
+//   dgate[b,h,i] = sum_j dS * bias[h,i,j],  dbias[h,i,j] = sum_b gate * dS.
+// The TPU kernel carries dbias from one grid step to the next along its
+// sequential batch axis; on Hopper blocks run in no order, so K2 is two
+// passes that need no atomics:
+//  * pass A (dq, dgate, dbias, D): one block per (head, 64 query rows) loops
+//    over the batch and the 64-key tiles; it owns its rows of dbias for the
+//    whole call and adds each batch's tile in place in device memory (the
+//    tile, 64 x T f32, stays in L2), keeps dq and the dgate row sums in
+//    registers, and writes D for pass B.
+//  * pass B (dk, dv): one block per (batch, head, 64 keys) loops over the
+//    query tiles, FlashAttention-2 style, with the saved lse and D.
+// Keys past T get dS = 0 and W = 0; query rows past T contribute nothing.
+//
+// Bound on an H100 at WavLM-Base training shapes (B 16, H 12, T 399, D 64,
+// bf16): K1 moves about 44 MB (q, k, v, o, bias, gate, lse) against 7.8
+// GFLOP, K2 about 91 MB (q, k, v, o, dO read, dq, dk, dv written, the bias
+// read, dbias written in f32) against 19.6 GFLOP of the five products it
+// needs; at 3.35 TB/s and 989 TFLOP/s both are bound by bytes.
+//
+// Layout of both: 64-row tiles staged in shared memory, the bias read
+// straight from device memory, nothing padded in memory (rows past T are
+// zero-filled when a tile is staged, keys past T masked in the kernel).
+//  * bfloat16: four warps, 16 rows each; every product on the tensor cores
+//    with mma.sync m16n8k16 (f32 accumulate). An accumulator's register
+//    layout is the A-operand layout of the next product, so p, dS and W * m
+//    are rounded to bf16 in registers and never touch shared memory.
 //  * float32: 256 threads on the CUDA cores in f32, exact for f32 inputs.
 
 #include <cuda_bf16.h>
@@ -38,9 +61,45 @@ constexpr int kBlockK = 64;        // keys per shared-memory tile
 constexpr float kMasked = -1e30f;  // score of a key past T
 
 // ---------------------------------------------------------------------------
+// attention dropout: the TPU kernel's hash (ops/flash_attention.py
+// _dropout_mask), bit for bit, in uint32 arithmetic
+
+struct Dropout {
+  uint32_t seed;
+  uint32_t threshold;  // int(rate * (2^32 - 1)): keep where hash >= threshold
+  float keep_scale;    // float32(1) / float32(1 - rate)
+};
+
+// the two per-(batch, head) streams: murmur3's finaliser on the seed
+__device__ __forceinline__ void dropout_streams(uint32_t seed, int b, int h,
+                                                uint32_t& s1, uint32_t& s2) {
+  uint32_t s0 = seed + (uint32_t)b * 0x9E3779B1u + (uint32_t)h * 0x85EBCA77u;
+  s0 ^= s0 >> 16;
+  s0 *= 0x85EBCA6Bu;
+  s0 ^= s0 >> 13;
+  s0 *= 0xC2B2AE35u;
+  s1 = s0 ^ (s0 >> 16);
+  s2 = s1 * 0x9E3779B1u;
+}
+
+// keep value of (row, col): xorshift rounds on the absolute position
+__device__ __forceinline__ float dropout_keep(uint32_t s1, uint32_t s2, uint32_t r,
+                                              uint32_t c, const Dropout& dr) {
+  uint32_t x = ((r + s1) << 16) ^ (c + s2);
+  x ^= x << 13;
+  x ^= x >> 17;
+  x ^= x << 5;
+  x = x + (r ^ (c << 11)) + s1;
+  x ^= x << 13;
+  x ^= x >> 17;
+  x ^= x << 5;
+  return x >= dr.threshold ? dr.keep_scale : 0.f;
+}
+
+// ---------------------------------------------------------------------------
 // bfloat16: tensor cores
 
-constexpr int kWarps = 4;  // each warp owns 16 query rows
+constexpr int kWarps = 4;  // each warp owns 16 rows
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -85,9 +144,67 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// A-operand fragments of the warp's 16 rows of a staged (64, kDim + 8) tile
+template <int kDim>
+__device__ __forceinline__ void load_a_fragments(uint32_t (&f)[kDim / 16][4],
+                                                 const __nv_bfloat16* tile, int r, int c2) {
+  constexpr int ld = kDim + 8;
+#pragma unroll
+  for (int s = 0; s < kDim / 16; ++s) {
+    const __nv_bfloat16* base = tile + r * ld + 16 * s + c2;
+    f[s][0] = load_u32(base);
+    f[s][1] = load_u32(base + 8 * ld);
+    f[s][2] = load_u32(base + 8);
+    f[s][3] = load_u32(base + 8 * ld + 8);
+  }
+}
+
+// acc[j] = A (16 rows, kDim) . B^T for the 8 column tiles of 8 rows of a
+// staged (64, kDim + 8) tile B: a 16 x 64 product over the head dim
+template <int kDim>
+__device__ __forceinline__ void mma_rows_by_tile(float (&acc)[8][4],
+                                                 const uint32_t (&a)[kDim / 16][4],
+                                                 const __nv_bfloat16* tile, int g, int c2) {
+  constexpr int ld = kDim + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const __nv_bfloat16* base = tile + (8 * j + g) * ld + c2;
+#pragma unroll
+    for (int st = 0; st < kDim / 16; ++st)
+      mma_bf16(acc[j], a[st], load_u32(base + 16 * st), load_u32(base + 16 * st + 8));
+  }
+}
+
+// out[j] += P (16 rows, 64) . tile (64, kDim): P from a 16 x 64 accumulator
+// rounded to bf16, the tile's rows through ldmatrix.trans
+template <int kDim>
+__device__ __forceinline__ void mma_acc_by_tile(float (&out)[kDim / 8][4], const float (&p)[8][4],
+                                                const __nv_bfloat16* tile, int lane) {
+  constexpr int ld = kDim + 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // 16 rows of the tile per step
+    uint32_t pa[4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * kk + half;
+      pa[2 * half] = pack_bf16(p[j][0], p[j][1]);
+      pa[2 * half + 1] = pack_bf16(p[j][2], p[j][3]);
+    }
+    const int row = 16 * kk + (lane / 8 % 2) * 8 + lane % 8;
+#pragma unroll
+    for (int j = 0; j < kDim / 8; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, tile + row * ld + 8 * (j + lane / 16));
+      mma_bf16(out[j], pa, b[0], b[1]);
+      mma_bf16(out[j + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
 // Lane (g = lane / 4, c = lane % 4) of warp w owns query rows 16 w + g and
 // 16 w + g + 8, and in each 8-wide column tile the columns 2 c and 2 c + 1.
-template <int kDim>  // head dim padded to a multiple of 16
+template <int kDim, bool kTrain>  // head dim padded to a multiple of 16
 __global__ void __launch_bounds__(kWarps * 32)
 gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                  const __nv_bfloat16* __restrict__ k,
@@ -95,7 +212,8 @@ gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                  const __nv_bfloat16* __restrict__ bias,
                                  const float* __restrict__ gate,
                                  __nv_bfloat16* __restrict__ out,
-                                 int num_heads, int t, int d, float scale) {
+                                 float* __restrict__ lse,
+                                 int num_heads, int t, int d, float scale, Dropout dr) {
   constexpr int ld = kDim + 8;  // row stride: fragment loads hit 32 distinct banks
   constexpr int kSteps = kDim / 16;
   constexpr int kOut = kDim / 8;  // 8-wide output column tiles
@@ -133,6 +251,8 @@ gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     m[i] = -INFINITY;
     l[i] = 0.f;  // this lane's share of the row sum; lanes are summed at the end
   }
+  uint32_t s1 = 0, s2 = 0;
+  if (kTrain) dropout_streams(dr.seed, bh / num_heads, h, s1, s2);
   float o[kOut][4];
 #pragma unroll
   for (int j = 0; j < kOut; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -196,10 +316,17 @@ gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int j = 2 * kk + half;
-        const float p0 = expf(s[j][0] - m[0]), p1 = expf(s[j][1] - m[0]);
-        const float p2 = expf(s[j][2] - m[1]), p3 = expf(s[j][3] - m[1]);
+        float p0 = expf(s[j][0] - m[0]), p1 = expf(s[j][1] - m[0]);
+        float p2 = expf(s[j][2] - m[1]), p3 = expf(s[j][3] - m[1]);
         l[0] += p0 + p1;
         l[1] += p2 + p3;
+        if (kTrain) {  // dropout after the row sum
+          const uint32_t col = k0 + 8 * j + c2;
+          p0 *= dropout_keep(s1, s2, row[0], col, dr);
+          p1 *= dropout_keep(s1, s2, row[0], col + 1, dr);
+          p2 *= dropout_keep(s1, s2, row[1], col, dr);
+          p3 *= dropout_keep(s1, s2, row[1], col + 1, dr);
+        }
         pa[2 * half] = pack_bf16(p0, p1);
         pa[2 * half + 1] = pack_bf16(p2, p3);
       }
@@ -223,12 +350,257 @@ gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= t) continue;
     const float inv = 1.f / l[i];
+    if (kTrain && c2 == 0) lse[(size_t)bh * t + row[i]] = m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < kOut; ++j) {
       const int col = 8 * j + c2;
       if (col < d) {
         *reinterpret_cast<__nv_bfloat162*>(out + head + (size_t)row[i] * d + col) =
             __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+      }
+    }
+  }
+}
+
+// K2 pass A, bf16: one block per (head, 64 query rows), looping over the
+// batch. Lane layout as in K1.
+template <int kDim>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ bias,
+                             const float* __restrict__ gate,
+                             const __nv_bfloat16* __restrict__ out,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq,
+                             float* __restrict__ dgate,
+                             float* __restrict__ dbias,
+                             int batch, int num_heads, int t, int d, float scale, Dropout dr) {
+  constexpr int ld = kDim + 8;
+  constexpr int kSteps = kDim / 16;
+  constexpr int kOut = kDim / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + kBlockQ * ld;
+  __nv_bfloat16* ks = dos + kBlockQ * ld;
+  __nv_bfloat16* vs = ks + kBlockK * ld;
+  float* delta_s = reinterpret_cast<float*>(vs + kBlockK * ld);  // (64,)
+
+  const int h = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const int rq = 16 * warp + g;
+  const int row[2] = {q0 + rq, q0 + rq + 8};
+  const __nv_bfloat16* bias_h = bias + (size_t)h * t * t;
+  float* dbias_h = dbias + (size_t)h * t * t;
+
+  for (int b = 0; b < batch; ++b) {
+    const int bh = b * num_heads + h;
+    const size_t head = (size_t)bh * t * d;
+    __syncthreads();  // the previous batch's tiles are no longer read
+    load_tile<kDim>(qs, q + head, q0, t, d);
+    load_tile<kDim>(dos, dout + head, q0, t, d);
+    {  // D = rowsum(dO * O): two threads per row, half the head dim each
+      const int r = tid / 2, half = tid % 2;
+      const int rr = q0 + r;
+      float acc = 0.f;
+      if (rr < t) {
+        const __nv_bfloat16* o_row = out + head + (size_t)rr * d;
+        const __nv_bfloat16* do_row = dout + head + (size_t)rr * d;
+        for (int c = half; c < d; c += 2)
+          acc += __bfloat162float(o_row[c]) * __bfloat162float(do_row[c]);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        delta_s[r] = acc;
+        if (rr < t) delta[(size_t)bh * t + rr] = acc;
+      }
+    }
+    __syncthreads();
+
+    uint32_t qf[kSteps][4], df[kSteps][4];
+    load_a_fragments<kDim>(qf, qs, rq, c2);
+    load_a_fragments<kDim>(df, dos, rq, c2);
+    float gt[2], ls[2], dl[2], dg[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool valid = row[i] < t;
+      gt[i] = valid ? gate[(size_t)bh * t + row[i]] : 0.f;
+      ls[i] = valid ? lse[(size_t)bh * t + row[i]] : 0.f;
+      dl[i] = delta_s[rq + 8 * i];
+    }
+    uint32_t s1, s2;
+    dropout_streams(dr.seed, b, h, s1, s2);
+    float dqa[kOut][4];
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+
+    for (int k0 = 0; k0 < t; k0 += kBlockK) {
+      __syncthreads();
+      load_tile<kDim>(ks, k + head, k0, t, d);
+      load_tile<kDim>(vs, v + head, k0, t, d);
+      __syncthreads();
+
+      float s[8][4], dp[8][4];
+      mma_rows_by_tile<kDim>(s, qf, ks, g, c2);   // q k^T
+      mma_rows_by_tile<kDim>(dp, df, vs, g, c2);  // dO v^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e / 2;
+          const int col = k0 + 8 * j + c2 + (e & 1);
+          float ds = 0.f;
+          if (col < t && row[i] < t) {
+            const size_t at = (size_t)row[i] * t + col;
+            const float pb = __bfloat162float(bias_h[at]);
+            const float w = expf(s[j][e] * scale + gt[i] * pb - ls[i]);
+            ds = w * (dp[j][e] * dropout_keep(s1, s2, row[i], col, dr) - dl[i]);
+            dg[i] += ds * pb;
+            const float contrib = gt[i] * ds;
+            dbias_h[at] = b == 0 ? contrib : dbias_h[at] + contrib;
+          }
+          s[j][e] = ds;
+        }
+      }
+      mma_acc_by_tile<kDim>(dqa, s, ks, lane);  // dS k
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 1);
+      dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 2);
+      if (row[i] >= t) continue;
+      if (c2 == 0) dgate[(size_t)bh * t + row[i]] = dg[i];
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) {
+        const int col = 8 * j + c2;
+        if (col < d) {
+          *reinterpret_cast<__nv_bfloat162*>(dq + head + (size_t)row[i] * d + col) =
+              __floats2bfloat162_rn(dqa[j][2 * i] * scale, dqa[j][2 * i + 1] * scale);
+        }
+      }
+    }
+  }
+}
+
+// K2 pass B, bf16: one block per (batch, head, 64 keys). Lane (g, c) of warp
+// w owns keys 16 w + g and 16 w + g + 8; the "columns" of its score tiles are
+// query rows.
+template <int kDim>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ bias,
+                               const float* __restrict__ gate,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv,
+                               int num_heads, int t, int d, float scale, Dropout dr) {
+  constexpr int ld = kDim + 8;
+  constexpr int kSteps = kDim / 16;
+  constexpr int kOut = kDim / 8;
+  constexpr int ldp = kBlockK + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kBlockK * ld;
+  __nv_bfloat16* qs = vs + kBlockK * ld;
+  __nv_bfloat16* dos = qs + kBlockQ * ld;
+  __nv_bfloat16* pt = dos + kBlockQ * ld;  // bias tile, (64 queries, ldp)
+  float* lse_s = reinterpret_cast<float*>(pt + kBlockQ * ldp);
+  float* delta_s = lse_s + kBlockQ;
+  float* gate_s = delta_s + kBlockQ;
+
+  const int bh = blockIdx.x;
+  const int b = bh / num_heads, h = bh % num_heads;
+  const int k0 = blockIdx.y * kBlockK;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const int rk = 16 * warp + g;
+  const int key[2] = {k0 + rk, k0 + rk + 8};
+  const size_t head = (size_t)bh * t * d;
+  const __nv_bfloat16* bias_h = bias + (size_t)h * t * t;
+
+  load_tile<kDim>(ks, k + head, k0, t, d);
+  load_tile<kDim>(vs, v + head, k0, t, d);
+  __syncthreads();
+  uint32_t kf[kSteps][4], vf[kSteps][4];
+  load_a_fragments<kDim>(kf, ks, rk, c2);
+  load_a_fragments<kDim>(vf, vs, rk, c2);
+  uint32_t s1, s2;
+  dropout_streams(dr.seed, b, h, s1, s2);
+  float dka[kOut][4], dva[kOut][4];
+#pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
+    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < t; q0 += kBlockQ) {
+    __syncthreads();  // the previous query tile is no longer read
+    load_tile<kDim>(qs, q + head, q0, t, d);
+    load_tile<kDim>(dos, dout + head, q0, t, d);
+    for (int i = tid; i < kBlockQ * kBlockK; i += kWarps * 32) {
+      const int qi = i / kBlockK, kj = i % kBlockK;
+      const bool valid = q0 + qi < t && k0 + kj < t;
+      pt[qi * ldp + kj] = valid ? bias_h[(size_t)(q0 + qi) * t + k0 + kj] : __float2bfloat16(0.f);
+    }
+    if (tid < kBlockQ) {
+      const bool valid = q0 + tid < t;
+      const size_t at = (size_t)bh * t + q0 + tid;
+      lse_s[tid] = valid ? lse[at] : 0.f;
+      delta_s[tid] = valid ? delta[at] : 0.f;
+      gate_s[tid] = valid ? gate[at] : 0.f;
+    }
+    __syncthreads();
+
+    float st[8][4], dpt[8][4];
+    mma_rows_by_tile<kDim>(st, kf, qs, g, c2);    // k q^T
+    mma_rows_by_tile<kDim>(dpt, vf, dos, g, c2);  // v dO^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2;
+        const int qi = 8 * j + c2 + (e & 1);
+        const int qrow = q0 + qi;
+        float wd = 0.f, ds = 0.f;
+        if (qrow < t && key[i] < t) {
+          const float pb = __bfloat162float(pt[qi * ldp + rk + 8 * i]);
+          const float w = expf(st[j][e] * scale + gate_s[qi] * pb - lse_s[qi]);
+          const float keep = dropout_keep(s1, s2, qrow, key[i], dr);
+          wd = w * keep;
+          ds = w * (dpt[j][e] * keep - delta_s[qi]);
+        }
+        st[j][e] = wd;
+        dpt[j][e] = ds;
+      }
+    }
+    mma_acc_by_tile<kDim>(dva, st, dos, lane);  // (W m)^T dO
+    mma_acc_by_tile<kDim>(dka, dpt, qs, lane);  // dS^T q
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= t) continue;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      const int col = 8 * j + c2;
+      if (col < d) {
+        const size_t at = head + (size_t)key[i] * d + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dka[j][2 * i] * scale, dka[j][2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
       }
     }
   }
@@ -243,16 +615,27 @@ constexpr int kThreads = kThreadsY * kThreadsX;
 constexpr int kRows = kBlockQ / kThreadsY;  // query rows per thread
 constexpr int kKeys = kBlockK / kThreadsX;  // keys per thread per tile
 
+// 64 rows [r0, r0 + 64) of a (t, d) f32 matrix into shared memory with row
+// stride ld, times `mul`, zeros past t
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int r0, int t,
+                                              int d, int ld, float mul) {
+  for (int i = threadIdx.x; i < kBlockK * d; i += kThreads) {
+    const int r = i / d, c = i % d;
+    dst[r * ld + c] = r0 + r < t ? src[(size_t)(r0 + r) * d + c] * mul : 0.f;
+  }
+}
+
 // Thread (ty, tx) owns query rows ty + 16 * i (i < kRows), keys tx + 16 * j of
 // each tile (j < kKeys) and head-dim columns tx + 16 * j (j < kCols). The 16
 // threads that share a row sit in one half-warp, so row reductions are
 // shuffles. kCols * 16 >= D.
-template <int kCols>
+template <int kCols, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ bias,
                                 const float* __restrict__ gate, float* __restrict__ out,
-                                int num_heads, int t, int d, float scale) {
+                                float* __restrict__ lse,
+                                int num_heads, int t, int d, float scale, Dropout dr) {
   extern __shared__ float smem[];
   const int ld = d + 1;  // padded stride: column-strided reads hit distinct banks
   const int ldp = kBlockK + 1;
@@ -291,6 +674,8 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   }
+  uint32_t s1 = 0, s2 = 0;
+  if (kTrain) dropout_streams(dr.seed, bh / num_heads, h, s1, s2);
 
   for (int k0 = 0; k0 < t; k0 += kBlockK) {
     __syncthreads();  // the previous tile's ks, vs and ps are no longer read
@@ -344,8 +729,9 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
       float row_sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        float p = expf(s[i][j] - m_new);
         row_sum += p;
+        if (kTrain) p *= dropout_keep(s1, s2, row, k0 + tx + kThreadsX * j, dr);
         ps[(ty + kThreadsY * i) * ldp + tx + kThreadsX * j] = p;
       }
 #pragma unroll
@@ -380,12 +766,336 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
     const int row = q0 + ty + kThreadsY * i;
     if (row >= t) continue;
     const float inv = 1.f / l[i];
+    if (kTrain && tx == 0) lse[(size_t)bh * t + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int col = tx + kThreadsX * j;
       if (col < d) out[head + (size_t)row * d + col] = acc[i][j] * inv;
     }
   }
+}
+
+// K2 pass A, float32: one block per (head, 64 query rows), looping over the
+// batch. Thread layout as in the forward.
+template <int kCols>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ bias,
+                            const float* __restrict__ gate, const float* __restrict__ out,
+                            const float* __restrict__ dout, const float* __restrict__ lse,
+                            float* __restrict__ delta, float* __restrict__ dq,
+                            float* __restrict__ dgate, float* __restrict__ dbias,
+                            int batch, int num_heads, int t, int d, float scale, Dropout dr) {
+  extern __shared__ float smem[];
+  const int ld = d + 1;
+  const int ldp = kBlockK + 1;
+  float* qs = smem;                // (64, ld), pre-scaled q
+  float* dos = qs + kBlockQ * ld;  // (64, ld)
+  float* ks = dos + kBlockQ * ld;  // (64, ld)
+  float* vs = ks + kBlockK * ld;   // (64, ld)
+  float* dss = vs + kBlockK * ld;  // (64, ldp), dS of the current tile
+
+  const int h = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
+  const int tid = threadIdx.x;
+  const int tx = tid % kThreadsX, ty = tid / kThreadsX;
+  const float* bias_h = bias + (size_t)h * t * t;
+  float* dbias_h = dbias + (size_t)h * t * t;
+
+  for (int b = 0; b < batch; ++b) {
+    const int bh = b * num_heads + h;
+    const size_t head = (size_t)bh * t * d;
+    __syncthreads();
+    load_tile_f32(qs, q + head, q0, t, d, ld, scale);
+    load_tile_f32(dos, dout + head, q0, t, d, ld, 1.f);
+    __syncthreads();
+
+    float g[kRows], ls[kRows], dl[kRows], dg[kRows], acc[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = ty + kThreadsY * i, row = q0 + r;
+      const bool valid = row < t;
+      g[i] = valid ? gate[(size_t)bh * t + row] : 0.f;
+      ls[i] = valid ? lse[(size_t)bh * t + row] : 0.f;
+      float part = 0.f;  // D = rowsum(dO * O)
+      if (valid)
+        for (int c = tx; c < d; c += kThreadsX) part += out[head + (size_t)row * d + c] * dos[r * ld + c];
+#pragma unroll
+      for (int off = kThreadsX / 2; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      dl[i] = part;
+      if (valid && tx == 0) delta[(size_t)bh * t + row] = part;
+      dg[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+    }
+    uint32_t s1, s2;
+    dropout_streams(dr.seed, b, h, s1, s2);
+
+    for (int k0 = 0; k0 < t; k0 += kBlockK) {
+      __syncthreads();  // the previous tile's ks and dss are no longer read
+      load_tile_f32(ks, k + head, k0, t, d, ld, 1.f);
+      load_tile_f32(vs, v + head, k0, t, d, ld, 1.f);
+      __syncthreads();
+
+      float s[kRows][kKeys], dp[kRows][kKeys];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < d; ++c) {
+        float qv[kRows], dov[kRows], kv[kKeys], vv[kKeys];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          qv[i] = qs[(ty + kThreadsY * i) * ld + c];
+          dov[i] = dos[(ty + kThreadsY * i) * ld + c];
+        }
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          kv[j] = ks[(tx + kThreadsX * j) * ld + c];
+          vv[j] = vs[(tx + kThreadsX * j) * ld + c];
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+#pragma unroll
+          for (int j = 0; j < kKeys; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = ty + kThreadsY * i, row = q0 + r;
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          const int kj = tx + kThreadsX * j, col = k0 + kj;
+          float ds = 0.f;
+          if (col < t && row < t) {
+            const size_t at = (size_t)row * t + col;
+            const float pb = bias_h[at];
+            const float w = expf(s[i][j] + g[i] * pb - ls[i]);
+            ds = w * (dp[i][j] * dropout_keep(s1, s2, row, col, dr) - dl[i]);
+            dg[i] += ds * pb;
+            const float contrib = g[i] * ds;
+            dbias_h[at] = b == 0 ? contrib : dbias_h[at] + contrib;
+          }
+          dss[r * ldp + kj] = ds;
+        }
+      }
+      __syncthreads();
+
+      const int keys = min(kBlockK, t - k0);
+      for (int c = 0; c < keys; ++c) {
+        float kv[kCols];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int col = tx + kThreadsX * j;
+          kv[j] = col < d ? ks[c * ld + col] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float ds = dss[(ty + kThreadsY * i) * ldp + c];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + ty + kThreadsY * i;
+#pragma unroll
+      for (int off = kThreadsX / 2; off > 0; off >>= 1)
+        dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], off);
+      if (row >= t) continue;
+      if (tx == 0) dgate[(size_t)bh * t + row] = dg[i];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = tx + kThreadsX * j;
+        if (col < d) dq[head + (size_t)row * d + col] = acc[i][j] * scale;
+      }
+    }
+  }
+}
+
+// K2 pass B, float32: one block per (batch, head, 64 keys). Thread (ty, tx)
+// owns keys ty + 16 * i, query columns tx + 16 * j of each query tile and
+// head-dim columns tx + 16 * j.
+template <int kCols>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ bias,
+                              const float* __restrict__ gate, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int num_heads, int t, int d, float scale, Dropout dr) {
+  extern __shared__ float smem[];
+  const int ld = d + 1;
+  const int ldp = kBlockQ + 1;
+  float* ks = smem;                 // (64, ld)
+  float* vs = ks + kBlockK * ld;    // (64, ld)
+  float* qs = vs + kBlockK * ld;    // (64, ld), pre-scaled q
+  float* dos = qs + kBlockQ * ld;   // (64, ld)
+  float* wss = dos + kBlockQ * ld;  // (64 keys, ldp): W * m
+  float* dss = wss + kBlockK * ldp; // (64 keys, ldp): dS
+  float* lse_s = dss + kBlockK * ldp;
+  float* delta_s = lse_s + kBlockQ;
+  float* gate_s = delta_s + kBlockQ;
+
+  const int bh = blockIdx.x;
+  const int b = bh / num_heads, h = bh % num_heads;
+  const int k0 = blockIdx.y * kBlockK;
+  const int tid = threadIdx.x;
+  const int tx = tid % kThreadsX, ty = tid / kThreadsX;
+  const size_t head = (size_t)bh * t * d;
+  const float* bias_h = bias + (size_t)h * t * t;
+
+  load_tile_f32(ks, k + head, k0, t, d, ld, 1.f);
+  load_tile_f32(vs, v + head, k0, t, d, ld, 1.f);
+  uint32_t s1, s2;
+  dropout_streams(dr.seed, b, h, s1, s2);
+  float dka[kRows][kCols], dva[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  for (int q0 = 0; q0 < t; q0 += kBlockQ) {
+    __syncthreads();
+    load_tile_f32(qs, q + head, q0, t, d, ld, scale);
+    load_tile_f32(dos, dout + head, q0, t, d, ld, 1.f);
+    if (tid < kBlockQ) {
+      const bool valid = q0 + tid < t;
+      const size_t at = (size_t)bh * t + q0 + tid;
+      lse_s[tid] = valid ? lse[at] : 0.f;
+      delta_s[tid] = valid ? delta[at] : 0.f;
+      gate_s[tid] = valid ? gate[at] : 0.f;
+    }
+    __syncthreads();
+
+    float st[kRows][kKeys], dpt[kRows][kKeys];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < d; ++c) {
+      float kv[kRows], vv[kRows], qv[kKeys], dov[kKeys];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        kv[i] = ks[(ty + kThreadsY * i) * ld + c];
+        vv[i] = vs[(ty + kThreadsY * i) * ld + c];
+      }
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        qv[j] = qs[(tx + kThreadsX * j) * ld + c];
+        dov[j] = dos[(tx + kThreadsX * j) * ld + c];
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+          dpt[i][j] = fmaf(vv[i], dov[j], dpt[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int ki = ty + kThreadsY * i, key = k0 + ki;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const int qi = tx + kThreadsX * j, qrow = q0 + qi;
+        float wd = 0.f, ds = 0.f;
+        if (qrow < t && key < t) {
+          const float pb = bias_h[(size_t)qrow * t + key];
+          const float w = expf(st[i][j] + gate_s[qi] * pb - lse_s[qi]);
+          const float keep = dropout_keep(s1, s2, qrow, key, dr);
+          wd = w * keep;
+          ds = w * (dpt[i][j] * keep - delta_s[qi]);
+        }
+        wss[ki * ldp + qi] = wd;
+        dss[ki * ldp + qi] = ds;
+      }
+    }
+    __syncthreads();
+
+    const int rows = min(kBlockQ, t - q0);
+    for (int c = 0; c < rows; ++c) {
+      float qv[kCols], dov[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = tx + kThreadsX * j;
+        qv[j] = col < d ? qs[c * ld + col] : 0.f;
+        dov[j] = col < d ? dos[c * ld + col] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float wd = wss[(ty + kThreadsY * i) * ldp + c];
+        const float ds = dss[(ty + kThreadsY * i) * ldp + c];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          dva[i][j] = fmaf(wd, dov[j], dva[i][j]);
+          dka[i][j] = fmaf(ds, qv[j], dka[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int key = k0 + ty + kThreadsY * i;
+    if (key >= t) continue;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = tx + kThreadsX * j;
+      if (col < d) {
+        dk[head + (size_t)key * d + col] = dka[i][j];
+        dv[head + (size_t)key * d + col] = dva[i][j];
+      }
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool kTrain>
+int launch_forward(const void* q, const void* k, const void* v, const void* bias,
+                   const void* gate, void* out, float* lse, int b, int h, int t, int d,
+                   int is_bf16, Dropout dr, cudaStream_t s) {
+  const dim3 grid(b * h, (t + kBlockQ - 1) / kBlockQ);
+  const float scale = 1.0f / sqrtf((float)d);
+  cudaError_t err;
+  if (is_bf16) {
+    using bf16 = __nv_bfloat16;
+    auto kernel = d <= 64 ? gated_bias_attention_bf16_kernel<64, kTrain>
+                          : gated_bias_attention_bf16_kernel<128, kTrain>;
+    const int dim = d <= 64 ? 64 : 128;
+    const size_t smem = sizeof(bf16) * (size_t)(kBlockQ + 2 * kBlockK) * (dim + 8);
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kWarps * 32, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(bias), static_cast<const float*>(gate), static_cast<bf16*>(out),
+        lse, h, t, d, scale, dr);
+  } else {
+    auto kernel = d <= 64 ? gated_bias_attention_f32_kernel<4, kTrain>
+                          : gated_bias_attention_f32_kernel<8, kTrain>;
+    const size_t smem = sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (d + 1) +
+                                         (size_t)kBlockQ * (kBlockK + 1));
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(bias), static_cast<const float*>(gate), static_cast<float*>(out),
+        lse, h, t, d, scale, dr);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -398,33 +1108,87 @@ extern "C" int gated_bias_attention_fwd(const void* q, const void* k, const void
                                         const void* bias, const void* gate, void* out,
                                         int b, int h, int t, int d, int is_bf16,
                                         void* stream) {
+  return launch_forward<false>(q, k, v, bias, gate, out, nullptr, b, h, t, d, is_bf16,
+                               Dropout{0u, 0u, 1.f}, static_cast<cudaStream_t>(stream));
+}
+
+// As gated_bias_attention_fwd, with the dropout mask of (seed, threshold,
+// keep_scale) and the (b, h, t) float32 row log-sum-exp written to lse.
+extern "C" int gated_bias_attention_fwd_train(const void* q, const void* k, const void* v,
+                                              const void* bias, const void* gate, void* out,
+                                              void* lse, int b, int h, int t, int d,
+                                              int is_bf16, uint32_t seed, uint32_t threshold,
+                                              float keep_scale, void* stream) {
+  return launch_forward<true>(q, k, v, bias, gate, out, static_cast<float*>(lse), b, h, t, d,
+                              is_bf16, Dropout{seed, threshold, keep_scale},
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The backward of gated_bias_attention_fwd_train with the same dropout
+// arguments. Inputs: q, k, v, bias, gate, out, dout (out's cotangent), lse;
+// scratch: delta (b, h, t) float32; outputs: dq, dk, dv in q's type, dgate
+// (b, h, t) and dbias (h, t, t) in float32. Launches pass A, then pass B on
+// the same stream. Returns the first CUDA error (0 on success).
+extern "C" int gated_bias_attention_bwd(const void* q, const void* k, const void* v,
+                                        const void* bias, const void* gate, const void* out,
+                                        const void* dout, const void* lse, void* delta,
+                                        void* dq, void* dk, void* dv, void* dgate, void* dbias,
+                                        int b, int h, int t, int d, int is_bf16,
+                                        uint32_t seed, uint32_t threshold, float keep_scale,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(b * h, (t + kBlockQ - 1) / kBlockQ);
+  const Dropout dr{seed, threshold, keep_scale};
+  const dim3 grid_a(h, (t + kBlockQ - 1) / kBlockQ);
+  const dim3 grid_b(b * h, (t + kBlockK - 1) / kBlockK);
   const float scale = 1.0f / sqrtf((float)d);
+  const float* lse_f = static_cast<const float*>(lse);
+  float* delta_f = static_cast<float*>(delta);
+  float* dgate_f = static_cast<float*>(dgate);
+  float* dbias_f = static_cast<float*>(dbias);
+  const float* gate_f = static_cast<const float*>(gate);
   cudaError_t err;
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
-    auto kernel = d <= 64 ? gated_bias_attention_bf16_kernel<64>
-                          : gated_bias_attention_bf16_kernel<128>;
     const int dim = d <= 64 ? 64 : 128;
-    const size_t smem = sizeof(bf16) * (size_t)(kBlockQ + 2 * kBlockK) * (dim + 8);
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kWarps * 32, smem, s>>>(
+    auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64> : attention_bwd_dq_bf16_kernel<128>;
+    auto pass_b = d <= 64 ? attention_bwd_dkdv_bf16_kernel<64> : attention_bwd_dkdv_bf16_kernel<128>;
+    const size_t smem_a = sizeof(bf16) * (size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
+                          sizeof(float) * kBlockQ;
+    const size_t smem_b = sizeof(bf16) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
+                                          (size_t)kBlockQ * (kBlockK + 8)) +
+                          sizeof(float) * 3 * kBlockQ;
+    if ((err = allow_smem(pass_a, smem_a)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem(pass_b, smem_b)) != cudaSuccess) return (int)err;
+    pass_a<<<grid_a, kWarps * 32, smem_a, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), static_cast<const float*>(gate), static_cast<bf16*>(out),
-        h, t, d, scale);
+        static_cast<const bf16*>(bias), gate_f, static_cast<const bf16*>(out),
+        static_cast<const bf16*>(dout), lse_f, delta_f, static_cast<bf16*>(dq), dgate_f,
+        dbias_f, b, h, t, d, scale, dr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    pass_b<<<grid_b, kWarps * 32, smem_b, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(bias), gate_f, static_cast<const bf16*>(dout), lse_f,
+        delta_f, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, t, d, scale, dr);
   } else {
-    auto kernel = d <= 64 ? gated_bias_attention_f32_kernel<4>
-                          : gated_bias_attention_f32_kernel<8>;
-    const size_t smem = sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (d + 1) +
-                                         (size_t)kBlockQ * (kBlockK + 1));
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), static_cast<const float*>(gate), static_cast<float*>(out),
-        h, t, d, scale);
+    auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4> : attention_bwd_dq_f32_kernel<8>;
+    auto pass_b = d <= 64 ? attention_bwd_dkdv_f32_kernel<4> : attention_bwd_dkdv_f32_kernel<8>;
+    const size_t smem_a = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
+                                           (size_t)kBlockQ * (kBlockK + 1));
+    const size_t smem_b = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
+                                           2 * (size_t)kBlockK * (kBlockQ + 1) + 3 * kBlockQ);
+    if ((err = allow_smem(pass_a, smem_a)) != cudaSuccess) return (int)err;
+    if ((err = allow_smem(pass_b, smem_b)) != cudaSuccess) return (int)err;
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const float* bf = static_cast<const float*>(bias);
+    pass_a<<<grid_a, kThreads, smem_a, s>>>(
+        qf, kf, vf, bf, gate_f, static_cast<const float*>(out), static_cast<const float*>(dout),
+        lse_f, delta_f, static_cast<float*>(dq), dgate_f, dbias_f, b, h, t, d, scale, dr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    pass_b<<<grid_b, kThreads, smem_b, s>>>(
+        qf, kf, vf, bf, gate_f, static_cast<const float*>(dout), lse_f, delta_f,
+        static_cast<float*>(dk), static_cast<float*>(dv), h, t, d, scale, dr);
   }
   return (int)cudaGetLastError();
 }

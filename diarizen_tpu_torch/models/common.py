@@ -8,6 +8,7 @@ statistics and softmax are float32, as in the JAX package.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,10 +48,61 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+class TrainRandom:
+    """The randomness of one training forward. `host` draws what the host
+    decides (attention-dropout seeds, layer drop) without a device sync;
+    `device` draws the dropout masks on the activations' device. Both come
+    from one host generator, so a seeded run repeats."""
+
+    def __init__(self, generator: torch.Generator, device: torch.device):
+        self.host = generator
+        self.device = torch.Generator(device=device)
+        self.device.manual_seed(self.seed())
+
+    def seed(self) -> int:
+        """A uniform int32 seed in [0, 2^31 - 1)."""
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+
+    def uniform(self) -> float:
+        return float(torch.rand((1,), generator=self.host))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout, as the JAX package's: kept values divided by
+    1 - rate in x's type. No-op without a generator or at rate 0; the mask
+    comes from `generator`, which must live on x's device."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+class _GradMultiply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity forward, gradient scaled by `scale` (the reference's
+    GradMultiply 0.1 on the WavLM conv output)."""
+    return _GradMultiply.apply(x, scale)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropout_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Plain scaled dot-product attention on (B, H, T, D): float32 logits and
-    softmax, weights cast to q's type for the product with v."""
+    softmax, dropout on the weights (with a generator), weights cast to q's
+    type for the product with v."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
-    w = torch.softmax(logits - logits.amax(dim=-1, keepdim=True), dim=-1)
+    w = torch.softmax(logits - logits.amax(dim=-1, keepdim=True).detach(), dim=-1)
+    w = dropout(w, dropout_rate, generator)
     return torch.matmul(w.to(q.dtype), v).to(q.dtype)

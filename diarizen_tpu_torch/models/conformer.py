@@ -1,8 +1,13 @@
-"""Conformer encoder (port of diarizen_tpu/models/conformer.py, inference).
+"""Conformer encoder (port of diarizen_tpu/models/conformer.py).
 
 N blocks of macaron FFN (half residual) -> MHSA -> conv module (GLU,
-depthwise conv, eval BatchNorm, swish) -> FFN -> LayerNorm, with the
+depthwise conv, BatchNorm, swish) -> FFN -> LayerNorm, with the
 reference's key layout (`conformer_layer.{i}.{ffn1,mha,conv,ffn2,ln_norm}`).
+
+Train mode: BatchNorm normalises with the batch statistics (biased
+variance) and moves its running statistics in place with momentum 0.1
+(unbiased variance), as torch does; dropout in the FFNs, on the attention
+weights and output, and after the conv module, from the device generator.
 """
 
 from __future__ import annotations
@@ -14,7 +19,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diarizen_tpu_torch.models.common import attention, layer_norm, linear, swish
+from diarizen_tpu_torch.models.common import (
+    TrainRandom,
+    attention,
+    dropout,
+    layer_norm,
+    linear,
+    swish,
+)
+
+BN_MOMENTUM = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,15 +45,16 @@ class ConformerConfig:
 
 
 class _FFN(nn.Module):
-    def __init__(self, d: int, hidden: int):
+    def __init__(self, d: int, hidden: int, rate: float):
         super().__init__()
+        self.rate = rate
         self.ln_norm = nn.LayerNorm(d)
         self.w_1 = nn.Linear(d, hidden)
         self.w_2 = nn.Linear(hidden, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = swish(linear(self.w_1, layer_norm(self.ln_norm, x)))
-        return x + 0.5 * linear(self.w_2, h)
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(swish(linear(self.w_1, layer_norm(self.ln_norm, x))), self.rate, gen)
+        return x + 0.5 * dropout(linear(self.w_2, h), self.rate, gen)
 
 
 class _Projections(nn.Module):
@@ -52,13 +67,14 @@ class _Projections(nn.Module):
 
 
 class _MHA(nn.Module):
-    def __init__(self, d: int, num_heads: int):
+    def __init__(self, d: int, num_heads: int, rate: float):
         super().__init__()
         self.num_heads = num_heads
+        self.rate = rate
         self.ln_norm = nn.LayerNorm(d)
         self.mha = _Projections(d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t, d = x.shape
         h = layer_norm(self.ln_norm, x)
         nh = self.num_heads
@@ -68,13 +84,15 @@ class _MHA(nn.Module):
 
         out = attention(split(linear(self.mha.linearQ, h)),
                         split(linear(self.mha.linearK, h)),
-                        split(linear(self.mha.linearV, h)))
-        return x + linear(self.mha.linearO, out.transpose(1, 2).reshape(b, t, d))
+                        split(linear(self.mha.linearV, h)), self.rate, gen)
+        out = linear(self.mha.linearO, out.transpose(1, 2).reshape(b, t, d))
+        return x + dropout(out, self.rate, gen)
 
 
 class _ConvModule(nn.Module):
-    def __init__(self, d: int, kernel_size: int):
+    def __init__(self, d: int, kernel_size: int, rate: float):
         super().__init__()
+        self.rate = rate
         self.ln_norm = nn.LayerNorm(d)
         self.pointwise_conv1 = nn.Conv1d(d, 2 * d, 1)
         self.depthwise_conv = nn.Conv1d(d, d, kernel_size, groups=d)
@@ -85,33 +103,48 @@ class _ConvModule(nn.Module):
     def _conv(conv: nn.Conv1d, x: torch.Tensor, **kw) -> torch.Tensor:
         return F.conv1d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         d = x.shape[-1]
         h = layer_norm(self.ln_norm, x).transpose(1, 2)  # (B, C, T)
         a, g = self._conv(self.pointwise_conv1, h).chunk(2, dim=1)
         h = a * torch.sigmoid(g)  # GLU over channels
         k = self.depthwise_conv.kernel_size[0]
         h = self._conv(self.depthwise_conv, h, padding=(k - 1) // 2, groups=d)
-        bn = self.bn_norm  # eval mode: running statistics
-        y = (h.float() - bn.running_mean[:, None]) * torch.rsqrt(
-            bn.running_var[:, None] + bn.eps)
-        h = (y * bn.weight[:, None] + bn.bias[:, None]).to(h.dtype)
+        h = self._batch_norm(h, train)
         h = self._conv(self.pointwise_conv2, swish(h))
-        return x + h.transpose(1, 2)
+        return x + dropout(h, self.rate, gen).transpose(1, 2)
+
+    def _batch_norm(self, h: torch.Tensor, train: bool) -> torch.Tensor:
+        """BatchNorm1d over (B, C, T) in float32: batch statistics in train
+        mode (which also move the running ones), running ones otherwise."""
+        bn, hf = self.bn_norm, h.float()
+        if train:
+            mean, var = hf.mean(dim=(0, 2)), hf.var(dim=(0, 2), unbiased=False)
+            n = hf.shape[0] * hf.shape[2]
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+                bn.running_var.copy_((1 - m) * bn.running_var + m * (var * n / max(n - 1, 1)))
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        y = (hf - mean[:, None]) * torch.rsqrt(var[:, None] + bn.eps)
+        return (y * bn.weight[:, None] + bn.bias[:, None]).to(h.dtype)
 
 
 class _ConformerBlock(nn.Module):
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        self.ffn1 = _FFN(cfg.dim, cfg.ffn_hidden)
-        self.mha = _MHA(cfg.dim, cfg.num_heads)
-        self.conv = _ConvModule(cfg.dim, cfg.kernel_size)
-        self.ffn2 = _FFN(cfg.dim, cfg.ffn_hidden)
+        self.ffn1 = _FFN(cfg.dim, cfg.ffn_hidden, cfg.dropout)
+        self.mha = _MHA(cfg.dim, cfg.num_heads, cfg.dropout)
+        self.conv = _ConvModule(cfg.dim, cfg.kernel_size, cfg.dropout)
+        self.ffn2 = _FFN(cfg.dim, cfg.ffn_hidden, cfg.dropout)
         self.ln_norm = nn.LayerNorm(cfg.dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.mha(self.ffn1(x))
-        x = self.ffn2(self.conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.mha(self.ffn1(x, gen), gen)
+        x = self.ffn2(self.conv(x, train, gen), gen)
         return layer_norm(self.ln_norm, x)
 
 
@@ -129,8 +162,11 @@ class Conformer(nn.Module):
         self.cfg = cfg
         self.conformer_layer = nn.ModuleList(_ConformerBlock(cfg) for _ in range(cfg.num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, dim) -> (B, T, dim)."""
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: Optional[TrainRandom] = None) -> torch.Tensor:
+        """(B, T, dim) -> (B, T, dim). `train` selects BatchNorm's batch
+        statistics; dropout needs `rng` as well."""
+        gen = rng.device if (train and rng is not None) else None
         for block in self.conformer_layer:
-            x = block(x)
+            x = block(x, train, gen)
         return _ACTIVATIONS[self.cfg.output_activation](x)

@@ -1,5 +1,5 @@
 """EEND segmentation model: WavLM + Conformer + powerset head (port of
-diarizen_tpu/models/eend.py, inference).
+diarizen_tpu/models/eend.py).
 
 Waveforms -> WavLM hidden states summed with learned layer weights (float32)
 -> Linear + LayerNorm -> Conformer -> Linear -> log-softmax over the powerset
@@ -10,12 +10,12 @@ classes. Key layout as the reference's `pytorch_model.bin`: `wavlm_model.*`,
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from diarizen_tpu_torch.models.common import layer_norm, linear
+from diarizen_tpu_torch.models.common import TrainRandom, layer_norm, linear
 from diarizen_tpu_torch.models.conformer import Conformer, ConformerConfig
 from diarizen_tpu_torch.models.wavlm import WavLM, WavLMConfig
 from diarizen_tpu_torch.ops.powerset import Powerset, num_powerset_classes
@@ -70,13 +70,29 @@ class EendModel(nn.Module):
         self.conformer = Conformer(cfg.conformer)
         self.classifier = nn.Linear(cfg.attention_in, cfg.num_powerset_classes)
 
-    def forward(self, waveforms: torch.Tensor,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def forward(self, waveforms: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, C, num_samples) or (B, num_samples) -> float32 log-powerset
-        scores (B, F, P)."""
+        scores (B, F, P).
+
+        `train=True` is the training forward (differentiable attention
+        kernels, GradMultiply, BatchNorm on batch statistics, which moves the
+        running ones); with a host `generator` it also draws dropout, layer
+        drop and the attention-dropout seeds."""
         if waveforms.dim() == 3:
             waveforms = waveforms[:, self.cfg.selected_channel]
-        feat = self.wavlm_model(waveforms, self.weight_sum.weight.reshape(-1), compute_dtype)
+        rng = TrainRandom(generator, waveforms.device) if (train and generator is not None) else None
+        feat = self.wavlm_model(waveforms, self.weight_sum.weight.reshape(-1), compute_dtype,
+                                train=train, rng=rng)
         x = layer_norm(self.lnorm, linear(self.proj, feat.to(compute_dtype)))
-        x = self.conformer(x)
+        x = self.conformer(x, train=train, rng=rng)
         return torch.log_softmax(linear(self.classifier, x).float(), dim=-1)
+
+    def param_groups(self) -> Dict[str, Dict[str, nn.Parameter]]:
+        """The dual-LR split of the JAX package's `non_wavlm_param_labels`:
+        {"wavlm": the WavLM trunk's parameters, "other": the rest}, by name."""
+        groups: Dict[str, Dict[str, nn.Parameter]] = {"wavlm": {}, "other": {}}
+        for name, p in self.named_parameters():
+            groups["wavlm" if name.startswith("wavlm_model.") else "other"][name] = p
+        return groups

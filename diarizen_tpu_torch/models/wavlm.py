@@ -1,26 +1,48 @@
-"""WavLM speech encoder (port of diarizen_tpu/models/wavlm.py, inference).
+"""WavLM speech encoder (port of diarizen_tpu/models/wavlm.py).
 
 Modules carry the reference's torch key layout (`feature_extractor.*`,
 `encoder.feature_projection.*`, `encoder.transformer.*`), so a reference
 WavLM state dict loads with `load_state_dict`. Heterogeneous pruned
 configurations (per-layer head subsets and FF widths, layers without
 attention) are supported. The self-attention with the gated relative-position
-bias runs through kernel K1 (`ops/flash_attention.py`).
+bias runs through kernel K1 (`ops/flash_attention.py`) at inference, and
+through K1's training instance and K2 in train mode.
+
+Train mode follows the JAX package's `wavlm_extract_features(train=True)`:
+GradMultiply 0.1 on the extractor output; dropout after the projection,
+after the pos-conv (and its LayerNorm), on the attention output and in the
+feed-forward; attention dropout inside the kernels, one int32 seed per layer
+drawn on the host; layer drop. A dropped layer is not computed at all (the
+JAX package computes it and discards the result), so its parameters get no
+gradient; the train step gives them zeros.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diarizen_tpu_torch.models.common import gelu, group_norm, layer_norm, linear
-from diarizen_tpu_torch.ops.flash_attention import flash_attention_gated_bias
+from diarizen_tpu_torch.models.common import (
+    TrainRandom,
+    dropout,
+    gelu,
+    grad_multiply,
+    group_norm,
+    layer_norm,
+    linear,
+)
+from diarizen_tpu_torch.ops.flash_attention import (
+    flash_attention_gated_bias,
+    flash_attention_gated_bias_trainable,
+)
+
+FEATURE_GRAD_MULT = 0.1  # GradMultiply on the extractor output in train mode
 
 DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     (512, 10, 5),
@@ -72,6 +94,11 @@ class WavLMConfig:
         for _, kernel, stride in self.conv_layers:
             n = max(0, (n - kernel) // stride + 1)
         return n
+
+    @staticmethod
+    def base() -> "WavLMConfig":
+        """WavLM-Base / Base+: 12 layers, 768 wide, 12 heads of 64, ff 3072."""
+        return WavLMConfig()
 
     @staticmethod
     def base_s80_md() -> "WavLMConfig":
@@ -250,11 +277,15 @@ class WavLM(nn.Module):
         self.feature_extractor = _FeatureExtractor(cfg)
         self.encoder = _Encoder(cfg)
         self._buckets: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+        self.layers_run: List[int] = []  # the layers the last forward computed
 
     def forward(self, waveforms: torch.Tensor, layer_weights: torch.Tensor,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32, train: bool = False,
+                rng: Optional[TrainRandom] = None) -> torch.Tensor:
         """(B, num_samples) -> float32 (B, F, D) sum of the num_layers + 1
-        hidden states weighted by `layer_weights`, accumulated in float32."""
+        hidden states weighted by `layer_weights`, accumulated in float32.
+        `train` selects the differentiable attention and GradMultiply;
+        dropout and layer drop need `rng` as well."""
         cfg = self.cfg
         if cfg.num_frames(waveforms.shape[-1]) < 1:
             raise ValueError(
@@ -264,20 +295,28 @@ class WavLM(nn.Module):
         if cfg.normalize_waveform:
             waveforms = F.layer_norm(waveforms.float(), waveforms.shape[-1:], eps=1e-5)
 
+        gen = rng.device if (train and rng is not None) else None
         x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype))
+        if train:
+            x = grad_multiply(x, FEATURE_GRAD_MULT)
         fp = self.encoder.feature_projection
         x = linear(fp.projection, layer_norm(fp.layer_norm, x))
+        x = dropout(x, cfg.projection_dropout, gen)
 
         transformer = self.encoder.transformer
         x = x + self._pos_conv(x)
         if not cfg.layer_norm_first:
             x = layer_norm(transformer.layer_norm, x)
+        x = dropout(x, cfg.dropout, gen)
         position_bias = self._position_bias(x.shape[1], x.device)
 
         w = layer_weights.float()
         acc = w[0] * x.float()
+        self.layers_run = []
         for i, layer in enumerate(transformer.layers):
-            x = self._layer(i, layer, x, position_bias)
+            if gen is None or cfg.layer_drop == 0.0 or rng.uniform() >= cfg.layer_drop:
+                x = self._layer(i, layer, x, position_bias, train, rng)
+                self.layers_run.append(i)
             acc = acc + w[i + 1] * x.float()
         return acc
 
@@ -319,24 +358,29 @@ class WavLM(nn.Module):
         return table[self._buckets[key]].permute(2, 0, 1).float()
 
     def _layer(self, i: int, layer: _EncoderLayer, x: torch.Tensor,
-               position_bias: torch.Tensor) -> torch.Tensor:
-        pre_ln = self.cfg.layer_norm_first
+               position_bias: torch.Tensor, train: bool = False,
+               rng: Optional[TrainRandom] = None) -> torch.Tensor:
+        cfg = self.cfg
+        pre_ln = cfg.layer_norm_first
+        gen = rng.device if (train and rng is not None) else None
         if layer.attention is not None:
             h = layer_norm(layer.layer_norm, x) if pre_ln else x
-            x = x + self._self_attention(i, layer.attention, h, position_bias)
+            h = self._self_attention(i, layer.attention, h, position_bias, train, rng)
+            x = x + dropout(h, cfg.dropout, gen)
         if pre_ln:
             if layer.feed_forward is not None:
                 x = x + self._feed_forward(
-                    layer.feed_forward, layer_norm(layer.final_layer_norm, x))
+                    layer.feed_forward, layer_norm(layer.final_layer_norm, x), gen)
             return x
         # post-LN: both norms apply even where a sublayer was pruned away
         x = layer_norm(layer.layer_norm, x)
         if layer.feed_forward is not None:
-            x = x + self._feed_forward(layer.feed_forward, x)
+            x = x + self._feed_forward(layer.feed_forward, x, gen)
         return layer_norm(layer.final_layer_norm, x)
 
     def _self_attention(self, i: int, attn: _SelfAttention, x: torch.Tensor,
-                        position_bias: torch.Tensor) -> torch.Tensor:
+                        position_bias: torch.Tensor, train: bool = False,
+                        rng: Optional[TrainRandom] = None) -> torch.Tensor:
         """Gated relative-position self-attention over the layer's remaining
         heads. The GRU gate reads the raw input of ALL total_num_heads heads;
         the remaining heads are selected after it."""
@@ -358,10 +402,17 @@ class WavLM(nn.Module):
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Ht)
         gate = gate.transpose(1, 2)[:, remaining].contiguous()  # (B, nh, T)
 
-        pos = position_bias[remaining].to(q.dtype)  # (nh, T, T)
-        out = flash_attention_gated_bias(q, k, v, pos, gate)
+        pos = position_bias[remaining]  # (nh, T, T) float32
+        if train:
+            # the bias gradient flows into layer 0's table from every layer
+            rate = cfg.attention_dropout if rng is not None else 0.0
+            seed = rng.seed() if rate > 0.0 else 0
+            out = flash_attention_gated_bias_trainable(q, k, v, pos, gate, rate, seed)
+        else:
+            out = flash_attention_gated_bias(q, k, v, pos.to(q.dtype), gate)
         return linear(attn.out_proj, out.transpose(1, 2).reshape(b, t, nh * hd))
 
-    @staticmethod
-    def _feed_forward(ff: _FeedForward, x: torch.Tensor) -> torch.Tensor:
-        return linear(ff.output_dense, gelu(linear(ff.intermediate_dense, x)))
+    def _feed_forward(self, ff: _FeedForward, x: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(gelu(linear(ff.intermediate_dense, x)), self.cfg.ff_interm_dropout, generator)
+        return dropout(linear(ff.output_dense, h), self.cfg.dropout, generator)

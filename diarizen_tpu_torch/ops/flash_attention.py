@@ -1,22 +1,30 @@
-"""Attention with fused gated relative-position bias: kernel K1 and its plain
-version.
+"""Attention with fused gated relative-position bias: kernels K1 (forward)
+and K2 (backward), their plain versions, and the trainable function.
 
-`flash_attention_gated_bias` computes, for q, k, v (B, H, T, D), pos_bias
-(H, T, T) and gate (B, H, T),
+For q, k, v (B, H, T, D), pos_bias (H, T, T) and gate (B, H, T),
 
-    o = softmax(q k^T / sqrt(D) + gate[..., None] * pos_bias) v
+    w = softmax(q k^T / sqrt(D) + gate[..., None] * pos_bias)
+    o = (w * m) v
 
-It replaces the Pallas TPU kernel `diarizen_tpu/ops/flash_attention.py:_kernel`
-(launched from `flash_attention_gated_bias` there) with the hand-written CUDA
-kernel `csrc/gated_bias_attention.cu` for CUDA tensors, and with the plain
-PyTorch version below for CPU tensors. On an H100 the kernel is bound by
-memory traffic at WavLM's shapes (the source note has the numbers); its
-design keeps the (T, T) scores and gated bias out of device memory.
+with m the attention-dropout keep mask in {0, 1 / (1 - rate)}: a pure hash
+of (seed, batch index, head index, row, column), the JAX package's
+`_dropout_mask` (`diarizen_tpu/ops/flash_attention.py:165-198`) bit for bit,
+so the backward replays the forward's mask and both packages drop the same
+weights. The softmax normaliser is summed before the mask is applied.
 
-The kernel is compiled with nvcc into `build/diarizen_tpu_torch/` at first
+K1 replaces the Pallas TPU kernel `diarizen_tpu/ops/flash_attention.py:_kernel`
+and K2 its backward `_bwd_kernel`, with the hand-written CUDA kernels of
+`csrc/gated_bias_attention.cu` for CUDA tensors; CPU tensors take the plain
+PyTorch versions below. On an H100 both kernels are bound by memory traffic
+at WavLM's shapes (the source note has the numbers); their design keeps the
+(T, T) scores, weights and gated bias out of device memory.
+
+The kernels are compiled with nvcc into `build/diarizen_tpu_torch/` at first
 use and bound through ctypes (a plain C interface, so the build takes
-seconds). `launches` counts kernel launches, so a run can show that a path
-went through the kernel.
+seconds). The counters count kernel launches, so a run can show that a path
+went through the kernels: `launches` the inference instance of K1,
+`train_launches` its training instance (dropout, log-sum-exp output),
+`bwd_launches` K2 (one count per backward, which runs its two passes).
 """
 
 from __future__ import annotations
@@ -26,21 +34,25 @@ import math
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gated_bias_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diarizen_tpu_torch"
 LIBRARY = BUILD_DIR / "libgated_bias_attention.so"
 
-launches = 0  # kernel launches since the caller last set it to 0
+launches = 0  # K1 inference launches since the caller last set it to 0
+train_launches = 0  # K1 training launches (dropout, log-sum-exp)
+bwd_launches = 0  # K2 launches
 
 _lib: Optional[ctypes.CDLL] = None
+_U32 = 0xFFFFFFFF
 
 
 def build() -> str:
-    """Compile the kernel for sm_90a unless the library is newer than its
+    """Compile the kernels for sm_90a unless the library is newer than its
     source; returns the compiler's output (register and shared-memory
     report from ptxas), empty when nothing was built."""
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
@@ -69,11 +81,73 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(LIBRARY))
-        fn = lib.gated_bias_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        dropout = [u32, u32, ctypes.c_float]
+        lib.gated_bias_attention_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.gated_bias_attention_fwd_train.argtypes = [ptr] * 7 + [i32] * 5 + dropout + [ptr]
+        lib.gated_bias_attention_bwd.argtypes = [ptr] * 14 + [i32] * 5 + dropout + [ptr]
+        for fn in (lib.gated_bias_attention_fwd, lib.gated_bias_attention_fwd_train,
+                   lib.gated_bias_attention_bwd):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+# ---------------------------------------------------------------------------
+# the dropout hash
+
+
+def dropout_constants(rate: float) -> Tuple[int, float]:
+    """(threshold, keep value) of the JAX package's mask: keep where the hash
+    is >= int(rate * (2^32 - 1)); kept weights scale by float32(1) /
+    float32(1 - rate)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return int(rate * (2**32 - 1)), float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for a in [0, 2^32) held in int64, without overflow."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def dropout_mask(seed: int, batch: int, heads: int, rows: int, cols: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """Float32 (batch, heads, rows, cols) keep mask in {0, 1 / (1 - rate)} of
+    the attention-dropout hash; uint32 arithmetic held in int64 and masked
+    after every add, multiply and left shift."""
+    threshold, keep = dropout_constants(rate)
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    b = torch.arange(batch, device=dev).view(-1, 1, 1, 1)
+    h = torch.arange(heads, device=dev).view(1, -1, 1, 1)
+    s0 = (int(seed) & _U32) + _mul32(b, 0x9E3779B1) + _mul32(h, 0x85EBCA77)
+    s0 = s0 & _U32
+    s0 = s0 ^ (s0 >> 16)
+    s0 = _mul32(s0, 0x85EBCA6B)
+    s0 = s0 ^ (s0 >> 13)
+    s0 = _mul32(s0, 0xC2B2AE35)
+    s1 = s0 ^ (s0 >> 16)
+    s2 = _mul32(s1, 0x9E3779B1)
+    r = torch.arange(rows, device=dev).view(1, 1, -1, 1)
+    c = torch.arange(cols, device=dev).view(1, 1, 1, -1)
+
+    def xorshift(x):
+        x = x ^ ((x << 13) & _U32)
+        x = x ^ (x >> 17)
+        return x ^ ((x << 5) & _U32)
+
+    x = ((((r + s1) & _U32) << 16) & _U32) ^ ((c + s2) & _U32)
+    x = xorshift(x)
+    x = (x + (r ^ ((c << 11) & _U32)) + s1) & _U32
+    x = xorshift(x)
+    return torch.where(x >= threshold, torch.tensor(keep, dtype=torch.float32, device=dev),
+                       torch.tensor(0.0, dtype=torch.float32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
 
 
 def flash_attention_gated_bias_reference(
@@ -82,16 +156,29 @@ def flash_attention_gated_bias_reference(
     v: torch.Tensor,
     pos_bias: torch.Tensor,
     gate: torch.Tensor,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version: the math of the JAX package's
-    `xla_attention_gated_bias` (f32 logits and softmax, weights cast to q's
-    type for the product with v)."""
+    """Plain PyTorch version, differentiable: the math of the JAX package's
+    `xla_attention_gated_bias` (f32 logits and softmax, the bias rounded to
+    q's type as the kernels read it, weights cast to q's type for the
+    product with v), with the hashed dropout mask applied to the normalised
+    weights."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
-    logits = logits + gate.float()[..., None] * pos_bias.float()[None]
-    logits = logits - logits.amax(dim=-1, keepdim=True)
+    logits = logits + gate.float()[..., None] * pos_bias.to(q.dtype).float()[None]
+    logits = logits - logits.amax(dim=-1, keepdim=True).detach()
     w = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        b, h, t, _ = q.shape
+        w = w * dropout_mask(_need_seed(seed), b, h, t, t, dropout_rate, q.device)
     return torch.matmul(w.to(q.dtype), v).to(q.dtype)
+
+
+def _need_seed(seed: Optional[int]) -> int:
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
+    return int(seed)
 
 
 def _check(q, k, v, pos_bias, gate) -> None:
@@ -107,6 +194,85 @@ def _check(q, k, v, pos_bias, gate) -> None:
         raise ValueError("q, k, v, pos_bias and gate must be on one device")
 
 
+def _check_cuda(*tensors) -> None:
+    """What the kernels take: q, k, v, pos_bias (and o, dO) in one type
+    (float32 or bfloat16), gate in float32, all contiguous, q, k, v 16-byte
+    aligned, and D <= 128 a multiple of 8."""
+    q, k, v, pos_bias, gate = tensors[:5]
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if any(x.dtype != q.dtype for x in (k, v, pos_bias, *tensors[5:])):
+        raise TypeError("k, v and pos_bias must have q's type")
+    if gate.dtype != torch.float32:
+        raise TypeError(f"gate must be float32, got {gate.dtype}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("q, k, v, pos_bias and gate must be contiguous")
+    d = q.shape[-1]
+    if d % 8 or d > 128:
+        raise ValueError(f"head dim must be a multiple of 8 and <= 128, got {d}")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _forward_train(q, k, v, pos_bias, gate, rate: float, seed: int):
+    """K1's training instance: (o, f32 row log-sum-exp (B, H, T))."""
+    global train_launches
+    _check_cuda(q, k, v, pos_bias, gate)
+    threshold, keep = dropout_constants(rate)
+    b, h, t, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.gated_bias_attention_fwd_train(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, t, d, int(q.dtype == torch.bfloat16),
+            int(seed) & _U32, threshold, keep, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"gated_bias_attention_fwd_train launch failed: CUDA error {rc}")
+    train_launches += 1
+    return out, lse
+
+
+def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
+    """K2: (dq, dk, dv in q's type, f32 dpos_bias (H, T, T), f32 dgate)."""
+    global bwd_launches
+    _check_cuda(q, k, v, pos_bias, gate, out, dout)
+    threshold, keep = dropout_constants(rate)
+    b, h, t, d = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dgate = torch.empty((b, h, t), **f32)
+    dbias = torch.empty((h, t, t), **f32)
+    delta = torch.empty((b, h, t), **f32)
+    if q.numel() == 0:
+        return dq, dk, dv, dbias.zero_(), dgate
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.gated_bias_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgate.data_ptr(), dbias.data_ptr(),
+            b, h, t, d, int(q.dtype == torch.bfloat16), int(seed) & _U32, threshold, keep,
+            _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"gated_bias_attention_bwd launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dq, dk, dv, dbias, dgate
+
+
 def flash_attention_gated_bias(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -114,37 +280,26 @@ def flash_attention_gated_bias(
     pos_bias: torch.Tensor,
     gate: torch.Tensor,
     dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """(B, H, T, D) attention output, in q's type.
+    """(B, H, T, D) attention output in q's type, not differentiable.
 
-    CUDA tensors go to kernel K1, which takes q, k, v and pos_bias in one
-    type (float32 or bfloat16; bfloat16 runs on the tensor cores), gate in
+    CUDA tensors go to K1 (the inference instance at rate 0, the training
+    instance otherwise), which takes q, k, v and pos_bias in one type
+    (float32 or bfloat16; bfloat16 runs on the tensor cores), gate in
     float32, all contiguous, q, k, v 16-byte aligned, and D <= 128 a
     multiple of 8; anything else raises. CPU tensors go to the plain
     version."""
     global launches
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout belongs to the training path, not yet ported"
-        )
     _check(q, k, v, pos_bias, gate)
+    if dropout_rate > 0.0:
+        seed = _need_seed(seed)
     if q.device.type == "cpu":
-        return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype or pos_bias.dtype != q.dtype:
-        raise TypeError("k, v and pos_bias must have q's type")
-    if gate.dtype != torch.float32:
-        raise TypeError(f"gate must be float32, got {gate.dtype}")
-    if not all(x.is_contiguous() for x in (q, k, v, pos_bias, gate)):
-        raise ValueError("q, k, v, pos_bias and gate must be contiguous")
+        return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed)
+    if dropout_rate > 0.0:
+        return _forward_train(q, k, v, pos_bias, gate, dropout_rate, seed)[0]
+    _check_cuda(q, k, v, pos_bias, gate)
     b, h, t, d = q.shape
-    if d % 8 or d > 128:
-        raise ValueError(f"head dim must be a multiple of 8 and <= 128, got {d}")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("q, k and v must start on 16-byte boundaries")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -153,10 +308,49 @@ def flash_attention_gated_bias(
         rc = lib.gated_bias_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(),
             gate.data_ptr(), out.data_ptr(), b, h, t, d,
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+            int(q.dtype == torch.bfloat16), _stream(q))
     if rc != 0:
         raise RuntimeError(f"gated_bias_attention_fwd launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+class _TrainableAttention(torch.autograd.Function):
+    """K1 (training instance) forward, K2 backward. pos_bias is rounded to
+    q's type for the kernels; its gradient comes back in its own type."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_bias, gate, rate, seed):
+        bias = pos_bias.to(q.dtype).contiguous()
+        out, lse = _forward_train(q, k, v, bias, gate, rate, seed)
+        ctx.save_for_backward(q, k, v, bias, gate, out, lse)
+        ctx.rate, ctx.seed, ctx.bias_dtype = rate, seed, pos_bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, gate, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias, dgate = _backward(
+            q, k, v, bias, gate, out, lse, dout.contiguous(), ctx.rate, ctx.seed)
+        return dq, dk, dv, dbias.to(ctx.bias_dtype), dgate, None, None
+
+
+def flash_attention_gated_bias_trainable(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    pos_bias: torch.Tensor,
+    gate: torch.Tensor,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> torch.Tensor:
+    """Differentiable gated-bias attention with in-kernel attention dropout
+    (deterministic from the int `seed`); gradients flow to q, k, v, pos_bias
+    and gate. CUDA tensors go to K1 and K2 (as `flash_attention_gated_bias`
+    takes them, except that pos_bias may have any floating type); CPU
+    tensors to autograd through the plain version."""
+    _check(q, k, v, pos_bias, gate)
+    seed = _need_seed(seed) if dropout_rate > 0.0 else 0
+    if q.device.type == "cpu":
+        return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed)
+    return _TrainableAttention.apply(q, k, v, pos_bias, gate, float(dropout_rate), seed)

@@ -1,4 +1,4 @@
-"""Powerset -> multilabel conversion (port of diarizen_tpu/ops/powerset.py).
+"""Powerset <-> multilabel conversion (port of diarizen_tpu/ops/powerset.py).
 
 Classes are ordered by set size, then lexicographically, e.g. for
 (num_classes=3, max_set_size=2): {}, {0}, {1}, {2}, {0,1}, {0,2}, {1,2}.
@@ -49,3 +49,19 @@ class Powerset:
             torch.argmax(scores, dim=-1), self.num_powerset_classes
         ).to(mapping.dtype)
         return (one_hot @ mapping).to(torch.uint8)
+
+    def _scores(self, multilabel: torch.Tensor) -> torch.Tensor:
+        mapping = torch.as_tensor(self.mapping, device=multilabel.device)
+        return multilabel.float() @ mapping.T
+
+    def to_powerset_index(self, multilabel: torch.Tensor) -> torch.Tensor:
+        """(..., K) hard multilabel -> (...,) int64 powerset class index: the
+        class with the largest overlap, lowest index first (as jnp.argmax)."""
+        return torch.argmax(self._scores(multilabel), dim=-1)
+
+    def to_powerset(self, multilabel: torch.Tensor) -> torch.Tensor:
+        """(..., K) hard multilabel -> (..., P) one-hot powerset, in
+        multilabel's type."""
+        return torch.nn.functional.one_hot(
+            self.to_powerset_index(multilabel), self.num_powerset_classes
+        ).to(multilabel.dtype)

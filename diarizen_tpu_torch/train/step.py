@@ -1,0 +1,115 @@
+"""Train and eval steps for EEND segmentation training (port of
+diarizen_tpu/train/step.py).
+
+One train step: the training forward (dropout, layer drop and the
+attention-dropout seeds drawn from a host generator seeded by (seed, step)),
+PIT powerset NLL, backward, the global gradient norm (before clipping),
+AutoClip and the dual-LR update. A batch whose loss is not finite is
+skipped as in the JAX package: parameters, optimizer state (the schedules'
+counts and the AutoClip history included) and the BatchNorm running
+statistics, which the forward has already moved, keep their old values;
+the step counter still advances. Reading the loss is the step's one host
+sync.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Union
+
+import numpy as np
+import torch
+
+from diarizen_tpu_torch.models.eend import EendModel
+from diarizen_tpu_torch.train.loss import der_metrics, segmentation_loss
+from diarizen_tpu_torch.train.optim import GradientAccumulation, Optimizer, global_norm
+from diarizen_tpu_torch.utils import resolve_device
+
+Batch = Dict[str, Union[np.ndarray, torch.Tensor, list]]
+
+
+@dataclass
+class TrainState:
+    model: EendModel
+    optimizer: Union[Optimizer, GradientAccumulation]
+    step: int = 0
+
+
+def create_train_state(model: EendModel, optimizer, device=None) -> TrainState:
+    """Moves the model (and so the optimizer's parameters) to `device`:
+    the CUDA device by default, which raises where there is none."""
+    model.to(resolve_device(device))
+    return TrainState(model=model, optimizer=optimizer)
+
+
+def _device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def to_device(batch: Batch, device: torch.device):
+    """(waveforms float32 (B, C, N), targets float32 (B, F, K)) on `device`."""
+    xs = torch.as_tensor(batch["xs"]).to(device, torch.float32, non_blocking=True)
+    target = torch.as_tensor(batch["target"]).to(device, non_blocking=True).float()
+    return xs, target
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The host generator of one train step (the JAX package folds the step
+    into its key)."""
+    return torch.Generator().manual_seed(seed * 1_000_003 + step)
+
+
+def _batch_norm_buffers(model: torch.nn.Module) -> List[torch.Tensor]:
+    return [buf for name, buf in model.named_buffers()
+            if name.endswith("running_mean") or name.endswith("running_var")]
+
+
+def train_step(state: TrainState, batch: Batch, seed: int = 0,
+               compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, float]:
+    """One optimizer step on `batch`. Returns loss, grad_norm (before
+    clipping, 0 on a skipped batch), skipped, and attention_layers (the
+    WavLM attention layers the forward computed: fewer than the model has
+    where layer drop skipped some)."""
+    model = state.model
+    xs, target = to_device(batch, _device(model))
+    bn_before = [buf.clone() for buf in _batch_norm_buffers(model)]
+    for p in model.parameters():
+        p.grad = None
+    scores = model(xs, compute_dtype, train=True, generator=step_generator(seed, state.step))
+    loss = segmentation_loss(model.cfg.powerset, scores, target)
+    loss.backward()
+    loss_value = float(loss.detach())
+    good = math.isfinite(loss_value)
+    grad_norm = 0.0
+    if good:
+        grads = state.optimizer.grads()  # zeros where a parameter got no gradient
+        norm = global_norm(grads)
+        state.optimizer.step(grads)
+        grad_norm = float(norm)
+    else:
+        with torch.no_grad():
+            for buf, old in zip(_batch_norm_buffers(model), bn_before):
+                buf.copy_(old)
+    for p in model.parameters():
+        p.grad = None
+    state.step += 1
+    wavlm = model.wavlm_model
+    attention_layers = sum(1 for i in wavlm.layers_run if wavlm.cfg.use_attention[i])
+    return {"loss": loss_value, "grad_norm": grad_norm, "skipped": not good,
+            "attention_layers": attention_layers}
+
+
+@torch.no_grad()
+def eval_step(model: EendModel, batch: Batch,
+              compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Loss and DER components summed over the batch, as device tensors
+    (accumulate across batches, then divide). The forward is the inference
+    forward: no dropout, BatchNorm running statistics, K1's rate-0 instance."""
+    xs, target = to_device(batch, _device(model))
+    scores = model(xs, compute_dtype)
+    powerset = model.cfg.powerset
+    m = der_metrics(powerset, scores, target)
+    m["loss_sum"] = segmentation_loss(powerset, scores, target) * xs.shape[0]
+    m["num_chunks"] = torch.tensor(float(xs.shape[0]), device=xs.device)
+    return m

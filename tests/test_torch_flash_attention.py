@@ -45,7 +45,7 @@ def test_cpu_wrapper_is_the_plain_version_and_checks_inputs():
     torch.testing.assert_close(
         flash_attention_gated_bias(q, k, v, pos, gate),
         flash_attention_gated_bias_reference(q, k, v, pos, gate), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         flash_attention_gated_bias(q, k, v, pos, gate, dropout_rate=0.1)
     with pytest.raises(ValueError, match="pos_bias"):
         flash_attention_gated_bias(q, k, v, pos[:1], gate)

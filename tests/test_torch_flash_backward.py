@@ -1,0 +1,92 @@
+"""The trainable gated-bias attention of the port (K1 with dropout, K2)
+against the JAX package on the CPU.
+
+The attention-dropout mask is a hash that both packages compute in uint32
+arithmetic, so it must agree bit for bit; the port's plain trainable
+version (what the wrapper takes for CPU tensors) must agree with the JAX
+package's `flash_attention_gated_bias_trainable` (its Pallas forward and
+backward kernels in interpret mode) in the output and all five gradients.
+The CUDA kernels themselves are held against this plain version on the card
+by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from diarizen_tpu.ops.flash_attention import _dropout_mask
+from diarizen_tpu.ops.flash_attention import (
+    flash_attention_gated_bias_trainable as jax_trainable,
+)
+from diarizen_tpu_torch.ops.flash_attention import (
+    dropout_constants,
+    dropout_mask,
+    flash_attention_gated_bias,
+    flash_attention_gated_bias_reference,
+    flash_attention_gated_bias_trainable,
+)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25])
+@pytest.mark.parametrize("seed", [0, 7, 123456789, 2**31 - 2])
+def test_dropout_mask_matches_jax_bit_for_bit(seed, rate):
+    rows, cols = 37, 131  # odd shapes
+    full = dropout_mask(seed, 14, 12, rows, cols, rate)
+    for b, h in [(0, 0), (1, 0), (0, 5), (13, 11)]:
+        want = np.asarray(_dropout_mask(jnp.int32(seed), b, h, (rows, cols), rate))
+        np.testing.assert_array_equal(full[b, h].numpy(), want, err_msg=f"b={b} h={h}")
+    kept = float((full > 0).float().mean())
+    assert abs(kept - (1 - rate)) < 0.02
+    assert dropout_constants(rate)[0] == int(rate * (2**32 - 1))
+
+
+def _arrays(b, h, t, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(4))
+    pos = rng.standard_normal((h, t, t)).astype(np.float32)
+    gate = rng.uniform(1.0, 2.0, (b, h, t)).astype(np.float32)
+    return (q, k, v, pos, gate), do
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("t", [64, 130])
+def test_trainable_attention_matches_jax(t, rate):
+    seed = 20240917
+    inputs, do = _arrays(2, 3, t, 64, seed=t)
+    out, vjp = jax.vjp(
+        lambda *a: jax_trainable(*a, dropout_rate=rate, seed=jnp.int32(seed)),
+        *(jnp.asarray(a) for a in inputs))
+    want_grads = vjp(jnp.asarray(do))
+
+    tensors = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    got = flash_attention_gated_bias_trainable(*tensors, dropout_rate=rate, seed=seed)
+    got.backward(torch.from_numpy(do))
+    # f32 on both sides: reassociation only (the mask is exact)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=2e-4, atol=2e-4)
+    for name, x, want in zip(("q", "k", "v", "pos_bias", "gate"), tensors, want_grads):
+        want = np.asarray(want)
+        np.testing.assert_allclose(x.grad.numpy(), want, rtol=2e-3,
+                                   atol=2e-3 * max(1.0, float(np.abs(want).max())),
+                                   err_msg=f"d{name}")
+
+
+def test_cpu_wrappers_take_the_plain_version():
+    inputs, _ = _arrays(1, 2, 16, 8, seed=1)
+    q, k, v, pos, gate = (torch.from_numpy(a) for a in inputs)
+    plain = flash_attention_gated_bias_reference(q, k, v, pos, gate, 0.25, seed=3)
+    torch.testing.assert_close(flash_attention_gated_bias(q, k, v, pos, gate, 0.25, seed=3),
+                               plain, rtol=0, atol=0)
+    torch.testing.assert_close(
+        flash_attention_gated_bias_trainable(q, k, v, pos, gate, 0.25, seed=3),
+        plain, rtol=0, atol=0)
+    # rate 0 ignores the seed
+    torch.testing.assert_close(
+        flash_attention_gated_bias_trainable(q, k, v, pos, gate),
+        flash_attention_gated_bias_reference(q, k, v, pos, gate), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="seed"):
+        flash_attention_gated_bias_trainable(q, k, v, pos, gate, 0.1)
+    with pytest.raises(ValueError, match="rate"):
+        dropout_constants(1.0)
