@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero, before the last line is printed):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build kernels K1 and K2 (csrc/gated_bias_attention.cu) with nvcc;
+  2. build kernels K1 and K2 (csrc/gated_bias_attention.cu) and K3 and K4
+     (csrc/residual_layer_norm.cu) with nvcc, the two sources side by side;
   3. K1 against its plain PyTorch version on the card at the serving path's
      shapes, with CUDA-event timings of the kernel, the plain version and
      one PyTorch call computing the same function (yardstick only);
@@ -26,7 +27,19 @@ Phases (any failure exits non-zero, before the last line is printed):
      epoch of 8 steps at batch 16 x 8 s in bfloat16, a validation pass and a
      checkpoint, counting K1's and K2's launches per step; the checkpoint
      loaded back into EendModel; one more step under torch.profiler;
-  8. a JSON line with the kernels' numbers, the nvidia-smi line, and a last
+  8. K3 and K4 (residual add + LayerNorm, with and without the weighted-sum
+     update) against their plain versions in bfloat16 and float32 at four
+     shapes, K4's accumulator checked to be updated in place; timed against
+     the plain versions and PyTorch's own layer_norm calls; then the float32
+     EEND scores with the fused-LN route on against off;
+  9. streamed serving with the fused-LN route on: four different 120 s files
+     through DiarizationPipeline.stream (device-side stitch), once to warm up
+     and once timed, counting K1, K3 and K4 launches; every annotation must
+     equal the per-file call's, and in float32 segmentation the device-side
+     stitch must equal the host stages exactly; streamed and single-file
+     audio-s/s with the fused-LN route on and off, the host time of one
+     file's dispatch beside its device time, and one profiled streamed pass;
+ 10. a JSON line with the kernels' numbers, the nvidia-smi line, and a last
      JSON line {"ok": true, "device": {...}}.
 """
 
@@ -39,6 +52,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -53,29 +67,35 @@ from diarizen_tpu_torch.models.convert import random_state_dict
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank import wespeaker_fbank
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
-from diarizen_tpu_torch.models.wavlm import WavLMConfig
+from diarizen_tpu_torch.models.wavlm import WavLMConfig, set_fused_ln
 from diarizen_tpu_torch.ops import flash_attention as k1
+from diarizen_tpu_torch.ops import fused_ln as k3
 from diarizen_tpu_torch.train import Trainer, TrainerConfig, dual_lr_optimizer, train_step
 from diarizen_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
 from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
 from diarizen_tpu_torch.train.step import create_train_state
 
-# H100 SXM data-sheet peaks (dense): HBM bandwidth and bf16 tensor-core rate
+# H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor-core rate, and
+# the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 
 BATCH, FRAMES, HEAD_DIM = 32, 399, 64  # one segmentation batch of 8 s windows
 AUDIO_SECONDS = 120
 TRAIN_BATCH, TRAIN_HEADS, TRAIN_STEPS = 16, 12, 8  # WavLM-Base, the recipe's batch
 DROPOUT_RATE, DROPOUT_SEED = 0.1, 1234
 LR_SMALL, LR_BIG = 2e-5, 1e-3  # the recipe's learning rates: WavLM, the rest
+EMBED_DIM = 768  # WavLM-Base width: the rows K3 and K4 normalise
+STREAM_FILES = 4
+STREAM_REPEATS = 3  # timed passes per configuration; the median is reported
 
 
-def make_wave(dur_s: int, sr: int = 16000) -> np.ndarray:
+def make_wave(dur_s: int, sr: int = 16000, seed: int = 0) -> np.ndarray:
     """Synthetic two-speaker meeting, quantised like PCM16 (bench.py's)."""
     t = np.arange(dur_s * sr) / sr
     wave = np.zeros_like(t, dtype=np.float32)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     pos, spk = 0.0, 0
     while pos < dur_s - 2:
         seg = rng.uniform(2.0, 6.0)
@@ -108,13 +128,19 @@ def check(ok: bool, message: str) -> None:
 
 def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     """Median of per-launch CUDA-event times; the 50 MB L2 is overwritten
-    before each timed launch, as the main path finds it cold."""
+    before each timed launch, as the main path finds it cold. A matrix
+    product is queued first to keep the device busy while the host enqueues
+    `fn`: otherwise the events around a kernel of a few tens of microseconds
+    time the host's launch path, not the kernel."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    delay = torch.zeros((4096, 4096), dtype=torch.bfloat16, device="cuda")
+    delayed = torch.empty_like(delay)
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(reps):
+        torch.mm(delay, delay, out=delayed)
         flush.zero_()
         start.record()
         fn()
@@ -554,14 +580,15 @@ def phase_reference(eend_sd, resnet_sd, eend_cfg, wave) -> None:
           f"embeddings on the card disagree with the CPU: {err}")
 
 
-def phase_profile(pipeline, wave, top: int = 15) -> None:
-    """One more pipeline call under torch.profiler: device time by kernel,
-    and the share of the call's span in which any kernel ran."""
+def phase_profile(what: str, run, top: int = 15) -> float:
+    """`run()` under torch.profiler: device time by kernel, and the share of
+    the run's span in which any kernel ran. Returns the milliseconds in
+    which any kernel ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipeline(wave, 16000, uri="profile")
+        run()
         torch.cuda.synchronize()
     events = prof.events()
     kernels = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -573,22 +600,255 @@ def phase_profile(pipeline, wave, top: int = 15) -> None:
         end = max(end, b)
     span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     device_ms = sum(b - a for a, b in kernels) / 1e3
-    print(f"profile: {len(kernels)} kernels, {device_ms:.3f} ms of device time in a "
-          f"{span / 1e3:.3f} ms call; device busy {100 * busy / span:.1f}% of the span")
+    print(f"profile of {what}: {len(kernels)} kernels, {device_ms:.3f} ms of device time in a "
+          f"{span / 1e3:.3f} ms span; device busy {100 * busy / span:.1f}% of the span")
     rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
                   key=lambda a: -a.self_device_time_total)
     for a in rows[:top]:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:100]}")
+    return busy / 1e3
+
+
+def fused_ln_bound_s(rows: int, d: int, itemsize: int, with_acc: bool) -> tuple:
+    """(bytes / HBM rate, flops / float32 peak) of one K3 or K4 launch: a and
+    b read and y written once, gamma and beta read once, for K4 also w and the
+    float32 accumulator read and written; about 10 float operations an
+    element (K4 two more)."""
+    moved = 3 * rows * d * itemsize + 2 * d * 4
+    flops = 10 * rows * d
+    if with_acc:
+        moved += 2 * rows * d * 4 + 4
+        flops += 2 * rows * d
+    return moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+
+
+def fused_ln_inputs(shape, dtype, gen):
+    a, b = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    d = shape[-1]
+    gamma = 0.5 + torch.rand(d, generator=gen, device="cuda")
+    beta = torch.randn(d, generator=gen, device="cuda")
+    acc = torch.randn(shape, generator=gen, device="cuda")
+    w = torch.full((), 0.37, device="cuda")
+    return a, b, gamma, beta, w, acc
+
+
+def phase_fused_ln() -> list:
+    """K3 and K4 against their plain versions on the card. Limits: float32
+    1e-5 (the kernel contracts multiply-adds and sums a row in another
+    order); bfloat16 y within 2e-2 of max(1, |y|), one output ulp where a
+    rounding falls the other way; K4's accumulator within 1e-5 (float32) and
+    1e-3 (bfloat16) of acc0 + w * float32(y) for the y it returned, and
+    updated in place."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    y_limit = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    acc_limit = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+    main_shape = (BATCH * FRAMES, EMBED_DIM)
+    main_err = {"k3": 0.0, "k4": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in (main_shape, (BATCH, FRAMES, 1024), (2, 7, 128), (3, 41, 96)):
+            a, b, gamma, beta, w, acc0 = fused_ln_inputs(shape, dtype, gen)
+            want = k3.residual_ln_plain(a, b, gamma, beta).float()
+            scale = want.abs().clamp_min(1.0)
+            y3 = k3.residual_ln(a, b, gamma, beta)
+            acc = acc0.clone()
+            y4, acc_out = k3.residual_ln_acc(a, b, gamma, beta, w, acc)
+            torch.cuda.synchronize()
+            err3 = (y3.float() - want).abs()
+            err4 = (y4.float() - want).abs()
+            err_acc = (acc - (acc0 + w * y4.float())).abs().max().item()
+            rel3, rel4 = (err3 / scale).max().item(), (err4 / scale).max().item()
+            print(f"K3/K4 vs plain {str(dtype)[6:]} {shape}: y max abs err {err3.max().item():.3e} "
+                  f"/ {err4.max().item():.3e} (of max(1, |y|): {rel3:.3e} / {rel4:.3e}, limit "
+                  f"{y_limit[dtype]:.0e}); acc {err_acc:.3e} (limit {acc_limit[dtype]:.0e})")
+            check(y3.dtype == dtype and y3.shape == a.shape and y4.dtype == dtype,
+                  "K3/K4 output type or shape")
+            check(np.isfinite(rel3) and rel3 <= y_limit[dtype],
+                  f"K3 disagrees with its plain version: {rel3} at {dtype} {shape}")
+            check(np.isfinite(rel4) and rel4 <= y_limit[dtype],
+                  f"K4's y disagrees with the plain version: {rel4} at {dtype} {shape}")
+            check(acc_out.data_ptr() == acc.data_ptr() and acc_out is acc,
+                  "K4 did not update its accumulator in place")
+            check(np.isfinite(err_acc) and err_acc <= acc_limit[dtype],
+                  f"K4's accumulator is off by {err_acc} at {dtype} {shape}")
+            if dtype == torch.bfloat16 and shape == main_shape:
+                main_err = {"k3": err3.max().item(), "k4": max(err4.max().item(), err_acc)}
+
+    # timings at the serving shape: one batch of 32 windows x 399 frames, bf16
+    a, b, gamma, beta, w, acc = fused_ln_inputs(main_shape, torch.bfloat16, gen)
+    g16, b16 = gamma.to(a.dtype), beta.to(a.dtype)
+
+    def library_ln():
+        """One PyTorch call computing K3's function: a yardstick only."""
+        return F.layer_norm(a + b, (EMBED_DIM,), g16, b16)
+
+    rows = (
+        ("k3", "residual_layer_norm", "diarizen_tpu/ops/fused_ln.py:41", False, {
+            "ms": median_ms(lambda: k3.residual_ln(a, b, gamma, beta)),
+            "plain_ms": median_ms(lambda: k3.residual_ln_plain(a, b, gamma, beta)),
+            "library_ms": median_ms(library_ln)}),
+        ("k4", "residual_layer_norm_acc", "diarizen_tpu/ops/fused_ln.py:48", True, {
+            "ms": median_ms(lambda: k3.residual_ln_acc(a, b, gamma, beta, w, acc)),
+            "plain_ms": median_ms(lambda: k3.residual_ln_acc_plain(a, b, gamma, beta, w, acc)),
+            "library_ms": median_ms(lambda: acc.add_(library_ln().float(), alpha=0.37))}),
+    )
+    entries = []
+    for key, name, replaces, with_acc, row in rows:
+        mem_s, op_s = fused_ln_bound_s(main_shape[0], EMBED_DIM, 2, with_acc)
+        print(f"{name} bf16 {main_shape}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+              f"ms, library {row['library_ms']:.4f} ms, bound {1e3 * max(mem_s, op_s):.4f} ms "
+              f"({1e3 * mem_s:.4f} bytes, {1e3 * op_s:.4f} operations)")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "diarizen_tpu_torch/csrc/residual_layer_norm.cu", "replaces": replaces,
+            "max_abs_err": main_err[key], **row,
+            "bound_ms": 1e3 * max(mem_s, op_s),
+            "bound_by": "bytes" if mem_s >= op_s else "operations",
+        })
+    return entries
+
+
+def phase_fused_ln_model(eend_sd, eend_cfg, wave) -> None:
+    """The float32 EEND scores on the card with the fused-LN route (K3, K4)
+    against the unfused route, on two 8 s windows, within 1e-4."""
+    windows = torch.from_numpy(np.stack([wave[0, :128000], wave[0, 12800:140800]])).cuda()
+    model = EendModel(eend_cfg)
+    model.load_state_dict(eend_sd)
+    model = model.cuda().eval()
+    scores = {}
+    try:
+        for fused in (False, True):
+            set_fused_ln(fused)
+            k3.launches = k3.acc_launches = 0
+            with torch.inference_mode():
+                scores[fused] = model(windows)
+            counts = (k3.launches, k3.acc_launches)
+            wavlm = eend_cfg.wavlm
+            expected = (sum(wavlm.use_attention), sum(wavlm.use_feed_forward)) if fused else (0, 0)
+            check(counts == expected, f"fused-LN {fused}: K3, K4 launches {counts}, not {expected}")
+    finally:
+        set_fused_ln(None)
+    err = (scores[True] - scores[False]).abs().max().item()
+    print(f"EEND f32 on the card, fused-LN route vs unfused: max abs err {err:.3e} (limit 1e-4)")
+    check(bool(torch.isfinite(scores[True]).all()) and err <= 1e-4,
+          f"the fused-LN route's scores disagree with the unfused route's: {err}")
+
+
+def timed_pass(run) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_stream(card: str, model, eend_cfg, pipeline) -> dict:
+    """Streamed serving of STREAM_FILES different 120 s files at full width,
+    the fused-LN route on; returns the launches of K1, K3 and K4 over the
+    timed streamed pass."""
+    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(STREAM_FILES)]
+    uris = [f"file{i}" for i in range(STREAM_FILES)]
+    wavlm = eend_cfg.wavlm
+    batches = -(-sum(pipeline.seg_inference.num_chunks(waves[0].shape[1])) // BATCH)
+    expected = {"k1": STREAM_FILES * batches * sum(wavlm.use_attention),
+                "k3": STREAM_FILES * batches * sum(wavlm.use_attention),
+                "k4": STREAM_FILES * batches * sum(wavlm.use_feed_forward)}
+
+    def stream():
+        return [a.to_rttm() for a in pipeline.stream(iter(waves), 16000, uris=uris)]
+
+    def one_by_one():
+        return [pipeline(w, 16000, uri=u).to_rttm() for w, u in zip(waves, uris)]
+
+    try:
+        set_fused_ln(True)
+        print(f"stream warm-up: {timed_pass(stream):.3f} s")
+        k1.launches = k3.launches = k3.acc_launches = 0
+        streamed = []
+        seconds = timed_pass(lambda: streamed.extend(stream()))
+        launches = {"k1": k1.launches, "k3": k3.launches, "k4": k3.acc_launches}
+        print(f"streamed pass {card}: {STREAM_FILES} x {AUDIO_SECONDS} s in {seconds:.4f} s = "
+              f"{STREAM_FILES * AUDIO_SECONDS / seconds:.2f} audio-s/s; launches K1 "
+              f"{launches['k1']}, K3 {launches['k3']}, K4 {launches['k4']}")
+        check(launches == expected, f"expected launches {expected}, got {launches}")
+        single = one_by_one()
+        for uri, got, want in zip(uris, streamed, single):
+            check(len(want.splitlines()) > 0, f"{uri}: no speech found")
+            check(got == want, f"{uri}: the streamed annotation differs from the per-file call's")
+        print(f"streamed annotations equal the per-file calls': "
+              f"{[len(r.splitlines()) for r in streamed]} segments")
+
+        # float32 segmentation: the device-side stitch against the host stages
+        seg32 = SlidingInference(model, batch_size=BATCH, compute_dtype=torch.float32)
+        routes = {}
+        with strict_float32():
+            for fused_stitch in (True, False):
+                pipe32 = dataclasses.replace(pipeline, seg_inference=seg32,
+                                             fused_stitch=fused_stitch)
+                routes[fused_stitch] = [a.to_rttm() for a in pipe32.stream(iter(waves), 16000,
+                                                                           uris=uris)]
+        check(routes[True] == routes[False] and all(routes[True]),
+              "float32: the device-side stitch and the host stages give different annotations")
+        print("float32 segmentation: device-side stitch equals the host stages on "
+              f"{STREAM_FILES} files")
+
+        # one file's dispatch on the host's clock beside its device time
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        state = pipeline._dispatch_file(waves[0], 16000, "dispatch", None)
+        dispatch_s = time.perf_counter() - t0
+        end.record()
+        t0 = time.perf_counter()
+        pipeline._finish_file(state, None, None)
+        finish_s = time.perf_counter() - t0
+        end.synchronize()
+        print(f"one file {card}: _dispatch_file returned after {1e3 * dispatch_s:.2f} ms on the "
+              f"host; the device took {start.elapsed_time(end):.2f} ms for what it enqueued; "
+              f"_finish_file (wait, clustering, reconstruction) {1e3 * finish_s:.2f} ms")
+
+        # throughput: streamed and one by one, the fused-LN route on and off, in turns
+        times = {(mode, fused): [] for mode in ("streamed", "single-file") for fused in (True, False)}
+        set_fused_ln(False)
+        timed_pass(stream)  # warm the unfused route
+        for _ in range(STREAM_REPEATS):
+            for fused in (True, False):
+                set_fused_ln(fused)
+                times[("streamed", fused)].append(timed_pass(stream))
+                times[("single-file", fused)].append(timed_pass(one_by_one))
+        audio = STREAM_FILES * AUDIO_SECONDS
+        for (mode, fused), secs in times.items():
+            rates = sorted(audio / t for t in secs)
+            print(f"throughput {card}: {mode}, fused-LN {'on' if fused else 'off'}: median "
+                  f"{float(np.median(rates)):.2f} audio-s/s of {STREAM_REPEATS} passes over "
+                  f"{STREAM_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in rates)})")
+
+        # the profiler slows the host, so the busy share of a pass as users run
+        # it is the profiled device time over the unprofiled pass's wall clock
+        for fused in (True, False):
+            set_fused_ln(fused)
+            route = f"fused-LN {'on' if fused else 'off'}"
+            busy_ms = phase_profile(f"one streamed pass, {route}", stream, top=15 if fused else 6)
+            wall_ms = 1e3 * float(np.median(times[("streamed", fused)]))
+            print(f"streamed pass {card}, {route}: {busy_ms:.1f} ms of device time against a "
+                  f"median unprofiled pass of {wall_ms:.1f} ms: device busy "
+                  f"{100 * busy_ms / wall_ms:.1f}%")
+    finally:
+        set_fused_ln(None)
+    return launches
 
 
 class StageTimer:
-    """Pipeline hook: seconds since the previous stage ended."""
+    """Pipeline hook: seconds since the previous stage ended (the per-batch
+    progress calls are passed over)."""
 
     def __init__(self):
         self.last = time.perf_counter()
         self.seconds = {}
 
-    def __call__(self, step, artifact):
+    def __call__(self, step, artifact=None, total=None, completed=None):
+        if artifact is None:
+            return
         torch.cuda.synchronize()
         now = time.perf_counter()
         self.seconds[step] = now - self.last
@@ -608,9 +868,10 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    report = k1.build()
-    print(f"K1 + K2 build: {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, side by side
+        reports = [f.result() for f in [pool.submit(k1.build), pool.submit(k3.build)]]
+    print(f"K1 + K2 and K3 + K4 build: {time.perf_counter() - t0:.1f} s")
+    for line in "\n".join(reports).splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
@@ -666,16 +927,23 @@ def main() -> int:
               and float(parts[3]) >= 0 and float(parts[4]) > 0, f"bad RTTM line {line!r}")
     print(f"RTTM: {len(rttm)} segments, speakers {ann.labels()}")
 
-    phase_profile(pipeline, wave)
+    phase_profile("one pipeline call", lambda: pipeline(wave, 16000, uri="profile"))
 
     with strict_float32():
         phase_train_reference()
     train_launches = phase_training(card)
 
+    with strict_float32():
+        fused_ln = phase_fused_ln()
+        phase_fused_ln_model(eend_sd, eend_cfg, wave)
+    stream_launches = phase_stream(card, model, eend_cfg, pipeline)
+
     kernel["launches"] = launches
     trainable[0]["launches"] = train_launches["train"]
     trainable[1]["launches"] = train_launches["bwd"]
-    print(json.dumps({"kernels": [kernel, *trainable]}))
+    fused_ln[0]["launches"] = stream_launches["k3"]
+    fused_ln[1]["launches"] = stream_launches["k4"]
+    print(json.dumps({"kernels": [kernel, *trainable, *fused_ln]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

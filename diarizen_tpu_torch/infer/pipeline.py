@@ -11,21 +11,29 @@ segment -> count -> embed -> cluster -> reconstruct -> Annotation.
 6. cap the count, mark inactive speakers, reconstruct, keep the top-count
    speakers per frame and binarize into an Annotation.
 
-Stages 2, 3, 5 and 6 run on the host in numpy, as in the JAX package's host
-stitch path.
+Stages 5 and 6 run on the host in numpy. Stages 2 and 3 and the weights of
+stage 4 run on the device between the two models (`infer/fused.py`, the
+default), so that a file's device work is enqueued without a host wait, or on
+the host in numpy (`fused_stitch=False`, and any file the fused route cannot
+plan); the two routes give identical results. `stream` pipelines files: the
+next file's device work is enqueued before this file's host stages run.
 """
 
 from __future__ import annotations
 
+import ctypes
+import gc
 import math
-from dataclasses import dataclass
-from typing import Callable, Optional, Tuple, Union
+from dataclasses import dataclass, field
+from itertools import repeat
+from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from scipy.ndimage import median_filter
 
 from diarizen_tpu_torch.core.segments import Annotation, SlidingWindow, SlidingWindowFeature
+from diarizen_tpu_torch.infer.fused import FusedStitch, make_fused_stitch
 from diarizen_tpu_torch.infer.sliding import (
     SlidingInference,
     batch_row_spans,
@@ -38,7 +46,7 @@ from diarizen_tpu_torch.models.fbank import FRAME_LENGTH, FRAME_SHIFT, kaldi_fba
 from diarizen_tpu_torch.models.resnet import ResNet
 from diarizen_tpu_torch.ops.aggregate import aggregate, trim
 from diarizen_tpu_torch.ops.binarize import Binarize
-from diarizen_tpu_torch.utils import resolve_device
+from diarizen_tpu_torch.utils import HostFetch, resolve_device, to_device_async
 
 
 def speaker_count(
@@ -157,28 +165,61 @@ class EmbeddingInference:
         return FRAME_LENGTH
 
     @torch.inference_mode()
-    def __call__(self, wave: torch.Tensor, starts: np.ndarray, weights: np.ndarray) -> np.ndarray:
-        """Device waveform + (N,) window starts + (N, S, F) weights ->
-        (N, S, D) float64 embeddings."""
+    def dispatch(self, wave: torch.Tensor, starts: np.ndarray,
+                 weights: Union[torch.Tensor, np.ndarray],
+                 hook: Optional[Callable] = None) -> Optional[torch.Tensor]:
+        """Enqueue every batch: device waveform + (N,) window starts on the
+        host + (N, S, F) weights (a device tensor, or a host array that is
+        uploaded once) -> (N, S, D) float32 embeddings ON THE DEVICE, without
+        waiting for them (None for no windows). Fetch with `collect`."""
         n = len(starts)
+        if n == 0:
+            return None
         starts = np.asarray(starts)
         if (starts % FRAME_SHIFT).any():
             raise ValueError(f"window starts must be multiples of {FRAME_SHIFT} samples")
         feats = kaldi_fbank(wave[None] * 32768.0)[0]  # (frames, 80), before CMN
-        frame_starts = starts // FRAME_SHIFT
-        weights_dev = torch.as_tensor(weights, dtype=torch.float32, device=self.device)
+        frame_starts = to_device_async((starts // FRAME_SHIFT).astype(np.int64), self.device)
+        if not isinstance(weights, torch.Tensor):
+            weights = to_device_async(np.asarray(weights), self.device)
         out = torch.zeros((n, self.num_speakers, self.embed_dim), device=self.device)
         for off, blen, pad in batch_row_spans(
                 n, self.batch_size, lambda m: tail_size(m, self.batch_size)):
             windows = gather_rows(feats, frame_starts[off: off + blen],
                                   self._frames_per_window, pad)
             windows = windows - windows.mean(dim=1, keepdim=True)
-            wb = weights_dev[off: off + blen]
+            wb = weights[off: off + blen].float()
             if pad:
                 wb = torch.cat([wb, wb.new_zeros((pad,) + tuple(wb.shape[1:]))])
             emb = self.model(windows.to(self.compute_dtype), wb)
             out[off: off + blen] = emb[:blen]
-        return out.cpu().numpy().astype(np.float64)
+            if hook is not None:
+                hook("embeddings", None, total=n, completed=min(off + blen + pad, n))
+        return out
+
+    def collect(self, dispatched: Optional[torch.Tensor]) -> np.ndarray:
+        """The one device-to-host copy of a dispatched result; clustering
+        reads float64 on the host."""
+        if dispatched is None:
+            return np.zeros((0, self.num_speakers, self.embed_dim))
+        return dispatched.cpu().numpy().astype(np.float64)
+
+    def __call__(self, wave: torch.Tensor, starts: np.ndarray,
+                 weights: Union[torch.Tensor, np.ndarray],
+                 hook: Optional[Callable] = None) -> np.ndarray:
+        """Device waveform + (N,) window starts + (N, S, F) weights ->
+        (N, S, D) float64 embeddings."""
+        return self.collect(self.dispatch(wave, starts, weights, hook))
+
+
+def _trim_host_memory() -> None:
+    """Garbage-collect and hand freed heap pages back to the system (glibc's
+    malloc_trim; elsewhere the collection alone)."""
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):  # another libc
+        pass
 
 
 @dataclass
@@ -193,6 +234,16 @@ class DiarizationPipeline:
     max_speakers: int = 8
     apply_median_filtering: bool = True
     embedding_exclude_overlap: bool = True
+    # The device-side stitch (infer/fused.py): median filter, speaker count
+    # and embedding weights run ON THE DEVICE between the two models, so a
+    # file's whole device chain is enqueued with no host wait and fetched
+    # once. Bit-identical to the host stages (tests/test_torch_stream.py).
+    fused_stitch: bool = True
+    _fused: Optional[FusedStitch] = field(default=None, init=False, repr=False)
+    # centroids of the most recent file finished, aligned to its labels()
+    # order (read by return_embeddings; per file in stream mode it is racy:
+    # use __call__ when centroids are needed)
+    _last_centroids: Optional[np.ndarray] = field(default=None, init=False, repr=False)
 
     def __call__(
         self,
@@ -201,16 +252,169 @@ class DiarizationPipeline:
         uri: Optional[str] = None,
         num_speakers: Optional[int] = None,
         hook: Optional[Callable] = None,
-    ) -> Annotation:
-        """`hook(step_name, artifact)` is called after each stage:
-        "segmentation", "speaker_counting", "embeddings", "clustering",
-        "discrete_diarization"."""
+        return_embeddings: bool = False,
+    ) -> Union[Annotation, Tuple[Annotation, np.ndarray]]:
+        """`hook(step_name, artifact, total=, completed=)` is called after
+        each stage ("segmentation", "speaker_counting", "embeddings",
+        "clustering", "discrete_diarization") and, with `artifact=None`,
+        after each batch inside segmentation and embedding; see
+        `hooks.ProgressHook`, `TimingHook`, `ArtifactHook`.
+
+        `return_embeddings=True` also returns the speaker centroids, row i
+        for `annotation.labels()[i]`, zero rows for speakers without one."""
+        state = self._dispatch_file(waveform, sample_rate, uri, hook)
+        ann = self._finish_file(state, num_speakers, hook)
+        if return_embeddings:
+            return ann, self._last_centroids
+        return ann
+
+    def stream(
+        self,
+        waveforms: Iterable[np.ndarray],
+        sample_rate: int = 16000,
+        uris: Optional[Iterable[Optional[str]]] = None,
+        num_speakers: Optional[int] = None,
+        hook: Optional[Callable] = None,
+        trim_every: int = 10,
+    ) -> Iterator[Annotation]:
+        """Pipelined multi-file diarization: yields one Annotation per input
+        waveform, in order, identical to per-file `__call__`.
+
+        File i+1's device work is enqueued BEFORE file i's host stages run,
+        so the device's in-order queue always holds work and the host's
+        stitching and clustering hide behind it: the throughput mode for
+        scoring a whole test set.
+
+        `hook` is shared by the files in flight, so per-batch progress calls
+        interleave; the per-stage artifacts still arrive in file order.
+
+        `trim_every`: every N files, collect garbage and return freed heap
+        pages to the system (glibc; 0 disables), which bounds the host
+        memory of a long run."""
+        uri_iter = iter(uris) if uris is not None else repeat(None)
+        prev = None
+        done = 0
+        for waveform in waveforms:
+            if prev is not None and "fetch" not in prev:
+                # collect file i's segmentation FIRST (its copy is queued
+                # right behind its own kernels, not behind file i+1's), THEN
+                # enqueue file i+1 so the device stays busy while the host
+                # runs file i's stitching, embedding and clustering
+                prev["segmentations"] = self._collect_segmentations(prev)
+            cur = self._dispatch_file(waveform, sample_rate, next(uri_iter), hook)
+            if prev is not None:
+                yield self._finish_file(prev, num_speakers, hook)
+                done += 1
+                if trim_every and done % trim_every == 0:
+                    _trim_host_memory()
+            prev = cur
+        if prev is not None:
+            yield self._finish_file(prev, num_speakers, hook)
+
+    def _dispatch_file(self, waveform, sample_rate, uri, hook) -> dict:
+        """Enqueue a file's device work; returns its state for `_finish_file`."""
+        if (sample_rate or self.seg_inference.sample_rate) != self.seg_inference.sample_rate:
+            raise ValueError(f"resample to {self.seg_inference.sample_rate} Hz before inference")
         if waveform.ndim == 1:
             waveform = waveform[None]
         waveform = waveform[0:1]  # channel 0
+        # one copy of the waveform to the device for both models
         prepared = self.seg_inference.prepare_wave(waveform)
-        segmentations = self.seg_inference(waveform, sample_rate, prepared=prepared)
+        state = self._try_dispatch_fused(prepared, uri, hook)
+        if state is not None:
+            return state
+        seg_dev = self.seg_inference.dispatch(prepared[0], prepared[1], hook=hook)
+        return {"uri": uri, "prepared": prepared, "seg_dev": seg_dev}
 
+    # ---- the device-side stitch route (infer/fused.py) ----------------
+
+    def _use_fused(self) -> bool:
+        # duck-typed stand-ins (tests, other backends) may lack the
+        # dispatch interface the fused chain needs
+        return self.fused_stitch and all(
+            hasattr(inf, "dispatch") for inf in (self.seg_inference, self.emb_inference))
+
+    def _get_fused(self) -> FusedStitch:
+        if self._fused is None:
+            self._fused = make_fused_stitch(
+                self.eend_cfg,
+                self.seg_inference.window_size,
+                self.seg_inference.duration,
+                self.seg_inference.step,
+                self.emb_inference.num_speakers,
+                self.emb_inference.min_num_samples,
+                apply_median_filtering=self.apply_median_filtering,
+                exclude_overlap=self.embedding_exclude_overlap,
+            )
+        return self._fused
+
+    def _try_dispatch_fused(self, prepared, uri, hook) -> Optional[dict]:
+        """Enqueue the file's WHOLE device chain (segmentation -> stitch ->
+        embeddings -> copies to pinned host memory behind one event) with no
+        host wait; returns the file's state, or None where the fused route
+        does not apply (a layout that is not affine, an empty file)."""
+        if not self._use_fused():
+            return None
+        wave, starts = prepared
+        fused = self._get_fused()
+        plan = fused.plan(len(starts))
+        if plan is None:
+            return None
+        seg_dev = self.seg_inference.dispatch(wave, starts, hook=hook)
+        if seg_dev is None:
+            return None
+        binarized, counts, weights = fused.stitch(seg_dev, plan)
+        emb_dev = self.emb_inference.dispatch(wave, starts, weights, hook=hook)
+        # the copies are queued right behind this file's own kernels: in
+        # stream mode the next file's work is enqueued after them
+        return {"uri": uri, "prepared": prepared,
+                "fetch": HostFetch([binarized, counts, emb_dev])}
+
+    def _finish_fused(self, state, num_speakers, hook) -> Annotation:
+        binary, count_data, embeddings = state["fetch"].wait()  # THE one host wait per file
+        segmentations = self.seg_inference.to_feature(binary.astype(np.float32))
+        if hook is not None:
+            hook("segmentation", segmentations)
+        count = SlidingWindowFeature(count_data.reshape(-1, 1).copy(),
+                                     self._get_fused().out_frames)
+        if hook is not None:
+            hook("speaker_counting", count)
+
+        if count.data.size == 0 or np.nanmax(count.data) == 0:
+            return self._no_speech(state["uri"])
+        return self._cluster_and_reconstruct(
+            segmentations, count, embeddings.astype(np.float64), state["uri"],
+            num_speakers, hook)
+
+    def _no_speech(self, uri) -> Annotation:
+        # reset, else return_embeddings would hand back the PREVIOUS file's
+        # centroids; (0, dim) is the reference's np.zeros((0, dimension))
+        self._last_centroids = np.zeros((0, self._embedding_dim()))
+        return Annotation(uri=uri)
+
+    def _embedding_dim(self) -> int:
+        """The embedder's dimensionality, for the no-speech centroid shape;
+        duck-typed embedders without one give 0 columns."""
+        dim = getattr(self.emb_inference, "embed_dim", None)
+        return int(dim) if dim is not None else 0
+
+    # ---- the host route -----------------------------------------------
+
+    def _collect_segmentations(self, state) -> SlidingWindowFeature:
+        return self.seg_inference.to_feature(
+            self.seg_inference.collect(state["seg_dev"]))
+
+    def _finish_file(self, state, num_speakers, hook) -> Annotation:
+        if "fetch" in state:
+            return self._finish_fused(state, num_speakers, hook)
+        segmentations = state.get("segmentations")
+        if segmentations is None:
+            segmentations = self._collect_segmentations(state)
+        return self._finish_from_segmentations(
+            state["prepared"], segmentations, state["uri"], num_speakers, hook)
+
+    def _finish_from_segmentations(self, prepared, segmentations, uri, num_speakers,
+                                   hook) -> Annotation:
         if self.apply_median_filtering:
             segmentations.data = median_filter(
                 segmentations.data, size=(1, 11, 1), mode="reflect"
@@ -224,16 +428,23 @@ class DiarizationPipeline:
         if hook is not None:
             hook("speaker_counting", count)
 
-        ann = Annotation(uri=uri)
         if count.data.size == 0 or np.nanmax(count.data) == 0:
-            return ann  # no speech at all
+            return self._no_speech(uri)  # no speech at all
+        embeddings = self.get_embeddings(binarized, prepared, hook=hook)
+        return self._cluster_and_reconstruct(
+            segmentations, count, embeddings, uri, num_speakers, hook)
 
-        embeddings = self.get_embeddings(binarized, prepared)
+    def _cluster_and_reconstruct(self, segmentations, count, embeddings, uri, num_speakers,
+                                 hook) -> Annotation:
+        """Clustering -> reconstruction -> binarization -> Annotation, shared
+        by both routes. `segmentations` is the median-filtered binarized
+        (chunks, frames, S) feature."""
+        binarized = segmentations
         if hook is not None:
             hook("embeddings", embeddings)
 
         max_clusters = num_speakers or self.max_speakers
-        hard_clusters, _, _ = self.clustering(
+        hard_clusters, _, centroids = self.clustering(
             embeddings, binarized.data,
             min_clusters=num_speakers or self.min_speakers, max_clusters=max_clusters,
         )
@@ -251,12 +462,22 @@ class DiarizationPipeline:
                           min_duration_off=0.0)(discrete)
         result.uri = uri
         labels = result.labels()  # sorted cluster ids
-        return result.rename_labels(
+        result = result.rename_labels(
             {label: f"SPEAKER_{i:02d}" for i, label in enumerate(labels)}
         )
+        # centroids aligned to the renamed labels() order, zero rows for
+        # speakers beyond the centroid count
+        dim = centroids.shape[1] if centroids is not None and centroids.ndim == 2 else 0
+        aligned = np.zeros((len(labels), dim))
+        for i, label in enumerate(labels):
+            if centroids is not None and 0 <= int(label) < centroids.shape[0]:
+                aligned[i] = centroids[int(label)]
+        self._last_centroids = aligned
+        return result
 
     def get_embeddings(self, binarized: SlidingWindowFeature,
-                       prepared: Tuple[torch.Tensor, np.ndarray]) -> np.ndarray:
+                       prepared: Tuple[torch.Tensor, np.ndarray],
+                       hook: Optional[Callable] = None) -> np.ndarray:
         """(num_chunks, S, D) embeddings, each speaker's frames weighted by
         its activity with overlapped frames left out where enough clean
         frames remain."""
@@ -273,4 +494,4 @@ class DiarizationPipeline:
             weights = masks
         wave, starts = prepared
         return self.emb_inference(
-            wave, starts[:num_chunks], np.transpose(weights, (0, 2, 1)))
+            wave, starts[:num_chunks], np.transpose(weights, (0, 2, 1)), hook=hook)

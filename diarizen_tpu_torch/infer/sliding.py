@@ -4,7 +4,8 @@ The waveform is cut into windows of `duration` seconds every `step` seconds
 (an orphan last window when the remainder is non-zero), the windows run
 through the EEND model in batches, and the powerset scores become hard
 multilabel activity: a (num_chunks, num_frames, K) SlidingWindowFeature on
-the chunk window, stitched later by `ops/aggregate.py`.
+the chunk window, stitched later by `ops/aggregate.py` on the host or by
+`infer/fused.py` on the device.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from diarizen_tpu_torch.core.segments import SlidingWindow, SlidingWindowFeature
 from diarizen_tpu_torch.models.eend import EendModel
 from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
-from diarizen_tpu_torch.utils import resolve_device
+from diarizen_tpu_torch.utils import resolve_device, to_device_async
 
 
 def batch_row_spans(total: int, batch_size: int,
@@ -44,11 +45,11 @@ def tail_size(n_real: int, batch_size: int) -> int:
     return min(batch_size, ((n_real + 7) // 8) * 8)
 
 
-def gather_rows(source: torch.Tensor, starts: np.ndarray, length: int, pad: int) -> torch.Tensor:
+def gather_rows(source: torch.Tensor, starts: torch.Tensor, length: int, pad: int) -> torch.Tensor:
     """(len(starts) + pad, length, ...) windows source[s : s + length] of the
-    leading axis, pad rows of zeros at the end."""
-    idx = torch.as_tensor(starts, device=source.device)[:, None] + torch.arange(
-        length, device=source.device)
+    leading axis, pad rows of zeros at the end. `starts` lies on source's
+    device, so nothing here waits for the device."""
+    idx = starts[:, None] + torch.arange(length, device=source.device)
     rows = source[idx]
     if pad:
         rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(rows.shape[1:]))])
@@ -93,7 +94,8 @@ class SlidingInference:
 
     def prepare_wave(self, waveform: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
         """Zero-pad channel 0 so every window is in bounds and copy it to the
-        device once; returns (wave on device, window start samples). The
+        device once, through pinned memory, without waiting for the device;
+        returns (wave on device, window start samples on the host). The
         device copy is shared with the embedding stage."""
         if waveform.ndim == 2:
             waveform = waveform[0]
@@ -101,35 +103,65 @@ class SlidingInference:
         starts = np.arange(n_complete + has_last, dtype=np.int64) * self.step_size
         wave = np.zeros(max(starts[-1] + self.window_size, waveform.shape[0]), np.float32)
         wave[: waveform.shape[0]] = waveform
-        return torch.from_numpy(wave).to(self.device), starts
+        return to_device_async(wave, self.device), starts
 
     @torch.inference_mode()
-    def infer(self, wave: torch.Tensor, starts: np.ndarray) -> np.ndarray:
-        """Hard multilabel activity (num_chunks, num_frames, K) as float32."""
+    def dispatch(self, wave: torch.Tensor, starts: np.ndarray,
+                 hook: Optional[Callable] = None) -> Optional[torch.Tensor]:
+        """Enqueue every batch; returns the hard multilabel activity
+        (num_chunks, num_frames, K) as uint8 ON THE DEVICE, without waiting
+        for it (None for no chunks). Fetch it with `collect`; splitting the
+        two lets a caller overlap this file's device work with another
+        file's host stages (`DiarizationPipeline.stream`)."""
         total = len(starts)
+        if total == 0:
+            return None
+        starts_dev = to_device_async(np.asarray(starts, np.int64), self.device)
         out = torch.zeros((total, self._frames_per_chunk, self.powerset.num_classes),
                           dtype=torch.uint8, device=self.device)
         for off, blen, pad in batch_row_spans(
                 total, self.batch_size, lambda n: tail_size(n, self.batch_size)):
-            chunks = gather_rows(wave, starts[off: off + blen], self.window_size, pad)
+            chunks = gather_rows(wave, starts_dev[off: off + blen], self.window_size, pad)
             scores = self.model(chunks, compute_dtype=self.compute_dtype)
             out[off: off + blen] = self.powerset.to_multilabel(scores)[:blen]
-        return out.cpu().numpy().astype(np.float32)
+            if hook is not None:
+                hook("segmentation", None, total=total, completed=min(off + blen + pad, total))
+        return out
+
+    @staticmethod
+    def collect(dispatched: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+        """The one device-to-host copy of a dispatched result, as float32."""
+        if dispatched is None:
+            return None
+        return dispatched.cpu().numpy().astype(np.float32)
+
+    def infer(self, wave: torch.Tensor, starts: np.ndarray,
+              hook: Optional[Callable] = None) -> np.ndarray:
+        """Hard multilabel activity (num_chunks, num_frames, K) as float32."""
+        data = self.collect(self.dispatch(wave, starts, hook))
+        if data is None:
+            return np.zeros((0, self._frames_per_chunk, self.powerset.num_classes), np.float32)
+        return data
+
+    def to_feature(self, data: np.ndarray) -> SlidingWindowFeature:
+        return SlidingWindowFeature(
+            data, SlidingWindow(start=0.0, duration=self.duration, step=self.step))
 
     def __call__(
         self,
         waveform: np.ndarray,
         sample_rate: Optional[int] = None,
+        hook: Optional[Callable] = None,
         prepared: Optional[Tuple[torch.Tensor, np.ndarray]] = None,
     ) -> SlidingWindowFeature:
-        """`prepared` is an optional `prepare_wave(waveform)` result, so a
-        caller can share one device copy of the waveform across stages."""
+        """`hook(step_name, artifact, total=, completed=)` is called after
+        each batch. `prepared` is an optional `prepare_wave(waveform)`
+        result, so a caller can share one device copy of the waveform across
+        stages."""
         if (sample_rate or self.sample_rate) != self.sample_rate:
             raise ValueError(f"resample to {self.sample_rate} Hz before inference")
         wave, starts = prepared if prepared is not None else self.prepare_wave(waveform)
-        data = self.infer(wave, starts)
-        chunks = SlidingWindow(start=0.0, duration=self.duration, step=self.step)
-        return SlidingWindowFeature(data, chunks)
+        return self.to_feature(self.infer(wave, starts, hook))
 
 
 def receptive_field_window(cfg) -> SlidingWindow:

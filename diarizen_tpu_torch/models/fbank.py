@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from diarizen_tpu_torch.utils import device_constant
+
 SAMPLE_RATE = 16000
 FRAME_LENGTH = 400  # 25 ms
 FRAME_SHIFT = 160  # 10 ms
@@ -88,12 +90,11 @@ def kaldi_fbank(waveforms: torch.Tensor) -> torch.Tensor:
     frames = frames - frames.mean(dim=-1, keepdim=True)  # remove DC per frame
     # preemphasis with the first sample duplicated (torchaudio semantics)
     offset = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
-    frames = (frames - PREEMPH * offset) * torch.as_tensor(_hamming_window(), device=device)
+    frames = (frames - PREEMPH * offset) * device_constant("fbank.hamming", _hamming_window, device)
 
-    cos_m, sin_m = (torch.as_tensor(m, device=device) for m in _dft_matrices())
-    re = frames @ cos_m
-    im = frames @ sin_m
-    mel = (re * re + im * im) @ torch.as_tensor(_mel_banks(), device=device)
+    re = frames @ device_constant("fbank.cos", lambda: _dft_matrices()[0], device)
+    im = frames @ device_constant("fbank.sin", lambda: _dft_matrices()[1], device)
+    mel = (re * re + im * im) @ device_constant("fbank.mel", _mel_banks, device)
     return torch.log(torch.clamp_min(mel, EPS))
 
 

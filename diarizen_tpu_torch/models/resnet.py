@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diarizen_tpu_torch.models.fbank import num_fbank_frames
+from diarizen_tpu_torch.utils import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +86,10 @@ def stats_pool(features: torch.Tensor, weights: Optional[torch.Tensor] = None) -
         weights = weights[:, None, :]
     t, tw = features.shape[-1], weights.shape[-1]
     if tw != t:  # nearest interpolation (F.interpolate mode='nearest')
-        src = np.floor(np.arange(t) * (tw / t)).astype(np.int64)
-        weights = weights[..., torch.as_tensor(src, device=weights.device)]
+        src = device_constant(("resnet.nearest", t, tw),
+                              lambda: np.floor(np.arange(t) * (tw / t)).astype(np.int64),
+                              weights.device)
+        weights = weights[..., src]
 
     w = weights[:, :, None, :].float()  # (B, S, 1, T)
     f = features[:, None, :, :].float()  # (B, 1, D, T)

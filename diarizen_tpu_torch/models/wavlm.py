@@ -6,7 +6,10 @@ WavLM state dict loads with `load_state_dict`. Heterogeneous pruned
 configurations (per-layer head subsets and FF widths, layers without
 attention) are supported. The self-attention with the gated relative-position
 bias runs through kernel K1 (`ops/flash_attention.py`) at inference, and
-through K1's training instance and K2 in train mode.
+through K1's training instance and K2 in train mode. With `set_fused_ln(True)`
+the post-norm inference forward runs the residual adds, both LayerNorms and
+the weighted-sum update of each layer through kernels K3 and K4
+(`ops/fused_ln.py`).
 
 Train mode follows the JAX package's `wavlm_extract_features(train=True)`:
 GradMultiply 0.1 on the extractor output; dropout after the projection,
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,8 +44,26 @@ from diarizen_tpu_torch.ops.flash_attention import (
     flash_attention_gated_bias,
     flash_attention_gated_bias_trainable,
 )
+from diarizen_tpu_torch.ops.fused_ln import residual_ln, residual_ln_acc
+from diarizen_tpu_torch.utils import device_constant
 
 FEATURE_GRAD_MULT = 0.1  # GradMultiply on the extractor output in train mode
+
+_FUSED_LN_OVERRIDE: Optional[bool] = None
+
+
+def set_fused_ln(enabled: Optional[bool]) -> None:
+    """Override the fused residual + LayerNorm (+ weighted-sum) toggle; None
+    restores the default, which is off as in the JAX package. When on, the
+    post-norm inference forward runs kernels K3 and K4 (`ops/fused_ln.py`)
+    in place of the residual add, the two LayerNorms and the per-layer
+    `acc + w * x` update."""
+    global _FUSED_LN_OVERRIDE
+    _FUSED_LN_OVERRIDE = enabled
+
+
+def use_fused_ln() -> bool:
+    return _FUSED_LN_OVERRIDE if _FUSED_LN_OVERRIDE is not None else False
 
 DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     (512, 10, 5),
@@ -276,7 +297,6 @@ class WavLM(nn.Module):
         self.cfg = cfg
         self.feature_extractor = _FeatureExtractor(cfg)
         self.encoder = _Encoder(cfg)
-        self._buckets: Dict[Tuple[int, torch.device], torch.Tensor] = {}
         self.layers_run: List[int] = []  # the layers the last forward computed
 
     def forward(self, waveforms: torch.Tensor, layer_weights: torch.Tensor,
@@ -314,10 +334,12 @@ class WavLM(nn.Module):
         acc = w[0] * x.float()
         self.layers_run = []
         for i, layer in enumerate(transformer.layers):
+            folded = None  # acc after a K4 that took the update into its pass
             if gen is None or cfg.layer_drop == 0.0 or rng.uniform() >= cfg.layer_drop:
-                x = self._layer(i, layer, x, position_bias, train, rng)
+                x, folded = self._layer(i, layer, x, position_bias, train, rng,
+                                        ws_acc=(w[i + 1], acc))
                 self.layers_run.append(i)
-            acc = acc + w[i + 1] * x.float()
+            acc = folded if folded is not None else acc + w[i + 1] * x.float()
         return acc
 
     def _feature_extractor(self, x: torch.Tensor) -> torch.Tensor:
@@ -350,33 +372,54 @@ class WavLM(nn.Module):
 
     def _position_bias(self, t: int, device: torch.device) -> torch.Tensor:
         """(H_total, T, T) float32 bias from layer 0's bucket embedding."""
-        key = (t, device)
-        if key not in self._buckets:
-            buckets = _rel_pos_buckets(t, self.cfg.num_buckets, self.cfg.max_distance)
-            self._buckets[key] = torch.as_tensor(buckets, device=device)
+        cfg = self.cfg
+        buckets = device_constant(
+            ("wavlm.buckets", t, cfg.num_buckets, cfg.max_distance),
+            lambda: _rel_pos_buckets(t, cfg.num_buckets, cfg.max_distance), device)
         table = self.encoder.transformer.layers[0].attention.rel_attn_embed.weight
-        return table[self._buckets[key]].permute(2, 0, 1).float()
+        return table[buckets].permute(2, 0, 1).float()
 
     def _layer(self, i: int, layer: _EncoderLayer, x: torch.Tensor,
                position_bias: torch.Tensor, train: bool = False,
-               rng: Optional[TrainRandom] = None) -> torch.Tensor:
+               rng: Optional[TrainRandom] = None,
+               ws_acc: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One encoder layer. `ws_acc` is (w, acc) of the weighted sum: on the
+        fused route the final norm's kernel K4 also adds `w * x` to the
+        float32 `acc` in place. Returns (x, acc where that happened, else
+        None: the caller then adds the layer's term itself)."""
         cfg = self.cfg
         pre_ln = cfg.layer_norm_first
         gen = rng.device if (train and rng is not None) else None
-        if layer.attention is not None:
+        # the fused residual + LayerNorm kernels: inference only, post-norm stacks
+        fused = use_fused_ln() and not train and not pre_ln
+        has_attn = layer.attention is not None
+        if has_attn:
             h = layer_norm(layer.layer_norm, x) if pre_ln else x
             h = self._self_attention(i, layer.attention, h, position_bias, train, rng)
-            x = x + dropout(h, cfg.dropout, gen)
+            h = dropout(h, cfg.dropout, gen)
+            if fused:  # the residual add rides in the post-norm attention LayerNorm
+                norm = layer.layer_norm
+                x = residual_ln(x, h, norm.weight, norm.bias)
+            else:
+                x = x + h
         if pre_ln:
             if layer.feed_forward is not None:
                 x = x + self._feed_forward(
                     layer.feed_forward, layer_norm(layer.final_layer_norm, x), gen)
-            return x
+            return x, None
         # post-LN: both norms apply even where a sublayer was pruned away
-        x = layer_norm(layer.layer_norm, x)
+        if not (has_attn and fused):
+            x = layer_norm(layer.layer_norm, x)
         if layer.feed_forward is not None:
-            x = x + self._feed_forward(layer.feed_forward, x, gen)
-        return layer_norm(layer.final_layer_norm, x)
+            ff_out = self._feed_forward(layer.feed_forward, x, gen)
+            if fused:
+                norm = layer.final_layer_norm
+                if ws_acc is not None:
+                    return residual_ln_acc(x, ff_out, norm.weight, norm.bias, *ws_acc)
+                return residual_ln(x, ff_out, norm.weight, norm.bias), None
+            x = x + ff_out
+        return layer_norm(layer.final_layer_norm, x), None
 
     def _self_attention(self, i: int, attn: _SelfAttention, x: torch.Tensor,
                         position_bias: torch.Tensor, train: bool = False,

@@ -31,17 +31,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "gated_bias_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diarizen_tpu_torch"
-LIBRARY = BUILD_DIR / "libgated_bias_attention.so"
+from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, library_path
+
+SOURCE = CSRC_DIR / "gated_bias_attention.cu"
+LIBRARY = library_path(SOURCE)
 
 launches = 0  # K1 inference launches since the caller last set it to 0
 train_launches = 0  # K1 training launches (dropout, log-sum-exp)
@@ -55,25 +53,7 @@ def build() -> str:
     """Compile the kernels for sm_90a unless the library is newer than its
     source; returns the compiler's output (register and shared-memory
     report from ptxas), empty when nothing was built."""
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return ""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("the CUDA toolkit (nvcc) was not found")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        os.path.join(CUDA_HOME, "bin", "nvcc"),
-        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    return build_library(SOURCE)
 
 
 def _library() -> ctypes.CDLL:

@@ -13,6 +13,8 @@ from math import comb
 import numpy as np
 import torch
 
+from diarizen_tpu_torch.utils import device_constant
+
 
 def num_powerset_classes(num_classes: int, max_set_size: int) -> int:
     return sum(comb(num_classes, k) for k in range(max_set_size + 1))
@@ -42,7 +44,7 @@ class Powerset:
 
         hard: argmax one-hot @ mapping as uint8 (ties go to the lowest class,
         as in jnp.argmax); soft: exp(scores) @ mapping in float32."""
-        mapping = torch.as_tensor(self.mapping, device=scores.device)
+        mapping = self._mapping_on(scores.device)
         if soft:
             return torch.exp(scores.float()) @ mapping
         one_hot = torch.nn.functional.one_hot(
@@ -50,8 +52,12 @@ class Powerset:
         ).to(mapping.dtype)
         return (one_hot @ mapping).to(torch.uint8)
 
+    def _mapping_on(self, device: torch.device) -> torch.Tensor:
+        return device_constant(("powerset.mapping", self.num_classes, self.max_set_size),
+                               lambda: self.mapping, device)
+
     def _scores(self, multilabel: torch.Tensor) -> torch.Tensor:
-        mapping = torch.as_tensor(self.mapping, device=multilabel.device)
+        mapping = self._mapping_on(multilabel.device)
         return multilabel.float() @ mapping.T
 
     def to_powerset_index(self, multilabel: torch.Tensor) -> torch.Tensor:
