@@ -4,8 +4,9 @@
 
 Phases (any failure exits non-zero, before the last line is printed):
   1. device: the card's name, and its name and power limit from nvidia-smi;
-  2. build kernels K1 and K2 (csrc/gated_bias_attention.cu) and K3 and K4
-     (csrc/residual_layer_norm.cu) with nvcc, the two sources side by side;
+  2. build kernels K1 and K2 (csrc/gated_bias_attention.cu), K3 and K4
+     (csrc/residual_layer_norm.cu) and K5 (csrc/conv_chain.cu) with nvcc, the
+     three sources side by side;
   3. K1 against its plain PyTorch version on the card at the serving path's
      shapes, with CUDA-event timings of the kernel, the plain version and
      one PyTorch call computing the same function (yardstick only);
@@ -39,8 +40,25 @@ Phases (any failure exits non-zero, before the last line is printed):
      stitch must equal the host stages exactly; streamed and single-file
      audio-s/s with the fused-LN route on and off, the host time of one
      file's dispatch beside its device time, and one profiled streamed pass;
- 10. a JSON line with the kernels' numbers, the nvidia-smi line, and a last
-     JSON line {"ok": true, "device": {...}}.
+ 10. K5 (the WavLM extractor's conv layers 1-6 in one launch) against its
+     plain version in bfloat16 and float32 at ragged sizes, the input exactly
+     as long as needed and longer, inside a NaN-filled buffer; timed at the
+     serving shape against the plain version, six PyTorch convolutions and
+     the bound;
+ 11. snapshot directories to RTTM files: two directories laid out like
+     released ones (config.toml with the reference's class path and VBx
+     clustering, pytorch_model.bin, plda/) written from seeds for WavLM-Base
+     and Large-s80-md at full width, four 120 s WAV files and a wav.scp; each
+     through `pipelines.from_pretrained` and the wav.scp CLI, once to warm up
+     and once timed. WavLM-Base runs with the conv-chain route on (20 K5 and
+     240 K1 launches expected): its scores with the route on against off
+     (float32 within 1e-4; bfloat16 flips only at small top-2 margins), its
+     annotations against `diarize_file` with the route off, streamed
+     audio-s/s with the route on and off, the extractor's time, a profiled
+     pass. Large-s80-md (pre-LN, 400 K1 launches, no K3, K4 or K5): float32
+     scores on the card against the CPU, streamed audio-s/s, a profiled pass;
+ 12. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
+     last JSON line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,8 +76,10 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.optimize import linear_sum_assignment
 
 from diarizen_tpu_torch.cluster import AgglomerativeClustering
+from diarizen_tpu_torch import pipelines
 from diarizen_tpu_torch.core.audio import write_wav
 from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
 from diarizen_tpu_torch.models.conformer import ConformerConfig
@@ -67,7 +87,8 @@ from diarizen_tpu_torch.models.convert import random_state_dict
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank import wespeaker_fbank
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
-from diarizen_tpu_torch.models.wavlm import WavLMConfig, set_fused_ln
+from diarizen_tpu_torch.models.wavlm import WavLMConfig, set_conv_chain, set_fused_ln
+from diarizen_tpu_torch.ops import conv_chain as k5
 from diarizen_tpu_torch.ops import flash_attention as k1
 from diarizen_tpu_torch.ops import fused_ln as k3
 from diarizen_tpu_torch.train import Trainer, TrainerConfig, dual_lr_optimizer, train_step
@@ -121,6 +142,14 @@ def strict_float32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+_START = time.perf_counter()
+
+
+def elapsed(phase: str) -> None:
+    """One line saying how far into the run a phase ended."""
+    print(f"[{time.perf_counter() - _START:7.1f} s] {phase} done", flush=True)
+
+
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise RuntimeError(message)
@@ -171,10 +200,20 @@ def library_attention(q, k, v, pos, gate):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=(gate[..., None] * pos).to(q.dtype))
 
 
+def path_head_counts() -> list:
+    """Every head count at which a main path launches K1's inference
+    instance: the kept heads of each attention layer of the three models."""
+    counts = set()
+    for cfg in (WavLMConfig.base_s80_md(), WavLMConfig.base(), WavLMConfig.large_s80_md()):
+        counts |= {len(h) for h, a in zip(cfg.remaining_heads, cfg.use_attention) if a}
+    return sorted(counts)
+
+
 def phase_kernel(heads_per_layer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # unit-scale inputs
-    cases = [(BATCH, h, FRAMES) for h in (1, 2, 5)] + [(BATCH, 2, 37), (BATCH, 2, 799)]
+    cases = ([(BATCH, h, FRAMES) for h in path_head_counts()] + [(13, 12, FRAMES)]
+             + [(BATCH, 2, 37), (BATCH, 2, 799)])
     slice_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, t in cases:
@@ -707,6 +746,109 @@ def phase_fused_ln() -> list:
     return entries
 
 
+def conv_chain_inputs(b, t1, dtype, gen, guard: int = 4 * 512):
+    """x1 (b, t1, 512) and the six (k, 512, 512) weights at unit output scale.
+    x1 is a view into a larger buffer with NaN before and after it: a read
+    outside the tensor poisons the output."""
+    n = b * t1 * k5.C
+    buf = torch.full((n + 2 * guard,), float("nan"), dtype=dtype, device="cuda")
+    x = buf[guard:guard + n].view(b, t1, k5.C)
+    x.copy_(torch.randn((b, t1, k5.C), generator=gen, device="cuda"))
+    weights = [(1.5 / (k * k5.C) ** 0.5) * torch.randn((k, k5.C, k5.C), generator=gen,
+                                                        device="cuda") for k in k5.KERNELS]
+    return x, weights
+
+
+def conv_chain_bound_s(b: int, t_out: int, itemsize: int, flop_rate: float) -> tuple:
+    """(bytes / HBM rate, flops / peak) of one K5 launch: the input frames
+    that t_out outputs read and the weights read once, the output written
+    once; each stage's product on the frames the next stage reads."""
+    frames, flops = t_out, 0
+    for k in reversed(k5.KERNELS):
+        flops += 2 * k * k5.C * k5.C * frames * b
+        frames = 2 * (frames - 1) + k
+    weights = sum(k5.KERNELS) * k5.C * k5.C
+    moved = (b * (frames + t_out) * k5.C + weights) * itemsize
+    return moved / HBM_BYTES_PER_S, flops / flop_rate
+
+
+def library_conv_chain(x_cf, weights_oik):
+    """Six PyTorch convolutions and GELUs, channels first, computing K5's
+    function the way the model does with the route off: a yardstick only."""
+    for w in weights_oik:
+        x_cf = F.gelu(F.conv1d(x_cf, w, stride=2))
+    return x_cf
+
+
+def phase_conv_chain() -> dict:
+    """K5 against its plain version on the card, within 1e-4 (float32: the
+    kernel sums in another order than cuDNN) and 2e-2 (bfloat16: the plain
+    version rounds each convolution to bfloat16 before its GELU, the kernel
+    after it) of the output's largest magnitude, at ragged sizes with the
+    input exactly as long as the outputs need and, once, longer, and at the
+    two shapes the `base` path gives it (a full batch and the 13-window tail
+    batch of a 120 s file, T1 = 25599 from layer 0); then timed at the
+    serving shape."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    main_err = 0.0
+    path_t1 = (128000 - 10) // 5 + 1  # layer 0's output frames for an 8 s window
+    tail = ((AUDIO_SECONDS * 10 - 80) // 8 + 1) % BATCH  # the last batch of a file: 8 s windows, 0.8 s hop
+    exact = [(b, t_out, k5.min_input_frames(t_out))
+             for b, t_out in ((1, 1), (2, 32), (3, 65), (tail, FRAMES), (BATCH, FRAMES))]
+    cases = exact + [(3, 65, k5.min_input_frames(65) + 37), (tail, FRAMES, path_t1),
+                     (BATCH, FRAMES, path_t1)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t_out, t1 in cases:
+            x, weights = conv_chain_inputs(b, t1, dtype, gen)
+            got = k5.fused_conv_chain(x, weights, t_out)
+            torch.cuda.synchronize()
+            want = k5.conv_chain_plain(x, [w.to(dtype) for w in weights], t_out)
+            scale = want.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"K5 vs plain {str(dtype)[6:]} B={b} T1={t1} t_out={t_out}: max abs err "
+                  f"{err:.3e} of max magnitude {scale:.3f} (tolerance {tolerance[dtype]:.0e})")
+            check(got.shape == (b, t_out, k5.C) and got.dtype == dtype, "K5 output type or shape")
+            check(np.isfinite(err) and err <= tolerance[dtype] * scale,
+                  f"K5 disagrees with its plain version: {err} of {scale} at {dtype} B={b} "
+                  f"t_out={t_out}")
+            if dtype == torch.bfloat16 and (b, t_out, t1) == (BATCH, FRAMES, path_t1):
+                main_err = err
+            del x, got, want
+
+    # timings at the serving shape: layer 0's output for one batch of 32 windows of 8 s
+    t1 = path_t1
+    x, weights = conv_chain_inputs(BATCH, t1, torch.bfloat16, gen)
+    packed = k5.pack_weights(weights, torch.bfloat16, "cuda")
+    x_cf = x.transpose(1, 2).contiguous()
+    weights_oik = [w.to(torch.bfloat16).permute(2, 1, 0).contiguous() for w in weights]
+    row = {
+        "ms": median_ms(lambda: k5.fused_conv_chain(x, packed, FRAMES), reps=9),
+        "plain_ms": median_ms(lambda: k5.conv_chain_plain(x, packed.taps, FRAMES), reps=9),
+        "library_ms": median_ms(lambda: library_conv_chain(x_cf, weights_oik), reps=9),
+    }
+    layout_ms = median_ms(lambda: x_cf.transpose(1, 2).contiguous(), reps=9)
+    mem_s, op_s = conv_chain_bound_s(BATCH, FRAMES, 2, BF16_FLOP_PER_S)
+    print(f"conv_chain bf16 B={BATCH} T1={t1} t_out={FRAMES}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+          f"{1e3 * max(mem_s, op_s):.4f} ms ({1e3 * mem_s:.4f} bytes, {1e3 * op_s:.4f} "
+          f"operations); the channels-last copy of its input {layout_ms:.4f} ms")
+    x32, w32 = conv_chain_inputs(BATCH, t1, torch.float32, gen)
+    packed32 = k5.pack_weights(w32, torch.float32, "cuda")
+    f32_ms = median_ms(lambda: k5.fused_conv_chain(x32, packed32, FRAMES), reps=3, warmup=1)
+    mem32_s, op32_s = conv_chain_bound_s(BATCH, FRAMES, 4, F32_FLOP_PER_S)
+    print(f"conv_chain f32 at the same shape: kernel {f32_ms:.3f} ms, bound "
+          f"{1e3 * max(mem32_s, op32_s):.4f} ms")
+    return {
+        "name": "conv_chain", "route": "cuda",
+        "source": "diarizen_tpu_torch/csrc/conv_chain.cu",
+        "replaces": "diarizen_tpu/ops/conv_chain.py:83",
+        "max_abs_err": main_err, **row,
+        "bound_ms": 1e3 * max(mem_s, op_s),
+        "bound_by": "bytes" if mem_s >= op_s else "operations",
+    }
+
+
 def phase_fused_ln_model(eend_sd, eend_cfg, wave) -> None:
     """The float32 EEND scores on the card with the fused-LN route (K3, K4)
     against the unfused route, on two 8 s windows, within 1e-4."""
@@ -838,6 +980,330 @@ def phase_stream(card: str, model, eend_cfg, pipeline) -> dict:
     return launches
 
 
+SNAPSHOT_TOML = """\
+[model]
+path = "diarizen.models.eend.model_wavlm_conformer.Model"
+[model.args]
+wavlm_src = "{wavlm_src}"
+wavlm_layer_num = {layer_num}
+wavlm_feat_dim = {feat_dim}
+attention_in = 256
+ffn_hidden = 1024
+num_head = 4
+num_layer = 4
+dropout = 0.1
+chunk_size = 8
+use_posi = false
+output_activate_function = false
+selected_channel = 0
+max_speakers_per_chunk = 4
+
+[inference]
+[inference.args]
+seg_duration = 8
+segmentation_step = 0.1
+batch_size = 32
+apply_median_filtering = true
+
+[clustering]
+[clustering.args]
+method = "VBxClustering"
+min_speakers = 1
+max_speakers = 8
+ahc_criterion = "distance"
+ahc_threshold = 0.6
+Fa = 0.07
+Fb = 0.8
+lda_dim = 128
+max_iters = 20
+"""
+
+# the two served models: preset, WavLM width, hidden states in the weighted sum
+SNAPSHOT_MODELS = {"base": ("wavlm_base", 768, 13), "large_s80_md": ("wavlm_large_s80_md", 1024, 25)}
+
+
+def write_snapshot(root: Path, name: str) -> Path:
+    """A snapshot directory the way a released one looks: config.toml with
+    the reference's class path and VBx clustering, pytorch_model.bin (seeded
+    random weights at the preset's full width) and a plda/ directory at the
+    ResNet34's 256 -> 128 dimensions."""
+    wavlm_src, feat_dim, layer_num = SNAPSHOT_MODELS[name]
+    snap = root / name
+    (snap / "plda").mkdir(parents=True)
+    (snap / "config.toml").write_text(SNAPSHOT_TOML.format(
+        wavlm_src=wavlm_src, feat_dim=feat_dim, layer_num=layer_num))
+    cfg = EendConfig(wavlm=WavLMConfig.from_preset(wavlm_src), conformer=ConformerConfig(),
+                     wavlm_layer_num=layer_num, wavlm_feat_dim=feat_dim)
+    torch.save(random_state_dict(EendModel(cfg), seed=10 + len(name)), snap / "pytorch_model.bin")
+    rng = np.random.default_rng(3)
+    np.savez(snap / "plda" / "xvec_transform.npz", mean1=0.1 * rng.standard_normal(256),
+             mean2=0.1 * rng.standard_normal(128), lda=rng.standard_normal((256, 128)) / 16.0)
+    tr = rng.standard_normal((128, 128)) / 12.0 + np.eye(128)
+    psi = np.sort(rng.uniform(0.5, 5.0, size=128))[::-1]
+    np.savez(snap / "plda" / "plda.npz", mu=0.1 * rng.standard_normal(128), tr=tr, psi=psi)
+    return snap
+
+
+def check_rttm(text: str, uri: str) -> int:
+    lines = text.splitlines()
+    check(len(lines) > 0, f"{uri}: no speech found")
+    for line in lines:
+        parts = line.split()
+        check(len(parts) == 10 and parts[0] == "SPEAKER" and parts[1] == uri
+              and float(parts[3]) >= 0 and float(parts[4]) > 0, f"bad RTTM line {line!r}")
+    return len(lines)
+
+
+def rttm_disagreement(a: str, b: str, step: float = 0.01) -> float:
+    """Share of the speech time on which two RTTM texts disagree, speakers
+    matched one to one for the largest overlap, on a grid of `step` s."""
+    def grid(text):
+        turns = [(line.split()[7], float(line.split()[3]), float(line.split()[4]))
+                 for line in text.splitlines()]
+        end = max((t0 + d for _, t0, d in turns), default=0.0)
+        labels = sorted({spk for spk, _, _ in turns})
+        out = np.zeros((len(labels), int(round(end / step)) + 1), bool)
+        for spk, t0, d in turns:
+            out[labels.index(spk), int(round(t0 / step)): int(round((t0 + d) / step))] = True
+        return out
+    ga, gb = grid(a), grid(b)
+    n, k = max(ga.shape[1], gb.shape[1]), max(ga.shape[0], gb.shape[0])
+    pa, pb = np.zeros((k, n), bool), np.zeros((k, n), bool)
+    pa[: ga.shape[0], : ga.shape[1]] = ga
+    pb[: gb.shape[0], : gb.shape[1]] = gb
+    overlap = (pa[:, None, :] & pb[None, :, :]).sum(-1)
+    rows, cols = linear_sum_assignment(-overlap)
+    wrong = sum(int((pa[r] ^ pb[c]).sum()) for r, c in zip(rows, cols))
+    return wrong / max(1, int(pa.sum()))
+
+
+def file_windows(seg, wave: np.ndarray) -> torch.Tensor:
+    """(num_chunks, window) windows of one file on the card."""
+    dev_wave, starts = seg.prepare_wave(wave)
+    idx = torch.as_tensor(starts, device=dev_wave.device)[:, None] + torch.arange(
+        seg.window_size, device=dev_wave.device)
+    return dev_wave[idx]
+
+
+def route_scores(model, windows: torch.Tensor, dtype: torch.dtype, chain: bool) -> torch.Tensor:
+    set_conv_chain(chain)
+    try:
+        with torch.inference_mode():
+            return torch.cat([model(windows[i: i + BATCH], compute_dtype=dtype)
+                              for i in range(0, len(windows), BATCH)])
+    finally:
+        set_conv_chain(None)
+
+
+def compare_routes(model, windows, dtype, score_limit: float, flip_limit: float) -> None:
+    """Powerset scores of one file's windows with the conv-chain route on
+    against off. A hard decision can flip only where the top-2 margin is
+    below twice the score difference; the scores must agree within
+    `score_limit` and at most `flip_limit` of the frames may flip."""
+    before = k5.launches
+    off = route_scores(model, windows, dtype, False)
+    check(k5.launches == before, "the ordinary route launched K5")
+    on = route_scores(model, windows, dtype, True)
+    check(k5.launches - before == -(-len(windows) // BATCH),
+          "the conv-chain route did not launch K5 once per batch")
+    err = (on - off).abs().max().item()
+    top2 = off.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    flipped = on.argmax(-1) != off.argmax(-1)
+    share = flipped.float().mean().item()
+    worst = margin[flipped].max().item() if bool(flipped.any()) else 0.0
+    print(f"base scores {str(dtype)[6:]}, conv-chain route on vs off on {len(windows)} windows: "
+          f"max abs err {err:.3e} (limit {score_limit:.0e}); {int(flipped.sum())} of "
+          f"{flipped.numel()} hard decisions differ ({100 * share:.4f}%, limit "
+          f"{100 * flip_limit:.2f}%), the largest top-2 margin among them {worst:.3e}")
+    check(bool(torch.isfinite(on).all()) and err <= score_limit,
+          f"the conv-chain route's scores disagree with the ordinary route's: {err}")
+    check(share <= flip_limit and worst <= 2 * err,
+          f"hard decisions flip away from small margins: {share}, margin {worst}")
+
+
+def stream_rate(pipe, waves, uris, repeats: int = STREAM_REPEATS) -> list:
+    """audio-s/s of `repeats` streamed passes over the files, sorted."""
+    def run():
+        return [a for a in pipe.stream(iter(waves), 16000, uris=uris)]
+    audio = len(waves) * AUDIO_SECONDS
+    return sorted(audio / timed_pass(run) for _ in range(repeats))
+
+
+def run_cli(snap: Path, scp: Path, resnet_ckpt: Path, out: Path) -> float:
+    t0 = time.perf_counter()
+    pipelines.main(["--in_wav_scp", str(scp), "--model_dir", str(snap), "--embedding_model",
+                    str(resnet_ckpt), "--rttm_out_dir", str(out)])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def reset_counts() -> None:
+    k1.launches = k1.train_launches = k1.bwd_launches = 0
+    k3.launches = k3.acc_launches = k5.launches = 0
+
+
+def phase_snapshots(card: str, resnet_sd) -> dict:
+    """Snapshot directory -> RTTM files through `from_pretrained` and the
+    wav.scp CLI with VBx clustering, at full width, for WavLM-Base (the
+    conv-chain route on: K5 and K1) and Large-s80-md (pre-LN: K1 only).
+    Returns the launches of K1 and K5 over the timed `base` CLI run."""
+    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(STREAM_FILES)]
+    uris = [f"rec{i}" for i in range(STREAM_FILES)]
+    audio = STREAM_FILES * AUDIO_SECONDS
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        resnet_ckpt = root / "resnet34.bin"
+        torch.save({"state_dict": resnet_sd}, resnet_ckpt)
+        scp = root / "wav.scp"
+        lines = []
+        for uri, wave in zip(uris, waves):
+            write_wav(root / f"{uri}.wav", wave, 16000)
+            lines.append(f"{uri} {root / (uri + '.wav')}")
+        scp.write_text("\n".join(lines) + "\n")
+        snaps = {name: write_snapshot(root, name) for name in SNAPSHOT_MODELS}
+
+        # ---- WavLM-Base, the conv-chain route on --------------------------
+        pipe = pipelines.from_pretrained(snaps["base"], embedding_ckpt=resnet_ckpt)
+        model, seg = pipe.seg_inference.model, pipe.seg_inference
+        wavlm = pipe.eend_cfg.wavlm
+        batches = -(-sum(seg.num_chunks(waves[0].shape[1])) // BATCH)
+        windows = file_windows(seg, waves[0])
+        with strict_float32():
+            compare_routes(model, windows, torch.float32, 1e-4, 1e-3)
+        compare_routes(model, windows, torch.bfloat16, 0.1, 0.01)
+        try:
+            set_conv_chain(True)
+            print(f"base CLI warm-up (loading included): "
+                  f"{run_cli(snaps['base'], scp, resnet_ckpt, root / 'warm'):.3f} s")
+            reset_counts()
+            seconds = run_cli(snaps["base"], scp, resnet_ckpt, root / "base_rttm")
+            launches = {"k1": k1.launches, "k5": k5.launches, "k3": k3.launches,
+                        "k4": k3.acc_launches}
+        finally:
+            set_conv_chain(None)
+        expected = {"k1": STREAM_FILES * batches * wavlm.num_layers,
+                    "k5": STREAM_FILES * batches, "k3": 0, "k4": 0}
+        print(f"base snapshot through the CLI {card}: {STREAM_FILES} x {AUDIO_SECONDS} s in "
+              f"{seconds:.3f} s with loading; launches K1 {launches['k1']}, K5 "
+              f"{launches['k5']}, K3 {launches['k3']}, K4 {launches['k4']}")
+        check(launches == expected, f"base: expected launches {expected}, got {launches}")
+        cli = {uri: (root / "base_rttm" / f"{uri}.rttm").read_text() for uri in uris}
+        segments = [check_rttm(cli[uri], uri) for uri in uris]
+        # the same files one at a time through diarize_file, the route off
+        single = {uri: pipelines.diarize_file(pipe, root / f"{uri}.wav").to_rttm() for uri in uris}
+        worst = max(rttm_disagreement(cli[uri], single[uri]) for uri in uris)
+        equal = sum(cli[uri] == single[uri] for uri in uris)
+        print(f"base bf16: CLI (route on) vs diarize_file (route off): {segments} segments, "
+              f"{equal} of {STREAM_FILES} annotations identical, the largest disagreement "
+              f"{100 * worst:.3f}% of the speech time (limit 0.5%)")
+        check(worst <= 0.005, f"the routes' bf16 annotations disagree on {worst} of the speech")
+
+        # float32: the hard segmentation and the annotations with the route on against off
+        seg.compute_dtype = torch.float32
+        with strict_float32():
+            routes = {}
+            for chain in (False, True):
+                set_conv_chain(chain)
+                try:
+                    routes[chain] = [
+                        (seg(w, 16000).data, pipe(w, 16000, uri=u).to_rttm())
+                        for w, u in zip(waves, uris)]
+                finally:
+                    set_conv_chain(None)
+        seg.compute_dtype = torch.bfloat16
+        flips = [int((a[0] != b[0]).sum()) for a, b in zip(routes[True], routes[False])]
+        same = [a[1] == b[1] for a, b in zip(routes[True], routes[False])]
+        print(f"base f32, route on vs off: hard-segmentation entries that differ per file "
+              f"{flips} of {routes[True][0][0].size}; annotations identical {same}")
+        check(all(len(a[1]) > 0 for a in routes[True]), "f32: no speech found")
+        check(max(flips) == 0 and all(same),
+              f"f32: the conv-chain route changes the result: {flips}, {same}")
+
+        rates = {}
+        for chain in (True, False, True, False):
+            set_conv_chain(chain)
+            try:
+                if chain not in rates:
+                    stream_rate(pipe, waves, uris, repeats=1)  # warm this route
+                    rates[chain] = []
+                rates[chain] += stream_rate(pipe, waves, uris, repeats=2)
+            finally:
+                set_conv_chain(None)
+        for chain, vals in rates.items():
+            print(f"throughput {card}: base + VBx streamed, conv-chain {'on' if chain else 'off'}: "
+                  f"median {float(np.median(vals)):.2f} audio-s/s of {len(vals)} passes over "
+                  f"{STREAM_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in sorted(vals))})")
+
+        # the extractor alone, one batch, and a profiled pass with the route on
+        batch = windows[:BATCH, None, :].to(torch.bfloat16)
+        extractor = {}
+        for chain in (True, False):
+            set_conv_chain(chain)
+            try:
+                with torch.inference_mode():
+                    extractor[chain] = median_ms(
+                        lambda: model.wavlm_model._feature_extractor(batch), reps=9)
+            finally:
+                set_conv_chain(None)
+        print(f"base extractor {card}, one batch of {BATCH} x 8 s in bf16: {extractor[True]:.3f} "
+              f"ms with the conv-chain route on, {extractor[False]:.3f} ms off")
+        timer = StageTimer()
+        timer.last = time.perf_counter()
+        pipe(waves[0], 16000, uri="stages", hook=timer)
+        for step, sec in timer.seconds.items():
+            print(f"  base stage {step} {card}: {sec:.4f} s")
+        set_conv_chain(True)
+        try:
+            phase_profile("one streamed base pass, conv-chain on",
+                          lambda: list(pipe.stream(iter(waves), 16000, uris=uris)), top=12)
+        finally:
+            set_conv_chain(None)
+        del pipe, model, seg, windows, batch, routes
+        torch.cuda.empty_cache()
+
+        # ---- Large-s80-md --------------------------------------------------
+        print(f"large_s80_md CLI warm-up (loading included): "
+              f"{run_cli(snaps['large_s80_md'], scp, resnet_ckpt, root / 'warm_l'):.3f} s")
+        reset_counts()
+        seconds = run_cli(snaps["large_s80_md"], scp, resnet_ckpt, root / "large_rttm")
+        large = {"k1": k1.launches, "k5": k5.launches, "k3": k3.launches, "k4": k3.acc_launches}
+        pipe = pipelines.from_pretrained(snaps["large_s80_md"], embedding_ckpt=resnet_ckpt)
+        wavlm = pipe.eend_cfg.wavlm
+        expected = {"k1": STREAM_FILES * batches * sum(wavlm.use_attention), "k5": 0, "k3": 0,
+                    "k4": 0}
+        print(f"large_s80_md snapshot through the CLI {card}: {STREAM_FILES} x {AUDIO_SECONDS} s "
+              f"in {seconds:.3f} s with loading; launches K1 {large['k1']}, K5 {large['k5']}, "
+              f"K3 {large['k3']}, K4 {large['k4']}")
+        check(large == expected, f"large_s80_md: expected launches {expected}, got {large}")
+        texts = {uri: (root / "large_rttm" / f"{uri}.rttm").read_text() for uri in uris}
+        print(f"large_s80_md RTTM: {[check_rttm(texts[uri], uri) for uri in uris]} segments")
+        two = torch.from_numpy(np.stack([waves[0][0, :128000], waves[0][0, 12800:140800]]))
+        with strict_float32(), torch.inference_mode():
+            on_card = pipe.seg_inference.model(two.cuda()).cpu()
+            cpu_pipe = pipelines.from_pretrained(snaps["large_s80_md"],
+                                                 embedding_ckpt=resnet_ckpt, device="cpu")
+            on_cpu = cpu_pipe.seg_inference.model(two)
+        err = (on_card - on_cpu).abs().max().item()
+        print(f"large_s80_md EEND f32 card vs CPU: scores {tuple(on_card.shape)}, max abs err "
+              f"{err:.3e}")
+        check(on_card.shape == (2, FRAMES, 11) and bool(torch.isfinite(on_card).all())
+              and err <= 1e-3, f"large_s80_md scores on the card disagree with the CPU: {err}")
+        stream_rate(pipe, waves, uris, repeats=1)
+        vals = stream_rate(pipe, waves, uris)
+        print(f"throughput {card}: large_s80_md + VBx streamed: median "
+              f"{float(np.median(vals)):.2f} audio-s/s of {len(vals)} passes over "
+              f"{STREAM_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in vals)})")
+        timer = StageTimer()
+        timer.last = time.perf_counter()
+        pipe(waves[0], 16000, uri="stages", hook=timer)
+        for step, sec in timer.seconds.items():
+            print(f"  large_s80_md stage {step} {card}: {sec:.4f} s")
+        phase_profile("one streamed large_s80_md pass",
+                      lambda: list(pipe.stream(iter(waves), 16000, uris=uris)), top=8)
+    return launches
+
+
 class StageTimer:
     """Pipeline hook: seconds since the previous stage ended (the per-batch
     progress calls are passed over)."""
@@ -868,9 +1334,10 @@ def main() -> int:
     print(f"device: {name}; nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, side by side
-        reports = [f.result() for f in [pool.submit(k1.build), pool.submit(k3.build)]]
-    print(f"K1 + K2 and K3 + K4 build: {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source, side by side
+        reports = [f.result() for f in [pool.submit(k1.build), pool.submit(k3.build),
+                                        pool.submit(k5.build)]]
+    print(f"K1 + K2, K3 + K4 and K5 build: {time.perf_counter() - t0:.1f} s")
     for line in "\n".join(reports).splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -885,6 +1352,7 @@ def main() -> int:
         kernel = phase_kernel(heads)
         trainable = phase_trainable_kernels()
         phase_reference(eend_sd, resnet_sd, eend_cfg, wave)
+    elapsed("K1, K2 and the card-against-CPU reference")
 
     model = EendModel(eend_cfg)
     model.load_state_dict(eend_sd)
@@ -928,22 +1396,34 @@ def main() -> int:
     print(f"RTTM: {len(rttm)} segments, speakers {ann.labels()}")
 
     phase_profile("one pipeline call", lambda: pipeline(wave, 16000, uri="profile"))
+    elapsed("single-file serving")
 
     with strict_float32():
         phase_train_reference()
     train_launches = phase_training(card)
+    elapsed("training")
 
     with strict_float32():
         fused_ln = phase_fused_ln()
         phase_fused_ln_model(eend_sd, eend_cfg, wave)
     stream_launches = phase_stream(card, model, eend_cfg, pipeline)
+    elapsed("K3, K4 and streamed serving")
+    del model, resnet, seg, emb, pipeline
+    torch.cuda.empty_cache()
+
+    with strict_float32():
+        conv_chain = phase_conv_chain()
+    elapsed("K5")
+    snapshot_launches = phase_snapshots(card, resnet_sd)
+    elapsed("snapshot directories to RTTM")
+    conv_chain["launches"] = snapshot_launches["k5"]
 
     kernel["launches"] = launches
     trainable[0]["launches"] = train_launches["train"]
     trainable[1]["launches"] = train_launches["bwd"]
     fused_ln[0]["launches"] = stream_launches["k3"]
     fused_ln[1]["launches"] = stream_launches["k4"]
-    print(json.dumps({"kernels": [kernel, *trainable, *fused_ln]}))
+    print(json.dumps({"kernels": [kernel, *trainable, *fused_ln, conv_chain]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,138 @@
+"""Config system: TOML sections materialised by dynamic import (the port's
+own copy of diarizen_tpu/config.py, with the alias table pointing at the
+port).
+
+Every TOML section has `path = "pkg.mod.ClassOrFn"` plus an `[section.args]`
+table; CLI overrides change the dict before instantiation. tomllib is in the
+standard library (3.11+).
+"""
+
+from __future__ import annotations
+
+import copy
+import importlib
+import tomllib
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+
+def load_toml(path: str | Path) -> Dict[str, Any]:
+    with open(path, "rb") as fh:
+        return tomllib.load(fh)
+
+
+def dump_toml(config: Dict[str, Any], path: str | Path) -> None:
+    """Minimal TOML writer for the config snapshot written into an experiment
+    directory. Handles the nested {section: {path, args: {...}}} shape plus
+    scalars and lists."""
+
+    def fmt(v: Any) -> str:
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, (int, float)):
+            return repr(v)
+        if isinstance(v, str):
+            return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+        if isinstance(v, (list, tuple)):
+            return "[" + ", ".join(fmt(x) for x in v) + "]"
+        raise TypeError(f"cannot dump {type(v)}")
+
+    lines = []
+
+    def walk(table: Dict[str, Any], prefix: str) -> None:
+        scalars = {k: v for k, v in table.items() if not isinstance(v, dict)}
+        subtables = {k: v for k, v in table.items() if isinstance(v, dict)}
+        if prefix and (scalars or not subtables):
+            lines.append(f"[{prefix}]")
+        for k, v in scalars.items():
+            lines.append(f"{k} = {fmt(v)}")
+        for k, v in subtables.items():
+            walk(v, f"{prefix}.{k}" if prefix else k)
+
+    walk(config, "")
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+# A released DiariZen snapshot's config.toml, and the reference's training
+# TOMLs, name the REFERENCE's own classes (e.g. `[model] path =
+# "diarizen.models.eend.model_wavlm_conformer.Model"`) and recipe-local
+# modules ("trainer_dual_opt.Trainer", "dataset.DiarizationDataset"). Mapping
+# them onto the port's factories and classes makes unedited snapshots load.
+REFERENCE_PATH_ALIASES = {
+    "diarizen.models.eend.model_wavlm_conformer.Model":
+        "diarizen_tpu_torch.models.build.wavlm_conformer",
+    "trainer_dual_opt.Trainer": "diarizen_tpu_torch.train.trainer.Trainer",
+    "trainer_single_opt.Trainer": "diarizen_tpu_torch.train.trainer.Trainer",
+    "dataset.DiarizationDataset": "diarizen_tpu_torch.train.dataset.DiarizationDataset",
+}
+
+# reference paths whose targets the port does not have yet
+NOT_PORTED = (
+    "diarizen.models.eend.model_wavlm_conformer_mc.Model",
+    "diarizen.models.eend.model_fbank_conformer.Model",
+    "diarizen.models.eend.model_pyannote.Model",
+    "diarizen.models.pruning.model_distill_prune.Model",
+    "diarizen.models.pruning.utils.DistillLoss",
+    "torch.optim.AdamW",
+)
+
+
+def resolve(path: str) -> Any:
+    """'pkg.mod.Name' -> attribute. Reference class paths are aliased to the
+    port's factories and classes (REFERENCE_PATH_ALIASES); one whose target is
+    not ported yet raises NotImplementedError naming it."""
+    if path in NOT_PORTED:
+        raise NotImplementedError(
+            f"{path!r} has no counterpart in diarizen_tpu_torch yet: only the "
+            "WavLM + Conformer model, its trainers and its dataset are ported")
+    path = REFERENCE_PATH_ALIASES.get(path, path)
+    module_name, _, attr = path.rpartition(".")
+    module = importlib.import_module(module_name)
+    return getattr(module, attr)
+
+
+def instantiate(path: str, args: Optional[Dict[str, Any]] = None, **extra) -> Any:
+    """Import `path` and call it with args."""
+    fn = resolve(path)
+    return fn(**{**(args or {}), **extra})
+
+
+def instantiate_section(config: Dict[str, Any], section: str, **extra) -> Any:
+    sec = config[section]
+    return instantiate(sec["path"], sec.get("args", {}), **extra)
+
+
+def instantiate_model_for_inference(path: str, args: Optional[Dict[str, Any]] = None) -> Any:
+    """Model-section instantiation for INFERENCE entry points
+    (`from_pretrained`, the recipe infer CLIs): checkpoints loaded right
+    after the build overwrite every weight, so a training-time `wavlm_src`
+    path that doesn't resolve locally may fall back to the preset
+    architecture. The `_allow_missing_wavlm_src` flag is injected only when
+    the resolved factory actually accepts it (named param or **kwargs), so
+    custom factories without the knob keep working."""
+    fn = resolve(path)
+    kwargs = dict(args or {})
+    if "wavlm_src" in kwargs:
+        import inspect
+
+        try:
+            params = inspect.signature(fn).parameters
+            if "_allow_missing_wavlm_src" in params or any(
+                p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()
+            ):
+                kwargs["_allow_missing_wavlm_src"] = True
+        except (TypeError, ValueError):
+            pass
+    return fn(**kwargs)
+
+
+def apply_overrides(config: Dict[str, Any], overrides: Dict[str, Any]) -> Dict[str, Any]:
+    """Apply {'a.b.c': value} dotted-path overrides to a nested config copy."""
+    out = copy.deepcopy(config)
+    for dotted, value in overrides.items():
+        node = out
+        *parents, leaf = dotted.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out

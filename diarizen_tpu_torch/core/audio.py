@@ -1,18 +1,23 @@
-"""Audio io for the training data (port of the WAV half of
-diarizen_tpu/core/audio.py).
+"""Audio io (port of diarizen_tpu/core/audio.py without FLAC).
 
 WAV files (any PCM width or IEEE float) are read with the standard library's
 byte layout and numpy, with random access by `start_frame` / `num_frames`,
-into float32 in [-1, 1]. FLAC is not decoded here.
+into float32 in [-1, 1]; `Audio` adds downmix, resampling and padded crops.
+FLAC is not decoded yet: its decoder (core/flac.py of the JAX package) comes
+with a later slice of the port.
 """
 
 from __future__ import annotations
 
 import wave
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+from scipy.signal import resample_poly
+
+from diarizen_tpu_torch.core.segments import Segment
 
 
 def read_wav(path, start_frame: int = 0,
@@ -85,15 +90,48 @@ def _read_wav_stream(fh, name: str, start_frame: int,
     return np.ascontiguousarray(x.reshape(-1, channels).T), sample_rate
 
 
+def _refuse_flac(path) -> None:
+    """FLAC waits for the port of core/flac.py; say so instead of misreading."""
+    if hasattr(path, "read"):
+        path.seek(0)
+        magic = path.read(4)
+        path.seek(0)
+        is_flac = magic == b"fLaC"
+    else:
+        is_flac = Path(path).suffix.lower() == ".flac"
+    if is_flac:
+        raise ValueError(
+            f"{path}: FLAC is not decoded by diarizen_tpu_torch yet (the decoder is "
+            "ported in a later slice, with core/flac.py); convert to WAV "
+            "(e.g. ffmpeg -i in.flac out.wav)")
+
+
 def read_audio(path, start_frame: int = 0,
                num_frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """Read an audio file into float32 (channels, samples). Only WAV is
-    decoded; FLAC and other formats raise."""
+    """Read an audio file (path or seekable file object) into float32
+    (channels, samples). Only WAV is decoded; FLAC and other formats raise."""
+    _refuse_flac(path)
     if not hasattr(path, "read") and Path(path).suffix.lower() not in (".wav", ".wave"):
         raise ValueError(
             f"{path}: only WAV is decoded by diarizen_tpu_torch; convert to WAV "
             "(e.g. ffmpeg -i in.flac out.wav)")
     return read_wav(path, start_frame=start_frame, num_frames=num_frames)
+
+
+def get_wav_info(path) -> Tuple[int, int, int]:
+    """(num_samples, sample_rate, num_channels) without reading the payload."""
+    if hasattr(path, "read"):
+        path.seek(0)
+        with wave.open(path, "rb") as w:
+            return w.getnframes(), w.getframerate(), w.getnchannels()
+    with wave.open(str(path), "rb") as w:
+        return w.getnframes(), w.getframerate(), w.getnchannels()
+
+
+def get_audio_info(path) -> Tuple[int, int, int]:
+    """(num_samples, sample_rate, num_channels) of a WAV file, header only."""
+    _refuse_flac(path)
+    return get_wav_info(path)
 
 
 def write_wav(path, waveform: np.ndarray, sample_rate: int) -> None:
@@ -106,3 +144,62 @@ def write_wav(path, waveform: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+def resample(waveform: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling along the last axis; float32 out."""
+    if orig_sr == target_sr:
+        return waveform
+    g = np.gcd(orig_sr, target_sr)
+    return resample_poly(waveform, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
+
+
+@dataclass
+class Audio:
+    """File loader with resample + downmix + padded crop.
+
+    mono: None keeps all channels; "downmix" averages channels; "random"
+    picks one channel at random (training-time augmentation, deterministic
+    under `rng`)."""
+
+    sample_rate: int = 16000
+    mono: Optional[str] = "downmix"
+    rng: Optional[np.random.Generator] = None
+
+    def _post(self, waveform: np.ndarray, sr: int) -> np.ndarray:
+        if waveform.shape[0] > 1:
+            if self.mono == "downmix":
+                waveform = waveform.mean(axis=0, keepdims=True)
+            elif self.mono == "random":
+                rng = self.rng if self.rng is not None else np.random.default_rng()
+                ch = int(rng.integers(waveform.shape[0]))
+                waveform = waveform[ch: ch + 1]
+        if sr != self.sample_rate:
+            waveform = resample(waveform, sr, self.sample_rate)
+        return waveform.astype(np.float32)
+
+    def __call__(self, path) -> Tuple[np.ndarray, int]:
+        waveform, sr = read_audio(path)
+        return self._post(waveform, sr), self.sample_rate
+
+    def get_duration(self, path) -> float:
+        n, sr, _ = get_audio_info(path)
+        return n / sr
+
+    def crop(self, path, segment: Segment, duration: Optional[float] = None,
+             mode: str = "pad") -> Tuple[np.ndarray, int]:
+        """Extract `segment` (optionally forced to `duration` seconds);
+        mode="pad" zero-pads the parts that lie outside the file."""
+        n_total, file_sr, _ = get_audio_info(path)
+        start = int(round(segment.start * file_sr))
+        if duration is None:
+            duration = segment.duration
+        num = int(round(duration * file_sr))
+        read_start = max(0, start)
+        read_end = min(n_total, start + num)
+        waveform, sr = read_audio(path, read_start, max(0, read_end - read_start))
+        pad_left = max(0, -start)
+        pad_right = num - pad_left - waveform.shape[-1]
+        if mode == "pad" and (pad_left > 0 or pad_right > 0):
+            waveform = np.pad(waveform, ((0, 0), (pad_left, max(0, pad_right))))
+        return self._post(waveform, sr), self.sample_rate

@@ -46,7 +46,13 @@ from diarizen_tpu_torch.models.fbank import FRAME_LENGTH, FRAME_SHIFT, kaldi_fba
 from diarizen_tpu_torch.models.resnet import ResNet
 from diarizen_tpu_torch.ops.aggregate import aggregate, trim
 from diarizen_tpu_torch.ops.binarize import Binarize
-from diarizen_tpu_torch.utils import HostFetch, resolve_device, to_device_async
+from diarizen_tpu_torch.utils import (
+    HostFetch,
+    halve_batch_or_raise,
+    is_oom_error,
+    resolve_device,
+    to_device_async,
+)
 
 
 def speaker_count(
@@ -208,8 +214,14 @@ class EmbeddingInference:
                  weights: Union[torch.Tensor, np.ndarray],
                  hook: Optional[Callable] = None) -> np.ndarray:
         """Device waveform + (N,) window starts + (N, S, F) weights ->
-        (N, S, D) float64 embeddings."""
-        return self.collect(self.dispatch(wave, starts, weights, hook))
+        (N, S, D) float64 embeddings. A device out-of-memory error halves
+        `batch_size` and runs the file again."""
+        while True:
+            try:
+                return self.collect(self.dispatch(wave, starts, weights, hook))
+            except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
+                self.batch_size = halve_batch_or_raise(e, self.batch_size,
+                                                       "embedding inference")
 
 
 def _trim_host_memory() -> None:
@@ -295,7 +307,7 @@ class DiarizationPipeline:
         prev = None
         done = 0
         for waveform in waveforms:
-            if prev is not None and "fetch" not in prev:
+            if prev is not None and "fetch" not in prev and "segmentations" not in prev:
                 # collect file i's segmentation FIRST (its copy is queued
                 # right behind its own kernels, not behind file i+1's), THEN
                 # enqueue file i+1 so the device stays busy while the host
@@ -320,11 +332,21 @@ class DiarizationPipeline:
         waveform = waveform[0:1]  # channel 0
         # one copy of the waveform to the device for both models
         prepared = self.seg_inference.prepare_wave(waveform)
-        state = self._try_dispatch_fused(prepared, uri, hook)
-        if state is not None:
-            return state
-        seg_dev = self.seg_inference.dispatch(prepared[0], prepared[1], hook=hook)
-        return {"uri": uri, "prepared": prepared, "seg_dev": seg_dev}
+        try:
+            state = self._try_dispatch_fused(prepared, uri, hook)
+            if state is not None:
+                return state
+            seg_dev = self.seg_inference.dispatch(prepared[0], prepared[1], hook=hook)
+            return {"uri": uri, "prepared": prepared, "seg_dev": seg_dev}
+        except Exception as e:  # noqa: BLE001 - only a device OOM is retried
+            if not is_oom_error(e):
+                raise
+            # out of device memory while enqueueing: this file takes the host
+            # route, whose two stages halve their own batches until they fit
+            self.seg_inference.batch_size = halve_batch_or_raise(
+                e, self.seg_inference.batch_size, "segmentation inference")
+            segmentations = self.seg_inference(waveform, hook=hook, prepared=prepared)
+            return {"uri": uri, "prepared": prepared, "segmentations": segmentations}
 
     # ---- the device-side stitch route (infer/fused.py) ----------------
 

@@ -18,7 +18,7 @@ import torch
 from diarizen_tpu_torch.core.segments import SlidingWindow, SlidingWindowFeature
 from diarizen_tpu_torch.models.eend import EendModel
 from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
-from diarizen_tpu_torch.utils import resolve_device, to_device_async
+from diarizen_tpu_torch.utils import halve_batch_or_raise, resolve_device, to_device_async
 
 
 def batch_row_spans(total: int, batch_size: int,
@@ -137,8 +137,16 @@ class SlidingInference:
 
     def infer(self, wave: torch.Tensor, starts: np.ndarray,
               hook: Optional[Callable] = None) -> np.ndarray:
-        """Hard multilabel activity (num_chunks, num_frames, K) as float32."""
-        data = self.collect(self.dispatch(wave, starts, hook))
+        """Hard multilabel activity (num_chunks, num_frames, K) as float32.
+        A device out-of-memory error halves `batch_size` and runs the file
+        again; anything else is raised unchanged."""
+        while True:
+            try:
+                data = self.collect(self.dispatch(wave, starts, hook))
+                break
+            except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
+                self.batch_size = halve_batch_or_raise(e, self.batch_size,
+                                                       "segmentation inference")
         if data is None:
             return np.zeros((0, self._frames_per_chunk, self.powerset.num_classes), np.float32)
         return data

@@ -1,0 +1,117 @@
+"""Model factories for the TOML config system (port of
+diarizen_tpu/models/build.py).
+
+A factory mirrors a reference model class's constructor (`[model] path = ...`,
+`[model.args]`) and returns `(config, model)`, the model with seeded random
+weights or, where `wavlm_src` names a checkpoint file, that WavLM. Only the
+WavLM + Conformer model is built here; the other families are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from typing import Optional, Tuple
+
+from diarizen_tpu_torch.models.conformer import ConformerConfig
+from diarizen_tpu_torch.models.convert import (
+    StateDict,
+    load_reference_wavlm_checkpoint,
+    random_state_dict,
+)
+from diarizen_tpu_torch.models.eend import EendConfig, EendModel
+from diarizen_tpu_torch.models.wavlm import WavLMConfig
+
+
+def _load_wavlm(wavlm_src: str,
+                allow_missing: bool = False) -> Tuple[WavLMConfig, Optional[StateDict]]:
+    """A preset name ("wavlm_base", "wavlm_large", ...: random weights, None
+    returned for them) or the path of a reference `{config, state_dict}`
+    checkpoint (pruned s80 models included).
+
+    `allow_missing=True` (only the `from_pretrained` snapshot loader sets it):
+    a checkpoint path that does not exist, as the training-time
+    `wavlm_src = "/YOUR_PATH/WavLM-Base+.pt"` of a released config, falls back
+    to the preset architecture named by the file name, because
+    `from_pretrained` overwrites every weight from the snapshot's own
+    `pytorch_model.bin` right after the build. Training entry points keep the
+    default and fail loudly: a mistyped teacher path must never silently
+    become random weights."""
+    try:
+        return WavLMConfig.from_preset(wavlm_src), None
+    except ValueError:
+        pass
+    if not os.path.isfile(wavlm_src):
+        name = os.path.basename(str(wavlm_src)).lower()
+        inferred = None
+        if "large" in name:
+            inferred = "wavlm_large_s80_md" if "s80" in name else "wavlm_large"
+        elif "base" in name:
+            inferred = "wavlm_base_s80_md" if "s80" in name else "wavlm_base"
+        if allow_missing and inferred is not None:
+            warnings.warn(
+                f"wavlm_src {wavlm_src!r} does not exist; using the "
+                f"{inferred!r} preset architecture (random init — load the "
+                "real weights from the model checkpoint afterwards)",
+                stacklevel=2,
+            )
+            return WavLMConfig.from_preset(inferred), None
+        raise FileNotFoundError(
+            f"wavlm_src {wavlm_src!r} is neither a preset name nor an "
+            "existing checkpoint file"
+        )
+    return load_reference_wavlm_checkpoint(wavlm_src)
+
+
+def wavlm_conformer(
+    wavlm_src: str = "wavlm_base",
+    wavlm_layer_num: int = 13,
+    wavlm_feat_dim: int = 768,
+    attention_in: int = 256,
+    ffn_hidden: int = 1024,
+    num_head: int = 4,
+    num_layer: int = 4,
+    kernel_size: int = 31,
+    dropout: float = 0.1,
+    use_posi: bool = False,
+    output_activate_function=False,
+    max_speakers_per_chunk: int = 4,
+    max_speakers_per_frame: int = 2,
+    chunk_size: float = 8,
+    num_channels: int = 8,
+    selected_channel: int = 0,
+    sample_rate: int = 16000,
+    seed: int = 0,
+    _allow_missing_wavlm_src: bool = False,
+) -> Tuple[EendConfig, EendModel]:
+    """The main WavLM + Conformer EEND model, the reference constructor's
+    arguments one for one. `_allow_missing_wavlm_src` is set only by
+    `pipelines.from_pretrained` (see `_load_wavlm`)."""
+    del num_channels
+    wavlm_cfg, wavlm_sd = _load_wavlm(wavlm_src, allow_missing=_allow_missing_wavlm_src)
+    cfg = EendConfig(
+        wavlm=wavlm_cfg,
+        conformer=ConformerConfig(
+            dim=attention_in,
+            ffn_hidden=ffn_hidden,
+            num_heads=num_head,
+            num_layers=num_layer,
+            kernel_size=kernel_size,
+            dropout=dropout,
+            use_posi=use_posi,
+            output_activation=output_activate_function or None,
+        ),
+        wavlm_layer_num=wavlm_layer_num,
+        wavlm_feat_dim=wavlm_feat_dim,
+        attention_in=attention_in,
+        max_speakers_per_chunk=max_speakers_per_chunk,
+        max_speakers_per_frame=max_speakers_per_frame,
+        chunk_size=float(chunk_size),
+        sample_rate=sample_rate,
+        selected_channel=selected_channel,
+    )
+    model = EendModel(cfg)
+    model.load_state_dict(random_state_dict(model, seed))
+    if wavlm_sd is not None:
+        model.wavlm_model.load_state_dict(wavlm_sd, strict=True)
+    return cfg, model

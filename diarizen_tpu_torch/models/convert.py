@@ -11,16 +11,22 @@ from (L,) to (1, L).
 
 `random_state_dict` gives seeded random weights at a module's shapes, for
 runs without released checkpoints.
+
+`load_reference_wavlm_checkpoint` and `load_eend_checkpoint` read the
+reference's torch files. The port's modules keep the reference's key layout,
+so what they return loads with `load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from diarizen_tpu_torch.models.wavlm import WavLMConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -186,3 +192,22 @@ def random_state_dict(module: nn.Module, seed: int) -> StateDict:
     for name, value in sd.items():
         out.setdefault(name, value.clone())
     return out
+
+
+def load_reference_wavlm_checkpoint(path: str) -> Tuple[WavLMConfig, StateDict]:
+    """Load a reference-format `{"config": dict, "state_dict": ...}` WavLM
+    checkpoint (pruned s80 models included): its architecture and its state
+    dict in the layout of the port's `WavLM`."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    cfg = WavLMConfig.from_reference_dict(ckpt["config"])
+    return cfg, {k: torch.as_tensor(v) for k, v in ckpt["state_dict"].items()}
+
+
+def load_eend_checkpoint(path: str) -> StateDict:
+    """Load a reference EEND diarization checkpoint (`pytorch_model.bin`, or
+    an averaged-checkpoint file that wraps it in `{"state_dict": ...}`): the
+    state dict of the port's `EendModel`."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: torch.as_tensor(v) for k, v in sd.items()}

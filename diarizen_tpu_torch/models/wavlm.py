@@ -9,7 +9,10 @@ bias runs through kernel K1 (`ops/flash_attention.py`) at inference, and
 through K1's training instance and K2 in train mode. With `set_fused_ln(True)`
 the post-norm inference forward runs the residual adds, both LayerNorms and
 the weighted-sum update of each layer through kernels K3 and K4
-(`ops/fused_ln.py`).
+(`ops/fused_ln.py`). With `set_conv_chain(True)` the inference forward of an
+extractor whose layers 1-6 are the unpruned 512-channel stack without norms
+(WavLM-Base) runs those six convolutions and GELUs through kernel K5
+(`ops/conv_chain.py`).
 
 Train mode follows the JAX package's `wavlm_extract_features(train=True)`:
 GradMultiply 0.1 on the extractor output; dropout after the projection,
@@ -40,6 +43,12 @@ from diarizen_tpu_torch.models.common import (
     layer_norm,
     linear,
 )
+from diarizen_tpu_torch.ops.conv_chain import (
+    ConvChainWeights,
+    fused_conv_chain,
+    num_output_frames,
+    pack_weights,
+)
 from diarizen_tpu_torch.ops.flash_attention import (
     flash_attention_gated_bias,
     flash_attention_gated_bias_trainable,
@@ -64,6 +73,25 @@ def set_fused_ln(enabled: Optional[bool]) -> None:
 
 def use_fused_ln() -> bool:
     return _FUSED_LN_OVERRIDE if _FUSED_LN_OVERRIDE is not None else False
+
+
+_CONV_CHAIN_OVERRIDE: Optional[bool] = None
+
+
+def set_conv_chain(enabled: Optional[bool]) -> None:
+    """Override the fused conv-chain toggle; None restores the default, which
+    is off (the JAX package wires its kernel into no path). When on, the
+    inference forward runs the extractor's layers 1-6 through kernel K5
+    (`ops/conv_chain.py`) where the extractor is the one it fits: the
+    default 512-channel stack, "group_norm" mode (no norm after layer 0), no
+    conv bias. Any other extractor keeps the ordinary route."""
+    global _CONV_CHAIN_OVERRIDE
+    _CONV_CHAIN_OVERRIDE = enabled
+
+
+def use_conv_chain() -> bool:
+    return _CONV_CHAIN_OVERRIDE if _CONV_CHAIN_OVERRIDE is not None else False
+
 
 DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     (512, 10, 5),
@@ -110,6 +138,13 @@ class WavLMConfig:
     def conv_out_channels(self) -> int:
         return self.conv_layers[-1][0]
 
+    @property
+    def frame_stride(self) -> int:
+        s = 1
+        for _, _, stride in self.conv_layers:
+            s *= stride
+        return s
+
     def num_frames(self, num_samples: int) -> int:
         n = num_samples
         for _, kernel, stride in self.conv_layers:
@@ -120,6 +155,26 @@ class WavLMConfig:
     def base() -> "WavLMConfig":
         """WavLM-Base / Base+: 12 layers, 768 wide, 12 heads of 64, ff 3072."""
         return WavLMConfig()
+
+    @staticmethod
+    def large() -> "WavLMConfig":
+        """WavLM-Large: 24 pre-LN layers, 1024 wide, 16 heads of 64, ff 4096,
+        a LayerNorm in every extractor block, normalised waveform."""
+        n = 24
+        return WavLMConfig(
+            extractor_mode="layer_norm",
+            conv_bias=False,
+            embed_dim=1024,
+            num_layers=n,
+            use_attention=(True,) * n,
+            use_feed_forward=(True,) * n,
+            total_num_heads=(16,) * n,
+            remaining_heads=tuple(tuple(range(16)) for _ in range(n)),
+            ff_interm_features=(4096,) * n,
+            layer_norm_first=True,
+            layer_drop=0.1,
+            normalize_waveform=True,
+        )
 
     @staticmethod
     def base_s80_md() -> "WavLMConfig":
@@ -146,6 +201,90 @@ class WavLMConfig:
             normalize_waveform=False,
         )
 
+
+    @staticmethod
+    def large_s80_md() -> "WavLMConfig":
+        """DiariZen-Large-s80 multi-domain pruned architecture (the released
+        checkpoint's shapes)."""
+        return WavLMConfig(
+            extractor_mode="layer_norm",
+            conv_layers=((512, 10, 5), (153, 3, 2), (224, 3, 2), (255, 3, 2),
+                         (302, 3, 2), (368, 2, 2), (211, 2, 2)),
+            embed_dim=1024,
+            num_layers=24,
+            use_attention=(True, True, True, True, True, True, True, True,
+                           True, False, True, True, False, True, True, True,
+                           False, False, True, True, True, True, True, True),
+            use_feed_forward=(True,) * 24,
+            total_num_heads=(16,) * 24,
+            remaining_heads=(
+                (1, 2, 4, 5, 6), (9, 10, 14), (0, 1, 2, 4, 5, 7),
+                (1, 4, 7, 12, 13, 14), (0, 2, 3, 4, 13), (1, 7, 13, 14, 15),
+                (11, 13, 15), (2, 3, 4, 8, 15), (2, 5, 6, 15), (), (0, 1),
+                (1, 3, 5, 12), (), (4, 7, 11), (6, 9), (11,), (), (), (14,),
+                (5, 15), (0, 2, 8, 11, 13, 15), (0, 1, 3, 4, 5, 6, 7, 10, 13),
+                (0, 1, 3, 6, 7, 9, 10, 11, 12, 14), (1, 2, 3, 4, 7, 13, 14, 15),
+            ),
+            ff_interm_features=(1092, 925, 759, 646, 745, 615, 684, 958, 286,
+                                294, 406, 377, 463, 542, 298, 236, 96, 104,
+                                134, 211, 473, 1011, 1770, 1316),
+            layer_norm_first=True,
+            layer_drop=0.1,
+            normalize_waveform=True,
+        )
+
+    @staticmethod
+    def from_preset(name: str) -> "WavLMConfig":
+        """The preset registry of the reference's `wavlm_src` names."""
+        presets = {
+            "wavlm_base": WavLMConfig.base,
+            "wavlm_base_plus": WavLMConfig.base,
+            "wavlm_large": WavLMConfig.large,
+            "wavlm_base_s80_md": WavLMConfig.base_s80_md,
+            "wavlm_large_s80_md": WavLMConfig.large_s80_md,
+        }
+        if name.lower() not in presets:
+            raise ValueError(f"unknown preset {name}; options: {sorted(presets)}")
+        return presets[name.lower()]()
+
+    @staticmethod
+    def from_dict(d: dict) -> "WavLMConfig":
+        """Rebuild from `dataclasses.asdict` JSON (lists become tuples)."""
+        d = dict(d)
+        for k in ("conv_layers", "remaining_heads"):
+            d[k] = tuple(tuple(x) for x in d[k])
+        for k in ("use_attention", "use_feed_forward", "total_num_heads", "ff_interm_features"):
+            d[k] = tuple(d[k])
+        return WavLMConfig(**d)
+
+    @staticmethod
+    def from_reference_dict(cfg: dict) -> "WavLMConfig":
+        """Build from the reference's factory-kwargs dict (its presets and the
+        `config` payload of a pruned checkpoint)."""
+        n = cfg["encoder_num_layers"]
+        return WavLMConfig(
+            extractor_mode=cfg["extractor_mode"],
+            conv_layers=tuple(tuple(l) for l in cfg["extractor_conv_layer_config"]),
+            conv_bias=cfg["extractor_conv_bias"],
+            embed_dim=cfg["encoder_embed_dim"],
+            projection_dropout=cfg.get("encoder_projection_dropout", 0.1),
+            pos_conv_kernel=cfg["encoder_pos_conv_kernel"],
+            pos_conv_groups=cfg["encoder_pos_conv_groups"],
+            num_layers=n,
+            use_attention=tuple(cfg.get("encoder_use_attention", [True] * n)),
+            use_feed_forward=tuple(cfg.get("encoder_use_feed_forward", [True] * n)),
+            total_num_heads=tuple(cfg["encoder_total_num_heads"]),
+            remaining_heads=tuple(tuple(h) for h in cfg["encoder_remaining_heads"]),
+            num_buckets=cfg["encoder_num_buckets"],
+            max_distance=cfg["encoder_max_distance"],
+            attention_dropout=cfg.get("encoder_attention_dropout", 0.1),
+            ff_interm_features=tuple(cfg["encoder_ff_interm_features"]),
+            ff_interm_dropout=cfg.get("encoder_ff_interm_dropout", 0.0),
+            dropout=cfg.get("encoder_dropout", 0.1),
+            layer_norm_first=cfg["encoder_layer_norm_first"],
+            layer_drop=cfg.get("encoder_layer_drop", 0.05),
+            normalize_waveform=cfg["normalize_waveform"],
+        )
 
 @lru_cache(maxsize=32)
 def _rel_pos_buckets(seq_len: int, num_buckets: int, max_distance: int) -> np.ndarray:
@@ -298,6 +437,7 @@ class WavLM(nn.Module):
         self.feature_extractor = _FeatureExtractor(cfg)
         self.encoder = _Encoder(cfg)
         self.layers_run: List[int] = []  # the layers the last forward computed
+        self._chain_cache: dict = {}  # (type, device) -> (parameter stamp, K5's weights)
 
     def forward(self, waveforms: torch.Tensor, layer_weights: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32, train: bool = False,
@@ -316,7 +456,7 @@ class WavLM(nn.Module):
             waveforms = F.layer_norm(waveforms.float(), waveforms.shape[-1:], eps=1e-5)
 
         gen = rng.device if (train and rng is not None) else None
-        x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype))
+        x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype), train)
         if train:
             x = grad_multiply(x, FEATURE_GRAD_MULT)
         fp = self.encoder.feature_projection
@@ -342,10 +482,16 @@ class WavLM(nn.Module):
             acc = folded if folded is not None else acc + w[i + 1] * x.float()
         return acc
 
-    def _feature_extractor(self, x: torch.Tensor) -> torch.Tensor:
+    def _feature_extractor(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 1, num_samples) -> (B, F, C): conv stack, norm, GELU."""
         fe = self.feature_extractor
         for i, block in enumerate(fe.conv_layers):
+            if i == 1 and self._conv_chain_applies(train):
+                # layers 1-6 in one launch of K5, which takes and gives channels last
+                x = fused_conv_chain(x.transpose(1, 2).contiguous(),
+                                     self._conv_chain_weights(x.dtype, x.device),
+                                     num_output_frames(x.shape[-1]))
+                return x * fe.dummy_weight.to(x.dtype)
             conv = block.conv
             bias = None if conv.bias is None else conv.bias.to(x.dtype)
             x = F.conv1d(x, conv.weight.to(x.dtype), bias, stride=block.stride)
@@ -355,6 +501,26 @@ class WavLM(nn.Module):
                 x = layer_norm(block.layer_norm, x.transpose(1, 2)).transpose(1, 2)
             x = gelu(x)
         return x.transpose(1, 2) * fe.dummy_weight.to(x.dtype)
+
+    def _conv_chain_applies(self, train: bool) -> bool:
+        """K5's route: the toggle is on, inference, and layers 1-6 are the
+        stack the kernel computes (no norm, no bias, the default widths)."""
+        cfg = self.cfg
+        return (use_conv_chain() and not train and cfg.extractor_mode == "group_norm"
+                and not cfg.conv_bias and cfg.conv_layers[1:] == DEFAULT_CONV_LAYERS[1:])
+
+    def _conv_chain_weights(self, dtype: torch.dtype, device: torch.device) -> ConvChainWeights:
+        """Layers 1-6's weights in K5's layout, packed once per type and
+        device and again only after the parameters have changed."""
+        convs = [block.conv.weight for block in self.feature_extractor.conv_layers[1:]]
+        stamp = tuple((w.data_ptr(), w._version) for w in convs)
+        key = (dtype, device)
+        cached = self._chain_cache.get(key)
+        if cached is None or cached[0] != stamp:
+            with torch.inference_mode(False), torch.no_grad():
+                packed = pack_weights([w.detach().permute(2, 1, 0) for w in convs], dtype, device)
+            cached = self._chain_cache[key] = (stamp, packed)
+        return cached[1]
 
     def _pos_conv(self, x: torch.Tensor) -> torch.Tensor:
         """Weight-normed grouped conv positional embedding on (B, T, D); an

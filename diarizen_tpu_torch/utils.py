@@ -1,8 +1,9 @@
-"""Device selection and host-device transfers shared by the port's entry
-points."""
+"""Device selection, host-device transfers and the out-of-memory batch
+backoff shared by the port's entry points."""
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -71,3 +72,29 @@ class HostFetch:
         if self.event is not None:
             self.event.synchronize()
         return [t.numpy() for t in self.host]
+
+
+def is_oom_error(exc: BaseException) -> bool:
+    """True when an exception is the device running out of memory."""
+    return isinstance(exc, torch.cuda.OutOfMemoryError)
+
+
+def halve_batch_or_raise(exc: BaseException, batch_size: int, stage: str) -> int:
+    """Batch backoff for a device out-of-memory error during inference:
+    returns half the batch size for a retry (after freeing the caching
+    allocator's blocks), or raises the actionable message when already at 1.
+    Any other exception is re-raised unchanged."""
+    if not is_oom_error(exc):
+        raise exc
+    if batch_size <= 1:
+        raise RuntimeError(
+            f"{stage} ran out of device memory even at batch_size=1 — "
+            "use shorter chunks (smaller `duration`), a smaller model, or "
+            "a device with more memory"
+        ) from exc
+    new = batch_size // 2
+    logging.getLogger("diarizen_tpu_torch.infer").warning(
+        "%s hit device OOM at batch_size=%d; retrying at %d", stage, batch_size, new)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return new
