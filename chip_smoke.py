@@ -12,8 +12,13 @@ Phases (any failure exits non-zero, before the last line is printed):
      one PyTorch call computing the same function (yardstick only);
   4. K1's training instance (attention dropout) and K2 (the backward)
      against the plain version and its autograd, output and all five
-     gradients, in float32 and bfloat16, at T in {37, 399, 799}, rate 0 and
-     0.1; then timed at the WavLM-Base training shapes;
+     gradients, in float32 and bfloat16, at T in {37, 399, 799} and at
+     B in {1, 5, 13} (one chunk of pass A; one element a chunk; chunks of
+     unequal sizes, as at B 16), rate 0 and 0.1; K2's d pos_bias bit for
+     bit the same in two calls; then timed at the WavLM-Base training
+     shapes, with pass A (and the sum of its partial slices) and pass B
+     also timed alone, and pass A at other numbers of chunks than the
+     plan's;
   5. serving: DiariZen-Base-s80 EEND and the WeSpeaker ResNet34 at full
      width with seeded random weights; the card's output checked against
      the CPU's on two windows; then a 120 s synthetic two-speaker file
@@ -40,11 +45,12 @@ Phases (any failure exits non-zero, before the last line is printed):
      stitch must equal the host stages exactly; streamed and single-file
      audio-s/s with the fused-LN route on and off, the host time of one
      file's dispatch beside its device time, and one profiled streamed pass;
- 10. K5 (the WavLM extractor's conv layers 1-6 in one launch) against its
-     plain version in bfloat16 and float32 at ragged sizes, the input exactly
-     as long as needed and longer, inside a NaN-filled buffer; timed at the
-     serving shape against the plain version, six PyTorch convolutions and
-     the bound;
+ 10. K5 (the WavLM extractor's conv layers 1-6: six implicit GEMMs in
+     bfloat16, one launch in float32) against its plain version in bfloat16
+     and float32 at ragged sizes, the input exactly as long as needed and
+     longer, inside a NaN-filled buffer; timed at the serving shape against
+     the plain version, six PyTorch convolutions and the bound, with the
+     CUDA launches of one call and each bfloat16 stage timed alone;
  11. snapshot directories to RTTM files: two directories laid out like
      released ones (config.toml with the reference's class path and VBx
      clustering, pytorch_model.bin, plda/) written from seeds for WavLM-Base
@@ -66,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -285,9 +292,30 @@ def trainable_inputs(b, h, t, dtype, gen):
     return (q, k, v, pos, gate), do
 
 
+def pass_a_by_chunks(run, planned: int) -> None:
+    """K2's pass A (with the sum of its slices) timed at other numbers of
+    batch chunks than the plan's, to show where the plan stands: two rounds
+    in opposite orders, so that a drift of the card's clock favours none."""
+    counts = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)
+    times = {s: [] for s in counts}
+    plan = k1.pass_a_chunks
+    try:
+        for order in (counts, counts[::-1]):
+            for s in order:
+                k1.pass_a_chunks = lambda *_, s=s: s
+                times[s].append(median_ms(run))
+    finally:
+        k1.pass_a_chunks = plan
+    print(f"K2 pass A with its sum by chunks S, two rounds (the plan takes S={planned}): "
+          + ", ".join(f"S={s} {t[0]:.4f}/{t[1]:.4f}" for s, t in times.items()) + " ms")
+
+
 def phase_trainable_kernels() -> list:
     """K1's training instance and K2 against the plain version's forward and
-    autograd backward on the same inputs and cotangent. Tolerance, of each
+    autograd backward on the same inputs and cotangent, at the training shape,
+    T in {37, 799} and B in {1, 5, 13} (pass A in one chunk, in chunks of one
+    element, in chunks of unequal sizes); K2's d pos_bias bit for bit the same
+    in two calls. Tolerance, of each
     tensor's largest magnitude: 1e-4 in float32 (reassociation; one wrong
     mask bit at T = 399 costs about 2.5e-3), 2e-2 in bfloat16 (the kernels
     round p, dS and W * m to bf16 for the tensor-core products, and sum in
@@ -297,7 +325,9 @@ def phase_trainable_kernels() -> list:
     names = ("o", "dq", "dk", "dv", "dpos_bias", "dgate")
     main_err = {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, h, t in ((2, 3, 37), (TRAIN_BATCH, TRAIN_HEADS, FRAMES), (2, 3, 799)):
+        for b, h, t in ((2, 3, 37), (TRAIN_BATCH, TRAIN_HEADS, FRAMES), (2, 3, 799),
+                        (1, TRAIN_HEADS, FRAMES), (5, TRAIN_HEADS, FRAMES),
+                        (13, TRAIN_HEADS, FRAMES)):
             for rate in (0.0, DROPOUT_RATE):
                 inputs, do = trainable_inputs(b, h, t, dtype, gen)
                 results = []
@@ -342,6 +372,22 @@ def phase_trainable_kernels() -> list:
         "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=DROPOUT_RATE)),
     }
+    grads = [k1._backward(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE, DROPOUT_SEED)
+             for _ in range(2)]
+    check(torch.equal(grads[0][3], grads[1][3]),
+          "K2's d pos_bias differs between two calls on the same inputs")
+    print("K2 d pos_bias: bit for bit the same in two calls on the same inputs")
+    delta = k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE, DROPOUT_SEED)[3]
+    pass_a_ms = median_ms(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do,
+                                                 DROPOUT_RATE, DROPOUT_SEED))
+    pass_b_ms = median_ms(lambda: k1._bwd_pass_b(q, k, v, bias, gate, lse, delta, do,
+                                                 DROPOUT_RATE, DROPOUT_SEED))
+    chunks = k1._pass_a_plan(q)
+    print(f"gated_bias_attention_bwd passes bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} T={FRAMES}: "
+          f"pass A with the sum of its {chunks} partial slices {pass_a_ms:.4f} ms, pass B "
+          f"{pass_b_ms:.4f} ms")
+    pass_a_by_chunks(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE,
+                                            DROPOUT_SEED), chunks)
     bwd = {
         "ms": median_ms(lambda: k1._backward(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE,
                                              DROPOUT_SEED)),
@@ -780,6 +826,25 @@ def library_conv_chain(x_cf, weights_oik):
     return x_cf
 
 
+def conv_chain_stages(x, packed) -> None:
+    """Each bfloat16 stage GEMM of one K5 call timed alone (its library
+    function called the way the wrapper calls it), with its share of the
+    tensor cores' peak."""
+    lib = k5._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    src, t_in, w_ptr = x, x.shape[1], packed.flat.data_ptr()
+    for s, (k, t_s) in enumerate(zip(k5.KERNELS, k5.stage_frames(FRAMES))):
+        dst = torch.empty((x.shape[0], t_s, k5.C), dtype=x.dtype, device=x.device)
+        args = (src.data_ptr(), w_ptr, dst.data_ptr(), x.shape[0], t_in, t_s, k, stream)
+        check(lib.conv_chain_stage_bf16(*args) == 0, f"K5 stage {s + 1} did not launch")
+        ms = median_ms(lambda: lib.conv_chain_stage_bf16(*args), reps=9)
+        flops = 2 * x.shape[0] * t_s * k * k5.C * k5.C
+        print(f"  conv_chain stage {s + 1} ({x.shape[0]} x {t_s} frames, {k} taps): {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s ({100 * flops / ms / 1e-3 / BF16_FLOP_PER_S:.1f}% "
+              f"of the bf16 peak)")
+        src, t_in, w_ptr = dst, t_s, w_ptr + 2 * k * k5.C * k5.C
+
+
 def phase_conv_chain() -> dict:
     """K5 against its plain version on the card, within 1e-4 (float32: the
     kernel sums in another order than cuDNN) and 2e-2 (bfloat16: the plain
@@ -787,8 +852,9 @@ def phase_conv_chain() -> dict:
     after it) of the output's largest magnitude, at ragged sizes with the
     input exactly as long as the outputs need and, once, longer, and at the
     two shapes the `base` path gives it (a full batch and the 13-window tail
-    batch of a 120 s file, T1 = 25599 from layer 0); then timed at the
-    serving shape."""
+    batch of a 120 s file, T1 = 25599 from layer 0), and at (5, 200) from a
+    longer input; then timed at the serving shape, each bf16 stage alone
+    too."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     main_err = 0.0
@@ -796,8 +862,9 @@ def phase_conv_chain() -> dict:
     tail = ((AUDIO_SECONDS * 10 - 80) // 8 + 1) % BATCH  # the last batch of a file: 8 s windows, 0.8 s hop
     exact = [(b, t_out, k5.min_input_frames(t_out))
              for b, t_out in ((1, 1), (2, 32), (3, 65), (tail, FRAMES), (BATCH, FRAMES))]
-    cases = exact + [(3, 65, k5.min_input_frames(65) + 37), (tail, FRAMES, path_t1),
-                     (BATCH, FRAMES, path_t1)]
+    # (5, 200) with a longer input: every stage's frames per batch element are odd
+    cases = exact + [(3, 65, k5.min_input_frames(65) + 37), (5, 200, k5.min_input_frames(200) + 301),
+                     (tail, FRAMES, path_t1), (BATCH, FRAMES, path_t1)]
     for dtype in (torch.bfloat16, torch.float32):
         for b, t_out, t1 in cases:
             x, weights = conv_chain_inputs(b, t1, dtype, gen)
@@ -827,18 +894,18 @@ def phase_conv_chain() -> dict:
         "plain_ms": median_ms(lambda: k5.conv_chain_plain(x, packed.taps, FRAMES), reps=9),
         "library_ms": median_ms(lambda: library_conv_chain(x_cf, weights_oik), reps=9),
     }
-    layout_ms = median_ms(lambda: x_cf.transpose(1, 2).contiguous(), reps=9)
     mem_s, op_s = conv_chain_bound_s(BATCH, FRAMES, 2, BF16_FLOP_PER_S)
-    print(f"conv_chain bf16 B={BATCH} T1={t1} t_out={FRAMES}: kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-          f"{1e3 * max(mem_s, op_s):.4f} ms ({1e3 * mem_s:.4f} bytes, {1e3 * op_s:.4f} "
-          f"operations); the channels-last copy of its input {layout_ms:.4f} ms")
+    print(f"conv_chain bf16 B={BATCH} T1={t1} t_out={FRAMES}: kernel {row['ms']:.4f} ms in "
+          f"{k5.CUDA_LAUNCHES[torch.bfloat16]} CUDA launches, plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound {1e3 * max(mem_s, op_s):.4f} ms "
+          f"({1e3 * mem_s:.4f} bytes, {1e3 * op_s:.4f} operations)")
+    conv_chain_stages(x, packed)
     x32, w32 = conv_chain_inputs(BATCH, t1, torch.float32, gen)
     packed32 = k5.pack_weights(w32, torch.float32, "cuda")
     f32_ms = median_ms(lambda: k5.fused_conv_chain(x32, packed32, FRAMES), reps=3, warmup=1)
     mem32_s, op32_s = conv_chain_bound_s(BATCH, FRAMES, 4, F32_FLOP_PER_S)
-    print(f"conv_chain f32 at the same shape: kernel {f32_ms:.3f} ms, bound "
-          f"{1e3 * max(mem32_s, op32_s):.4f} ms")
+    print(f"conv_chain f32 at the same shape: kernel {f32_ms:.3f} ms in "
+          f"{k5.CUDA_LAUNCHES[torch.float32]} CUDA launch, bound {1e3 * max(mem32_s, op32_s):.4f} ms")
     return {
         "name": "conv_chain", "route": "cuda",
         "source": "diarizen_tpu_torch/csrc/conv_chain.cu",
@@ -1321,6 +1388,21 @@ class StageTimer:
         self.last = now
 
 
+def print_ptxas(report: str) -> None:
+    """One line per kernel of the compiler's report: registers and spills."""
+    name, spill = "?", ""
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?\d([a-z][a-z0-9_]*kernel)(I\w*?E)?", line)
+        if entry:
+            name = entry.group(1) + (entry.group(2) or "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            print(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "setmaxnreg" in line or "wgmma" in line:
+            print(f"  ptxas: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1338,9 +1420,7 @@ def main() -> int:
         reports = [f.result() for f in [pool.submit(k1.build), pool.submit(k3.build),
                                         pool.submit(k5.build)]]
     print(f"K1 + K2, K3 + K4 and K5 build: {time.perf_counter() - t0:.1f} s")
-    for line in "\n".join(reports).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print_ptxas("\n".join(reports))
 
     eend_cfg = EendConfig(wavlm=WavLMConfig.base_s80_md(), conformer=ConformerConfig())
     heads = [len(h) for h, a in zip(eend_cfg.wavlm.remaining_heads,

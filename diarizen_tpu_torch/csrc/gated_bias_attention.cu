@@ -23,13 +23,31 @@
 //   dq = dS K / sqrt(D),  dk = dS^T Q / sqrt(D),  dv = (W * m)^T dO,
 //   dgate[b,h,i] = sum_j dS * bias[h,i,j],  dbias[h,i,j] = sum_b gate * dS.
 // The TPU kernel carries dbias from one grid step to the next along its
-// sequential batch axis; on Hopper blocks run in no order, so K2 is two
-// passes that need no atomics:
-//  * pass A (dq, dgate, dbias, D): one block per (head, 64 query rows) loops
-//    over the batch and the 64-key tiles; it owns its rows of dbias for the
-//    whole call and adds each batch's tile in place in device memory (the
-//    tile, 64 x T f32, stays in L2), keeps dq and the dgate row sums in
-//    registers, and writes D for pass B.
+// sequential batch axis; on Hopper blocks run in no order, so K2 is three
+// launches that need no atomics:
+//  * pass A (dq, dgate, a partial dbias, D): one block per (head, 64 query
+//    rows, batch chunk). The wrapper splits the batch into S chunks of
+//    consecutive elements. S comes from the batch, heads, T, the number of
+//    SMs and the blocks an SM holds at once: the grid fills at least two
+//    waves of the SMs, and among such S the plan takes the one whose rounds
+//    of resident blocks times the batch elements of the largest chunk is
+//    least (fewest chunks among equals). At B 16, H 12, T 399 on 132 SMs
+//    with two resident blocks each, that is S = 6 and 504 blocks, against 84
+//    blocks without the split; S = 4 (336 blocks for 264 slots) leaves the
+//    card three quarters idle for a second round of four-element blocks. A
+//    block loops over its chunk's batch elements in order and the 64-key
+//    tiles; it owns its rows of its chunk's f32 dbias slice (S, H, T, ldb) in
+//    scratch for the whole call and adds each batch element's tile in place
+//    (the rows stay in L2). In bf16 it does so as float2 pairs, since a lane
+//    of the m16n8k16 accumulator owns two neighbouring columns, with all of
+//    a tile's earlier pairs requested at once; the K, V and 64 x 64 bias
+//    tiles of the next step are copied by cp.async into a second buffer
+//    while a step computes (the wrapper pads the bias rows to a multiple of
+//    8 so that they load in 16 bytes). dq, dgate and D are per (batch, head,
+//    row) and written by the chunk that owns the batch element.
+//  * the sum: dbias = the S slices added in chunk order, one thread per
+//    element: a fixed order, so dbias is the same bit for bit from call to
+//    call.
 //  * pass B (dk, dv): one block per (batch, head, 64 keys) loops over the
 //    query tiles, FlashAttention-2 style, with the saved lse and D.
 // Keys past T get dS = 0 and W = 0; query rows past T contribute nothing.
@@ -38,11 +56,12 @@
 // bf16): K1 moves about 44 MB (q, k, v, o, bias, gate, lse) against 7.8
 // GFLOP, K2 about 91 MB (q, k, v, o, dO read, dq, dk, dv written, the bias
 // read, dbias written in f32) against 19.6 GFLOP of the five products it
-// needs; at 3.35 TB/s and 989 TFLOP/s both are bound by bytes.
+// needs; at 3.35 TB/s and 989 TFLOP/s both are bound by bytes. The split
+// adds the S partial slices (4 x 7.6 MB written and read at that shape),
+// which stay in the 50 MB L2.
 //
-// Layout of both: 64-row tiles staged in shared memory, the bias read
-// straight from device memory, nothing padded in memory (rows past T are
-// zero-filled when a tile is staged, keys past T masked in the kernel).
+// Layout of both: 64-row tiles staged in shared memory, rows past T
+// zero-filled when a tile is staged, keys past T masked in the kernel.
 //  * bfloat16: four warps, 16 rows each; every product on the tensor cores
 //    with mma.sync m16n8k16 (f32 accumulate). An accumulator's register
 //    layout is the A-operand layout of the next product, so p, dS and W * m
@@ -141,6 +160,35 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < t && c < d) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;  // 0: nothing is read, 16 zero bytes are written
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// load_tile through cp.async: the copies are issued, not waited for
+template <int kDim>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                int r0, int t, int d) {
+  constexpr int kChunks = kDim / 8;
+  constexpr int ld = kDim + 8;
+  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kWarps * 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool valid = r0 + r < t && c < d;
+    cp_async_16(dst + r * ld + c, valid ? src + (size_t)(r0 + r) * d + c : src, valid);
   }
 }
 
@@ -362,14 +410,18 @@ gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// K2 pass A, bf16: one block per (head, 64 query rows), looping over the
-// batch. Lane layout as in K1.
+// K2 pass A, bf16: one block per (head, 64 query rows, batch chunk),
+// looping over the chunk's batch elements and, for each, the 64-key tiles.
+// Lane layout as in K1. The K, V and bias tiles of the next (batch element,
+// key tile) step are copied into the other half of a double buffer with
+// cp.async while this step computes; the bias comes padded to rows of
+// ldbias (a multiple of 8) elements so that its tiles load in 16 bytes.
 template <int kDim>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ bias,
+                             const __nv_bfloat16* __restrict__ bias, int ldbias,
                              const float* __restrict__ gate,
                              const __nv_bfloat16* __restrict__ out,
                              const __nv_bfloat16* __restrict__ dout,
@@ -377,115 +429,173 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dq,
                              float* __restrict__ dgate,
-                             float* __restrict__ dbias,
+                             float* __restrict__ dbias_part, int ldb,
                              int batch, int num_heads, int t, int d, float scale, Dropout dr) {
   constexpr int ld = kDim + 8;
   constexpr int kSteps = kDim / 16;
   constexpr int kOut = kDim / 8;
+  constexpr int ldp = kBlockK + 8;
+  constexpr int kTileKV = kBlockK * ld;   // elements of a K or V tile
+  constexpr int kTileP = kBlockQ * ldp;   // elements of a bias tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dos = qs + kBlockQ * ld;
-  __nv_bfloat16* ks = dos + kBlockQ * ld;
-  __nv_bfloat16* vs = ks + kBlockK * ld;
-  float* delta_s = reinterpret_cast<float*>(vs + kBlockK * ld);  // (64,)
+  __nv_bfloat16* ks = dos + kBlockQ * ld;  // two K tiles, then two V tiles, then two bias tiles
+  __nv_bfloat16* vs = ks + 2 * kTileKV;
+  __nv_bfloat16* pbs = vs + 2 * kTileKV;
+  float* delta_s = reinterpret_cast<float*>(pbs + 2 * kTileP);  // (64,)
 
   const int h = blockIdx.x;
   const int q0 = blockIdx.y * kBlockQ;
+  const int b0 = blockIdx.z * batch / gridDim.z, b1 = (blockIdx.z + 1) * batch / gridDim.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c2 = 2 * (lane % 4);
   const int rq = 16 * warp + g;
   const int row[2] = {q0 + rq, q0 + rq + 8};
-  const __nv_bfloat16* bias_h = bias + (size_t)h * t * t;
-  float* dbias_h = dbias + (size_t)h * t * t;
+  const __nv_bfloat16* bias_h = bias + (size_t)h * t * ldbias;
+  float* part = dbias_part + ((size_t)blockIdx.z * num_heads + h) * t * ldb;
+  const int tiles = (t + kBlockK - 1) / kBlockK;
+  const int steps = (b1 - b0) * tiles;
 
-  for (int b = 0; b < batch; ++b) {
+  // the K, V and bias tiles of step `st` into buffer st % 2
+  auto prefetch = [&](int st) {
+    const int buf = st & 1, k0 = (st % tiles) * kBlockK;
+    const size_t head = (size_t)((b0 + st / tiles) * num_heads + h) * t * d;
+    load_tile_async<kDim>(ks + buf * kTileKV, k + head, k0, t, d);
+    load_tile_async<kDim>(vs + buf * kTileKV, v + head, k0, t, d);
+    for (int i = tid; i < kBlockQ * (kBlockK / 8); i += kWarps * 32) {
+      const int r = i / (kBlockK / 8), c = (i % (kBlockK / 8)) * 8;
+      const bool valid = q0 + r < t && k0 + c < ldbias;
+      cp_async_16(pbs + buf * kTileP + r * ldp + c,
+                  valid ? bias_h + (size_t)(q0 + r) * ldbias + k0 + c : bias_h, valid);
+    }
+    cp_async_commit();
+  };
+
+  uint32_t qf[kSteps][4], df[kSteps][4];
+  float gt[2], ls[2], dl[2], dg[2];
+  float dqa[kOut][4];
+  uint32_t s1 = 0, s2 = 0;
+  prefetch(0);
+  for (int st = 0; st < steps; ++st) {
+    const int b = b0 + st / tiles, kt = st % tiles, k0 = kt * kBlockK, buf = st & 1;
     const int bh = b * num_heads + h;
     const size_t head = (size_t)bh * t * d;
-    __syncthreads();  // the previous batch's tiles are no longer read
-    load_tile<kDim>(qs, q + head, q0, t, d);
-    load_tile<kDim>(dos, dout + head, q0, t, d);
-    {  // D = rowsum(dO * O): two threads per row, half the head dim each
-      const int r = tid / 2, half = tid % 2;
-      const int rr = q0 + r;
-      float acc = 0.f;
-      if (rr < t) {
-        const __nv_bfloat16* o_row = out + head + (size_t)rr * d;
-        const __nv_bfloat16* do_row = dout + head + (size_t)rr * d;
-        for (int c = half; c < d; c += 2)
-          acc += __bfloat162float(o_row[c]) * __bfloat162float(do_row[c]);
+    if (kt == 0) {  // a new batch element: its q and dO rows, D, gate and lse
+      load_tile<kDim>(qs, q + head, q0, t, d);
+      load_tile<kDim>(dos, dout + head, q0, t, d);
+      {  // D = rowsum(dO * O): two threads per row, half the head dim each
+        const int r = tid / 2, half = tid % 2;
+        const int rr = q0 + r;
+        float acc = 0.f;
+        if (rr < t) {
+          const __nv_bfloat16* o_row = out + head + (size_t)rr * d;
+          const __nv_bfloat16* do_row = dout + head + (size_t)rr * d;
+          for (int c = half; c < d; c += 2)
+            acc += __bfloat162float(o_row[c]) * __bfloat162float(do_row[c]);
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        if (half == 0) {
+          delta_s[r] = acc;
+          if (rr < t) delta[(size_t)bh * t + rr] = acc;
+        }
       }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      if (half == 0) {
-        delta_s[r] = acc;
-        if (rr < t) delta[(size_t)bh * t + rr] = acc;
+      __syncthreads();
+      load_a_fragments<kDim>(qf, qs, rq, c2);
+      load_a_fragments<kDim>(df, dos, rq, c2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bool valid = row[i] < t;
+        gt[i] = valid ? gate[(size_t)bh * t + row[i]] : 0.f;
+        ls[i] = valid ? lse[(size_t)bh * t + row[i]] : 0.f;
+        dl[i] = delta_s[rq + 8 * i];
+        dg[i] = 0.f;
       }
+      dropout_streams(dr.seed, b, h, s1, s2);
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
+    }
+    if (st + 1 < steps) {
+      prefetch(st + 1);
+      cp_async_wait<1>();  // this step's tiles have landed; the next step's are in flight
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const __nv_bfloat16* kt_s = ks + buf * kTileKV;
+    const __nv_bfloat16* pb_s = pbs + buf * kTileP;
 
-    uint32_t qf[kSteps][4], df[kSteps][4];
-    load_a_fragments<kDim>(qf, qs, rq, c2);
-    load_a_fragments<kDim>(df, dos, rq, c2);
-    float gt[2], ls[2], dl[2], dg[2] = {0.f, 0.f};
+    float s[8][4], dp[8][4];
+    mma_rows_by_tile<kDim>(s, qf, kt_s, g, c2);              // q k^T
+    mma_rows_by_tile<kDim>(dp, df, vs + buf * kTileKV, g, c2);  // dO v^T
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const bool valid = row[i] < t;
-      gt[i] = valid ? gate[(size_t)bh * t + row[i]] : 0.f;
-      ls[i] = valid ? lse[(size_t)bh * t + row[i]] : 0.f;
-      dl[i] = delta_s[rq + 8 * i];
-    }
-    uint32_t s1, s2;
-    dropout_streams(dr.seed, b, h, s1, s2);
-    float dqa[kOut][4];
+    for (int j = 0; j < 8; ++j) {
+      const int col = k0 + 8 * j + c2;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-
-    for (int k0 = 0; k0 < t; k0 += kBlockK) {
-      __syncthreads();
-      load_tile<kDim>(ks, k + head, k0, t, d);
-      load_tile<kDim>(vs, v + head, k0, t, d);
-      __syncthreads();
-
-      float s[8][4], dp[8][4];
-      mma_rows_by_tile<kDim>(s, qf, ks, g, c2);   // q k^T
-      mma_rows_by_tile<kDim>(dp, df, vs, g, c2);  // dO v^T
+      for (int i = 0; i < 2; ++i) {  // row i: accumulator entries 2 i, 2 i + 1
+        const float2 pb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(pb_s + (rq + 8 * i) * ldp + 8 * j + c2));
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e / 2;
-          const int col = k0 + 8 * j + c2 + (e & 1);
+        for (int e = 0; e < 2; ++e) {
+          const float pbe = e == 0 ? pb.x : pb.y;
           float ds = 0.f;
-          if (col < t && row[i] < t) {
-            const size_t at = (size_t)row[i] * t + col;
-            const float pb = __bfloat162float(bias_h[at]);
-            const float w = expf(s[j][e] * scale + gt[i] * pb - ls[i]);
-            ds = w * (dp[j][e] * dropout_keep(s1, s2, row[i], col, dr) - dl[i]);
-            dg[i] += ds * pb;
-            const float contrib = gt[i] * ds;
-            dbias_h[at] = b == 0 ? contrib : dbias_h[at] + contrib;
+          if (col + e < t && row[i] < t) {
+            const float w = expf(s[j][2 * i + e] * scale + gt[i] * pbe - ls[i]);
+            ds = w * (dp[j][2 * i + e] * dropout_keep(s1, s2, row[i], col + e, dr) - dl[i]);
+            dg[i] += ds * pbe;
           }
-          s[j][e] = ds;
+          s[j][2 * i + e] = ds;
         }
       }
-      mma_acc_by_tile<kDim>(dqa, s, ks, lane);  // dS k
+    }
+    // the partial dbias: the pairs the chunk's earlier batch elements left
+    // (this lane wrote them) are all requested before the dS k product, and
+    // stored with this element's gate * dS added after it
+    float2 prev[8][2];
+    if (b != b0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int col = k0 + 8 * j + c2;
+          prev[j][i] = row[i] < t && col < t
+                           ? *reinterpret_cast<const float2*>(part + (size_t)row[i] * ldb + col)
+                           : make_float2(0.f, 0.f);
+        }
+    }
+    mma_acc_by_tile<kDim>(dqa, s, kt_s, lane);  // dS k
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = k0 + 8 * j + c2;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] < t && col < t) {  // col + 1 < ldb; past t its contribution is 0
+          float2 c = make_float2(gt[i] * s[j][2 * i], gt[i] * s[j][2 * i + 1]);
+          if (b != b0) c = make_float2(prev[j][i].x + c.x, prev[j][i].y + c.y);
+          *reinterpret_cast<float2*>(part + (size_t)row[i] * ldb + col) = c;
+        }
+      }
     }
 
+    if (kt == tiles - 1) {  // the batch element is done: dgate and dq
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 1);
-      dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 2);
-      if (row[i] >= t) continue;
-      if (c2 == 0) dgate[(size_t)bh * t + row[i]] = dg[i];
+      for (int i = 0; i < 2; ++i) {
+        dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 1);
+        dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 2);
+        if (row[i] >= t) continue;
+        if (c2 == 0) dgate[(size_t)bh * t + row[i]] = dg[i];
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const int col = 8 * j + c2;
-        if (col < d) {
-          *reinterpret_cast<__nv_bfloat162*>(dq + head + (size_t)row[i] * d + col) =
-              __floats2bfloat162_rn(dqa[j][2 * i] * scale, dqa[j][2 * i + 1] * scale);
+        for (int j = 0; j < kOut; ++j) {
+          const int col = 8 * j + c2;
+          if (col < d) {
+            *reinterpret_cast<__nv_bfloat162*>(dq + head + (size_t)row[i] * d + col) =
+                __floats2bfloat162_rn(dqa[j][2 * i] * scale, dqa[j][2 * i + 1] * scale);
+          }
         }
       }
     }
+    __syncthreads();  // this step's buffer and q, dO tiles are no longer read
   }
 }
 
@@ -775,16 +885,17 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
   }
 }
 
-// K2 pass A, float32: one block per (head, 64 query rows), looping over the
-// batch. Thread layout as in the forward.
+// K2 pass A, float32: one block per (head, 64 query rows, batch chunk),
+// looping over the chunk's batch elements. Thread layout as in the forward.
 template <int kCols>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ bias,
-                            const float* __restrict__ gate, const float* __restrict__ out,
-                            const float* __restrict__ dout, const float* __restrict__ lse,
-                            float* __restrict__ delta, float* __restrict__ dq,
-                            float* __restrict__ dgate, float* __restrict__ dbias,
+                            int ldbias, const float* __restrict__ gate,
+                            const float* __restrict__ out, const float* __restrict__ dout,
+                            const float* __restrict__ lse, float* __restrict__ delta,
+                            float* __restrict__ dq, float* __restrict__ dgate,
+                            float* __restrict__ dbias_part, int ldb,
                             int batch, int num_heads, int t, int d, float scale, Dropout dr) {
   extern __shared__ float smem[];
   const int ld = d + 1;
@@ -799,10 +910,11 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
   const int q0 = blockIdx.y * kBlockQ;
   const int tid = threadIdx.x;
   const int tx = tid % kThreadsX, ty = tid / kThreadsX;
-  const float* bias_h = bias + (size_t)h * t * t;
-  float* dbias_h = dbias + (size_t)h * t * t;
+  const int b0 = blockIdx.z * batch / gridDim.z, b1 = (blockIdx.z + 1) * batch / gridDim.z;
+  const float* bias_h = bias + (size_t)h * t * ldbias;
+  float* part = dbias_part + ((size_t)blockIdx.z * num_heads + h) * t * ldb;
 
-  for (int b = 0; b < batch; ++b) {
+  for (int b = b0; b < b1; ++b) {
     const int bh = b * num_heads + h;
     const size_t head = (size_t)bh * t * d;
     __syncthreads();
@@ -873,13 +985,13 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
           const int kj = tx + kThreadsX * j, col = k0 + kj;
           float ds = 0.f;
           if (col < t && row < t) {
-            const size_t at = (size_t)row * t + col;
-            const float pb = bias_h[at];
+            const float pb = bias_h[(size_t)row * ldbias + col];
             const float w = expf(s[i][j] + g[i] * pb - ls[i]);
             ds = w * (dp[i][j] * dropout_keep(s1, s2, row, col, dr) - dl[i]);
             dg[i] += ds * pb;
             const float contrib = g[i] * ds;
-            dbias_h[at] = b == 0 ? contrib : dbias_h[at] + contrib;
+            float* at = part + (size_t)row * ldb + col;
+            *at = b == b0 ? contrib : *at + contrib;
           }
           dss[r * ldp + kj] = ds;
         }
@@ -1059,6 +1171,20 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
+// dbias[i] = sum over the chunks z = 0 .. chunks - 1, in that order, of the
+// partial slices part[z] (rows of length ldb >= t): n = rows * t elements.
+__global__ void dbias_sum_kernel(const float* __restrict__ part, float* __restrict__ dbias,
+                                 int chunks, int rows, int t, int ldb) {
+  const size_t n = (size_t)rows * t;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = i / t, c = i % t;
+    float acc = part[r * ldb + c];
+    for (int z = 1; z < chunks; ++z) acc += part[((size_t)z * rows + r) * ldb + c];
+    dbias[i] = acc;
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1124,70 +1250,132 @@ extern "C" int gated_bias_attention_fwd_train(const void* q, const void* k, cons
                               static_cast<cudaStream_t>(stream));
 }
 
-// The backward of gated_bias_attention_fwd_train with the same dropout
-// arguments. Inputs: q, k, v, bias, gate, out, dout (out's cotangent), lse;
-// scratch: delta (b, h, t) float32; outputs: dq, dk, dv in q's type, dgate
-// (b, h, t) and dbias (h, t, t) in float32. Launches pass A, then pass B on
-// the same stream. Returns the first CUDA error (0 on success).
-extern "C" int gated_bias_attention_bwd(const void* q, const void* k, const void* v,
-                                        const void* bias, const void* gate, const void* out,
-                                        const void* dout, const void* lse, void* delta,
-                                        void* dq, void* dk, void* dv, void* dgate, void* dbias,
-                                        int b, int h, int t, int d, int is_bf16,
-                                        uint32_t seed, uint32_t threshold, float keep_scale,
-                                        void* stream) {
+// Pass A's shared memory. bf16 (dim 64 or 128): the q and dO tiles, two K,
+// two V and two bias tiles, D. f32: the q, dO, K and V tiles and the dS tile.
+static size_t pass_a_smem_bf16(int dim) {
+  return sizeof(__nv_bfloat16) * ((size_t)(2 * kBlockQ + 4 * kBlockK) * (dim + 8) +
+                                  2 * (size_t)kBlockQ * (kBlockK + 8)) +
+         sizeof(float) * kBlockQ;
+}
+
+static size_t pass_a_smem_f32(int d) {
+  return sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
+                          (size_t)kBlockQ * (kBlockK + 1));
+}
+
+// Blocks of pass A that one SM of the current device holds at once (its
+// registers and shared memory decide), or minus the CUDA error. The plan
+// that splits the batch into chunks counts the card's resident blocks so.
+extern "C" int gated_bias_attention_bwd_a_blocks_per_sm(int d, int is_bf16) {
+  int blocks = 0;
+  cudaError_t err;
+  if (is_bf16) {
+    auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64> : attention_bwd_dq_bf16_kernel<128>;
+    const size_t smem = pass_a_smem_bf16(d <= 64 ? 64 : 128);
+    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return -(int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_a, kWarps * 32, smem);
+  } else {
+    auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4> : attention_bwd_dq_f32_kernel<8>;
+    const size_t smem = pass_a_smem_f32(d);
+    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return -(int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_a, kThreads, smem);
+  }
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
+// K2 pass A and the sum, for the backward of gated_bias_attention_fwd_train
+// with the same dropout arguments. Inputs: q, k, v, bias (h, t, ldbias) with
+// ldbias >= t a multiple of 8 and zeros past t, gate, out, dout (out's
+// cotangent), lse; outputs: delta (b, h, t) float32 (D, for pass B),
+// dq in q's type, dgate (b, h, t) and dbias (h, t, t) in float32; scratch:
+// dbias_part (chunks, h, t, ldb) float32 with ldb >= t, ldb % 4 == 0 (rows
+// 16-byte aligned). The batch is split into `chunks` <= b chunks of
+// consecutive elements, chunk z holding z b / chunks .. (z + 1) b / chunks - 1.
+// Launches pass A, then the sum, on the same stream. Returns the first CUDA
+// error (0 on success).
+extern "C" int gated_bias_attention_bwd_a(const void* q, const void* k, const void* v,
+                                          const void* bias, int ldbias, const void* gate,
+                                          const void* out,
+                                          const void* dout, const void* lse, void* delta, void* dq,
+                                          void* dgate, void* dbias_part, void* dbias, int b,
+                                          int h, int t, int d, int is_bf16, int chunks, int ldb,
+                                          uint32_t seed, uint32_t threshold, float keep_scale,
+                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, keep_scale};
-  const dim3 grid_a(h, (t + kBlockQ - 1) / kBlockQ);
-  const dim3 grid_b(b * h, (t + kBlockK - 1) / kBlockK);
+  const dim3 grid(h, (t + kBlockQ - 1) / kBlockQ, chunks);
   const float scale = 1.0f / sqrtf((float)d);
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);
   float* dgate_f = static_cast<float*>(dgate);
-  float* dbias_f = static_cast<float*>(dbias);
+  float* part = static_cast<float*>(dbias_part);
   const float* gate_f = static_cast<const float*>(gate);
   cudaError_t err;
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
     const int dim = d <= 64 ? 64 : 128;
     auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64> : attention_bwd_dq_bf16_kernel<128>;
-    auto pass_b = d <= 64 ? attention_bwd_dkdv_bf16_kernel<64> : attention_bwd_dkdv_bf16_kernel<128>;
-    const size_t smem_a = sizeof(bf16) * (size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
-                          sizeof(float) * kBlockQ;
-    const size_t smem_b = sizeof(bf16) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
-                                          (size_t)kBlockQ * (kBlockK + 8)) +
-                          sizeof(float) * 3 * kBlockQ;
-    if ((err = allow_smem(pass_a, smem_a)) != cudaSuccess) return (int)err;
-    if ((err = allow_smem(pass_b, smem_b)) != cudaSuccess) return (int)err;
-    pass_a<<<grid_a, kWarps * 32, smem_a, s>>>(
+    const size_t smem = pass_a_smem_bf16(dim);
+    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return (int)err;
+    pass_a<<<grid, kWarps * 32, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), gate_f, static_cast<const bf16*>(out),
-        static_cast<const bf16*>(dout), lse_f, delta_f, static_cast<bf16*>(dq), dgate_f,
-        dbias_f, b, h, t, d, scale, dr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    pass_b<<<grid_b, kWarps * 32, smem_b, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), gate_f, static_cast<const bf16*>(dout), lse_f,
-        delta_f, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, t, d, scale, dr);
+        static_cast<const bf16*>(bias), ldbias, gate_f, static_cast<const bf16*>(out),
+        static_cast<const bf16*>(dout), lse_f, delta_f, static_cast<bf16*>(dq), dgate_f, part,
+        ldb, b, h, t, d, scale, dr);
   } else {
     auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4> : attention_bwd_dq_f32_kernel<8>;
+    const size_t smem = pass_a_smem_f32(d);
+    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return (int)err;
+    pass_a<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(bias), ldbias, gate_f, static_cast<const float*>(out),
+        static_cast<const float*>(dout), lse_f, delta_f, static_cast<float*>(dq), dgate_f, part,
+        ldb, b, h, t, d, scale, dr);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t n = (size_t)h * t * t;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  dbias_sum_kernel<<<blocks, 256, 0, s>>>(part, static_cast<float*>(dbias), chunks, h * t, t,
+                                          ldb);
+  return (int)cudaGetLastError();
+}
+
+// K2 pass B: dk, dv in q's type from q, k, v, bias, gate, dout, lse and the
+// delta that pass A wrote, with the same dropout arguments. Returns the CUDA
+// error of the launch (0 on success).
+extern "C" int gated_bias_attention_bwd_b(const void* q, const void* k, const void* v,
+                                          const void* bias, const void* gate, const void* dout,
+                                          const void* lse, const void* delta, void* dk, void* dv,
+                                          int b, int h, int t, int d, int is_bf16, uint32_t seed,
+                                          uint32_t threshold, float keep_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout dr{seed, threshold, keep_scale};
+  const dim3 grid(b * h, (t + kBlockK - 1) / kBlockK);
+  const float scale = 1.0f / sqrtf((float)d);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  const float* gate_f = static_cast<const float*>(gate);
+  cudaError_t err;
+  if (is_bf16) {
+    using bf16 = __nv_bfloat16;
+    const int dim = d <= 64 ? 64 : 128;
+    auto pass_b = d <= 64 ? attention_bwd_dkdv_bf16_kernel<64> : attention_bwd_dkdv_bf16_kernel<128>;
+    const size_t smem = sizeof(bf16) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
+                                        (size_t)kBlockQ * (kBlockK + 8)) +
+                        sizeof(float) * 3 * kBlockQ;
+    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return (int)err;
+    pass_b<<<grid, kWarps * 32, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(bias), gate_f, static_cast<const bf16*>(dout), lse_f, delta_f,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, t, d, scale, dr);
+  } else {
     auto pass_b = d <= 64 ? attention_bwd_dkdv_f32_kernel<4> : attention_bwd_dkdv_f32_kernel<8>;
-    const size_t smem_a = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
-                                           (size_t)kBlockQ * (kBlockK + 1));
-    const size_t smem_b = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
-                                           2 * (size_t)kBlockK * (kBlockQ + 1) + 3 * kBlockQ);
-    if ((err = allow_smem(pass_a, smem_a)) != cudaSuccess) return (int)err;
-    if ((err = allow_smem(pass_b, smem_b)) != cudaSuccess) return (int)err;
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    const float* bf = static_cast<const float*>(bias);
-    pass_a<<<grid_a, kThreads, smem_a, s>>>(
-        qf, kf, vf, bf, gate_f, static_cast<const float*>(out), static_cast<const float*>(dout),
-        lse_f, delta_f, static_cast<float*>(dq), dgate_f, dbias_f, b, h, t, d, scale, dr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    pass_b<<<grid_b, kThreads, smem_b, s>>>(
-        qf, kf, vf, bf, gate_f, static_cast<const float*>(dout), lse_f, delta_f,
+    const size_t smem = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
+                                         2 * (size_t)kBlockK * (kBlockQ + 1) + 3 * kBlockQ);
+    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return (int)err;
+    pass_b<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(bias), gate_f, static_cast<const float*>(dout), lse_f, delta_f,
         static_cast<float*>(dk), static_cast<float*>(dv), h, t, d, scale, dr);
   }
   return (int)cudaGetLastError();

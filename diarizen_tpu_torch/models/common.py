@@ -39,6 +39,17 @@ def group_norm(norm: nn.Module, x: torch.Tensor, num_groups: int, eps: float = 1
     return y.to(x.dtype)
 
 
+def channel_norm_last(norm: nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """`group_norm` with one group per channel on channels-last (B, T, C):
+    float32 statistics per (batch, channel) over time, variance as
+    E[x^2] - E[x]^2, the same arithmetic in another layout."""
+    xf = x.float()
+    mean = xf.mean(dim=1, keepdim=True)
+    var = (xf * xf).mean(dim=1, keepdim=True) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var.clamp_min(0.0) + eps)
+    return (y * norm.weight.float() + norm.bias.float()).to(x.dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)

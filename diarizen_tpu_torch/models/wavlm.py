@@ -12,7 +12,8 @@ the weighted-sum update of each layer through kernels K3 and K4
 (`ops/fused_ln.py`). With `set_conv_chain(True)` the inference forward of an
 extractor whose layers 1-6 are the unpruned 512-channel stack without norms
 (WavLM-Base) runs those six convolutions and GELUs through kernel K5
-(`ops/conv_chain.py`).
+(`ops/conv_chain.py`), with layer 0 computed straight into the channels-last
+layout K5 takes.
 
 Train mode follows the JAX package's `wavlm_extract_features(train=True)`:
 GradMultiply 0.1 on the extractor output; dropout after the projection,
@@ -36,6 +37,7 @@ from torch import nn
 
 from diarizen_tpu_torch.models.common import (
     TrainRandom,
+    channel_norm_last,
     dropout,
     gelu,
     grad_multiply,
@@ -485,13 +487,13 @@ class WavLM(nn.Module):
     def _feature_extractor(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 1, num_samples) -> (B, F, C): conv stack, norm, GELU."""
         fe = self.feature_extractor
-        for i, block in enumerate(fe.conv_layers):
-            if i == 1 and self._conv_chain_applies(train):
-                # layers 1-6 in one launch of K5, which takes and gives channels last
-                x = fused_conv_chain(x.transpose(1, 2).contiguous(),
-                                     self._conv_chain_weights(x.dtype, x.device),
-                                     num_output_frames(x.shape[-1]))
-                return x * fe.dummy_weight.to(x.dtype)
+        if self._conv_chain_applies(train):
+            # layers 1-6 through K5, which takes and gives channels last
+            x = self._layer0_channels_last(x)
+            x = fused_conv_chain(x, self._conv_chain_weights(x.dtype, x.device),
+                                 num_output_frames(x.shape[1]))
+            return x * fe.dummy_weight.to(x.dtype)
+        for block in fe.conv_layers:
             conv = block.conv
             bias = None if conv.bias is None else conv.bias.to(x.dtype)
             x = F.conv1d(x, conv.weight.to(x.dtype), bias, stride=block.stride)
@@ -501,6 +503,17 @@ class WavLM(nn.Module):
                 x = layer_norm(block.layer_norm, x.transpose(1, 2)).transpose(1, 2)
             x = gelu(x)
         return x.transpose(1, 2) * fe.dummy_weight.to(x.dtype)
+
+    def _layer0_channels_last(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1, num_samples) -> layer 0's output (B, T0, C) in channels-last
+        layout, no copy of a layout in between: the convolution (no bias) as a
+        strided view of the waveform's windows times a (k, C) matrix, then the
+        per-channel GroupNorm over time and the GELU."""
+        block = self.feature_extractor.conv_layers[0]
+        weight = block.conv.weight.to(x.dtype)  # (C, 1, k)
+        windows = x[:, 0].unfold(-1, weight.shape[-1], block.stride)  # (B, T0, k)
+        y = torch.matmul(windows, weight[:, 0].t())
+        return gelu(channel_norm_last(block.layer_norm, y))
 
     def _conv_chain_applies(self, train: bool) -> bool:
         """K5's route: the toggle is on, inference, and layers 1-6 are the

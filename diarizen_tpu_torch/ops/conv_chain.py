@@ -1,4 +1,4 @@
-"""The WavLM extractor's conv layers 1-6 in one launch: kernel K5 (port of
+"""The WavLM extractor's conv layers 1-6: kernel K5 (port of
 diarizen_tpu/ops/conv_chain.py).
 
 For x1 (B, T1, 512), channels last, in float32 or bfloat16, and six weights
@@ -12,18 +12,22 @@ whose layers 1-6 have no norm (`extractor_mode="group_norm"`: WavLM-Base);
 layer 0 (k = 10, stride 5, GroupNorm, GELU) stays outside.
 
 K5 replaces the Pallas TPU kernel `diarizen_tpu/ops/conv_chain.py:_kernel`
-with the hand-written CUDA kernel of `csrc/conv_chain.cu` for CUDA tensors
+with the hand-written CUDA kernels of `csrc/conv_chain.cu` for CUDA tensors
 (the source note has the design and the bound); CPU tensors take the plain
-PyTorch version below. There is no gradient, as the TPU kernel has none.
+PyTorch version below. In bfloat16 each stage is one implicit GEMM on the
+tensor cores (six CUDA launches a call, the intermediates in scratch that
+the wrapper allocates); in float32 the six stages run in one launch on the
+CUDA cores. There is no gradient, as the TPU kernel has none.
 
-`launches` counts K5's launches.
+`launches` counts calls that ran K5 (one per call, whatever
+`CUDA_LAUNCHES` says the call launched on the card).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -37,7 +41,9 @@ KERNELS = (3, 3, 3, 3, 2, 2)
 STRIDE_TOTAL = 64  # product of the six strides
 RECEPTIVE_FIELD = 79  # input frames under one output frame
 
-launches = 0  # K5 launches since the caller last set it to 0
+CUDA_LAUNCHES = {torch.bfloat16: 6, torch.float32: 1}  # CUDA launches of one call
+
+launches = 0  # K5 calls on the card since the caller last set it to 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -54,8 +60,10 @@ def _library() -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(str(LIBRARY))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.conv_chain_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        lib.conv_chain_fwd.restype = ctypes.c_int
+        lib.conv_chain_stage_bf16.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.conv_chain_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        for fn in (lib.conv_chain_stage_bf16, lib.conv_chain_f32):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -73,6 +81,24 @@ def num_output_frames(t1: int) -> int:
     return n
 
 
+def stage_frames(t_out: int) -> Tuple[int, ...]:
+    """Frames of each stage's output that `t_out` output frames need: stage
+    s computes frames 0 .. T_s - 1 and reads frames 0 .. 2 (T_s - 1) + k - 1
+    of its input."""
+    frames = [t_out]
+    for k in reversed(KERNELS[1:]):
+        frames.append(2 * (frames[-1] - 1) + k)
+    return tuple(reversed(frames))
+
+
+def gemm_weight(w: torch.Tensor) -> torch.Tensor:
+    """(k, 512 in, 512 out) -> the (512 out, k 512) K-major matrix of one
+    bfloat16 stage: column tap * 512 + in, the order of the taps' frames in
+    a row of the stage's A operand."""
+    k = w.shape[0]
+    return w.permute(2, 0, 1).reshape(C, k * C)
+
+
 def conv_chain_plain(x1: torch.Tensor, weights: Sequence[torch.Tensor],
                      t_out: int) -> torch.Tensor:
     """Plain PyTorch version of K5: six `conv1d` + GELU (float32 math, each
@@ -84,25 +110,12 @@ def conv_chain_plain(x1: torch.Tensor, weights: Sequence[torch.Tensor],
     return x.transpose(1, 2)[:, :t_out].contiguous()
 
 
-def _pack_bf16(w: torch.Tensor) -> torch.Tensor:
-    """(k, 512 in, 512 out) -> the kernel's B-fragment order
-    [tap][in / 32][warp 8][n-tile 8][lane 32][8]: lane 4 g + c of n-tile j of
-    warp v holds out channel 64 v + 8 j + g and in channels 32 (in / 32) +
-    {2c, 2c+1, 2c+8, 2c+9, 2c+16, 2c+17, 2c+24, 2c+25}."""
-    k = w.shape[0]
-    c = torch.arange(4, device=w.device)[:, None]
-    offsets = torch.tensor([0, 1, 8, 9, 16, 17, 24, 25], device=w.device)[None, :]
-    k_in = (2 * c + offsets).reshape(-1)  # (4 c x 8 e,)
-    wr = w.reshape(k, 16, 32, 8, 8, 8)  # tap, in / 32, in % 32, warp, n-tile, g
-    wr = wr[:, :, k_in].reshape(k, 16, 4, 8, 8, 8, 8)  # tap, kp, c, e, warp, j, g
-    return wr.permute(0, 1, 4, 5, 6, 2, 3).contiguous().reshape(-1)
-
-
 @dataclasses.dataclass(frozen=True)
 class ConvChainWeights:
     """The six weights in one type on one device, ready for `fused_conv_chain`:
-    `taps` are the (k, in, out) tensors, `flat` the kernel's buffer (CUDA
-    only): the stages back to back, bfloat16 in B-fragment order."""
+    `taps` are the (k, in, out) tensors, `flat` the kernels' buffer (CUDA
+    only): the stages back to back, bfloat16 as `gemm_weight` matrices,
+    float32 as (k, in, out)."""
 
     taps: List[torch.Tensor]
     flat: Optional[torch.Tensor]
@@ -139,7 +152,7 @@ def pack_weights(weights: Sequence[torch.Tensor], dtype: torch.dtype,
     taps = [w.detach().to(device=device, dtype=dtype).contiguous() for w in weights]
     flat = None
     if device.type == "cuda":
-        parts = [_pack_bf16(w) if dtype == torch.bfloat16 else w.reshape(-1) for w in taps]
+        parts = [(gemm_weight(w) if dtype == torch.bfloat16 else w).reshape(-1) for w in taps]
         flat = torch.cat(parts)
     return ConvChainWeights(taps, flat)
 
@@ -183,17 +196,37 @@ def fused_conv_chain(x1: torch.Tensor,
     out = torch.empty((b, t_out, C), dtype=x1.dtype, device=x1.device)
     if b == 0:
         return out
-    # one block per (batch element, span of output frames): about one block
-    # per multiprocessor, each walking along time
-    sms = torch.cuda.get_device_properties(x1.device).multi_processor_count
-    span = -(-t_out // max(1, sms // b))
     lib = _library()
     with torch.cuda.device(x1.device):
-        rc = lib.conv_chain_fwd(
-            x1.data_ptr(), weights.flat.data_ptr(), out.data_ptr(), b, t1, t_out, span,
-            int(x1.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x1.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"conv_chain_fwd launch failed: CUDA error {rc}")
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        if x1.dtype == torch.bfloat16:
+            _chain_bf16(lib, x1, weights.flat, out, stream)
+        else:
+            # one block per (batch element, span of output frames): about one
+            # block per multiprocessor, each walking along time
+            sms = torch.cuda.get_device_properties(x1.device).multi_processor_count
+            span = -(-t_out // max(1, sms // b))
+            rc = lib.conv_chain_f32(x1.data_ptr(), weights.flat.data_ptr(), out.data_ptr(), b,
+                                    t1, t_out, span, stream)
+            if rc != 0:
+                raise RuntimeError(f"conv_chain_f32 launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def _chain_bf16(lib, x1: torch.Tensor, flat: torch.Tensor, out: torch.Tensor,
+                stream: int) -> None:
+    """The six stage GEMMs, levels 1-5 in two scratch buffers used in turn."""
+    b, t1, _ = x1.shape
+    frames = stage_frames(out.shape[1])
+    scratch = [torch.empty(b * frames[i] * C, dtype=x1.dtype, device=x1.device) for i in (0, 1)]
+    src, t_in, w_ptr = x1, t1, flat.data_ptr()
+    for s, (k, t_s) in enumerate(zip(KERNELS, frames)):
+        dst = out if s == len(KERNELS) - 1 else scratch[s % 2][: b * t_s * C].view(b, t_s, C)
+        rc = lib.conv_chain_stage_bf16(src.data_ptr(), w_ptr, dst.data_ptr(), b, t_in, t_s, k,
+                                       stream)
+        if rc != 0:
+            raise RuntimeError(f"conv_chain_stage_bf16 launch failed at stage {s + 1}: {rc} "
+                               "(a CUDA error; -1: no cuTensorMapEncodeTiled in the driver; "
+                               "-1000 - r: the driver refused a tensor map with error r)")
+        src, t_in, w_ptr = dst, t_s, w_ptr + 2 * k * C * C

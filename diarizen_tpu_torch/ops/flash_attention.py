@@ -24,17 +24,20 @@ use and bound through ctypes (a plain C interface, so the build takes
 seconds). The counters count kernel launches, so a run can show that a path
 went through the kernels: `launches` the inference instance of K1,
 `train_launches` its training instance (dropout, log-sum-exp output),
-`bwd_launches` K2 (one count per backward, which runs its two passes).
+`bwd_launches` K2 (one count per backward, which runs pass A, the sum of
+its partial d pos_bias slices, and pass B). `pass_a_chunks` is the plan
+that splits K2's pass A across the batch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, library_path
 
@@ -65,9 +68,13 @@ def _library() -> ctypes.CDLL:
         dropout = [u32, u32, ctypes.c_float]
         lib.gated_bias_attention_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.gated_bias_attention_fwd_train.argtypes = [ptr] * 7 + [i32] * 5 + dropout + [ptr]
-        lib.gated_bias_attention_bwd.argtypes = [ptr] * 14 + [i32] * 5 + dropout + [ptr]
+        lib.gated_bias_attention_bwd_a.argtypes = ([ptr] * 4 + [i32] + [ptr] * 9 + [i32] * 7
+                                                   + dropout + [ptr])
+        lib.gated_bias_attention_bwd_b.argtypes = [ptr] * 10 + [i32] * 5 + dropout + [ptr]
+        lib.gated_bias_attention_bwd_a_blocks_per_sm.argtypes = [i32, i32]
         for fn in (lib.gated_bias_attention_fwd, lib.gated_bias_attention_fwd_train,
-                   lib.gated_bias_attention_bwd):
+                   lib.gated_bias_attention_bwd_a, lib.gated_bias_attention_bwd_b,
+                   lib.gated_bias_attention_bwd_a_blocks_per_sm):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -226,29 +233,106 @@ def _forward_train(q, k, v, pos_bias, gate, rate: float, seed: int):
     return out, lse
 
 
+BLOCK_Q = 64  # query rows per block of K2's pass A
+MAX_CHUNKS = 8  # each chunk of pass A holds an (H, T, T) float32 slice in scratch
+
+
+def pass_a_chunks(batch: int, heads: int, t: int, sms: int, per_sm: int) -> int:
+    """S, the number of batch chunks of K2's pass A, whose grid is (heads,
+    ceil(t / 64), S) blocks on `sms` multiprocessors that hold `per_sm`
+    blocks each at once. At least the fewest chunks that fill two waves of
+    the multiprocessors (at most one chunk per batch element); among those,
+    the S up to `MAX_CHUNKS` whose rounds of resident blocks times the batch
+    elements of its largest chunk (the blocks' walk, in batch elements) is
+    least, and the fewest chunks among equals, since each chunk adds a slice
+    to the scratch and the sum."""
+    blocks = heads * -(-t // BLOCK_Q)
+    slots = sms * per_sm
+    fewest = max(1, min(batch, -(-2 * sms // blocks)))
+    most = max(fewest, min(batch, MAX_CHUNKS))
+
+    def walk(s: int) -> int:
+        return -(-blocks * s // slots) * -(-batch // s)
+
+    return min(range(fewest, most + 1), key=lambda s: (walk(s), s))
+
+
+def chunk_bounds(batch: int, chunks: int) -> List[Tuple[int, int]]:
+    """[(b0, b1)] of each chunk, in the order the sum adds them: chunk z holds
+    batch elements z batch // chunks .. (z + 1) batch // chunks - 1, as the
+    kernel computes them."""
+    return [(z * batch // chunks, (z + 1) * batch // chunks) for z in range(chunks)]
+
+
+_blocks_per_sm = {}  # (device, type, head dim) -> pass A blocks one multiprocessor holds
+
+
+def _pass_a_plan(q: torch.Tensor) -> int:
+    """`pass_a_chunks` for q (B, H, T, D) on its card."""
+    b, h, t, d = q.shape
+    key = (q.device, q.dtype, d)
+    if key not in _blocks_per_sm:
+        with torch.cuda.device(q.device):
+            per_sm = _library().gated_bias_attention_bwd_a_blocks_per_sm(
+                d, int(q.dtype == torch.bfloat16))
+        if per_sm <= 0:
+            raise RuntimeError(f"K2 pass A occupancy query failed: CUDA error {-per_sm}")
+        _blocks_per_sm[key] = per_sm
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return pass_a_chunks(b, h, t, sms, _blocks_per_sm[key])
+
+
+def _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
+    """K2's pass A and the sum of its partial slices: (dq, f32 dpos_bias,
+    f32 dgate, f32 D (B, H, T) for pass B)."""
+    threshold, keep = dropout_constants(rate)
+    b, h, t, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dgate, delta = torch.empty((b, h, t), **f32), torch.empty((b, h, t), **f32)
+    dbias = torch.empty((h, t, t), **f32)
+    chunks = _pass_a_plan(q)
+    ldb = -(-t // 4) * 4  # rows of the partial slices start on 16-byte boundaries
+    part = torch.empty((chunks, h, t, ldb), **f32)
+    ldbias = -(-t // 8) * 8  # bias rows padded with zeros: bf16 tiles load in 16 bytes
+    padded = F.pad(pos_bias, (0, ldbias - t))
+    rc = _library().gated_bias_attention_bwd_a(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), padded.data_ptr(), ldbias, gate.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dgate.data_ptr(), part.data_ptr(), dbias.data_ptr(), b, h, t, d,
+        int(q.dtype == torch.bfloat16), chunks, ldb, int(seed) & _U32, threshold, keep,
+        _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"gated_bias_attention_bwd_a launch failed: CUDA error {rc}")
+    return dq, dbias, dgate, delta
+
+
+def _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate: float, seed: int):
+    """K2's pass B: (dk, dv) in q's type."""
+    threshold, keep = dropout_constants(rate)
+    b, h, t, d = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    rc = _library().gated_bias_attention_bwd_b(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        t, d, int(q.dtype == torch.bfloat16), int(seed) & _U32, threshold, keep, _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"gated_bias_attention_bwd_b launch failed: CUDA error {rc}")
+    return dk, dv
+
+
 def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
     """K2: (dq, dk, dv in q's type, f32 dpos_bias (H, T, T), f32 dgate)."""
     global bwd_launches
     _check_cuda(q, k, v, pos_bias, gate, out, dout)
-    threshold, keep = dropout_constants(rate)
     b, h, t, d = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dgate = torch.empty((b, h, t), **f32)
-    dbias = torch.empty((h, t, t), **f32)
-    delta = torch.empty((b, h, t), **f32)
     if q.numel() == 0:
-        return dq, dk, dv, dbias.zero_(), dgate
-    lib = _library()
+        f32 = dict(dtype=torch.float32, device=q.device)
+        return (torch.empty_like(q), torch.empty_like(q), torch.empty_like(q),
+                torch.zeros((h, t, t), **f32), torch.empty((b, h, t), **f32))
     with torch.cuda.device(q.device):
-        rc = lib.gated_bias_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgate.data_ptr(), dbias.data_ptr(),
-            b, h, t, d, int(q.dtype == torch.bfloat16), int(seed) & _U32, threshold, keep,
-            _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"gated_bias_attention_bwd launch failed: CUDA error {rc}")
+        dq, dbias, dgate, delta = _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate, seed)
+        dk, dv = _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate, seed)
     bwd_launches += 1
     return dq, dk, dv, dbias, dgate
 

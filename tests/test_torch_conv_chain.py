@@ -76,20 +76,62 @@ def test_packed_weights_and_bfloat16():
     assert float((c.float() - a).abs().max()) <= 2e-2 * max(1.0, float(a.abs().max()))
 
 
-def test_bfloat16_fragment_packing():
-    """The B-fragment order the kernel reads: element [tap][in / 32][warp]
-    [n-tile][lane][e] is w[tap, 32 (in / 32) + offset(lane % 4, e), 64 warp +
-    8 n-tile + lane / 4]."""
+def test_bfloat16_gemm_packing():
+    """The (512 out, k 512) K-major matrix a bfloat16 stage's GEMM reads:
+    element [out, tap * 512 + in] is w[tap, in, out]; the packed buffer holds
+    the six stages back to back."""
     rng = np.random.default_rng(2)
     w = torch.from_numpy(rng.standard_normal((3, k5.C, k5.C)).astype(np.float32))
-    packed = k5._pack_bf16(w).reshape(3, 16, 8, 8, 32, 8)
-    offsets = [0, 1, 8, 9, 16, 17, 24, 25]
+    packed = k5.gemm_weight(w)
+    assert packed.shape == (k5.C, 3 * k5.C)
     for _ in range(64):
-        tap, kp, warp, j, lane, e = (int(rng.integers(n)) for n in (3, 16, 8, 8, 32, 8))
-        k_in = 32 * kp + 2 * (lane % 4) + offsets[e]
-        assert packed[tap, kp, warp, j, lane, e] == w[tap, k_in, 64 * warp + 8 * j + lane // 4]
+        tap, i, o = (int(rng.integers(n)) for n in (3, k5.C, k5.C))
+        assert packed[o, tap * k5.C + i] == w[tap, i, o]
     assert k5.num_output_frames(k5.min_input_frames(7)) == 7
     assert k5.num_output_frames(k5.min_input_frames(7) - 1) == 6
+    assert sum(k5.KERNELS) * k5.C * k5.C == 16 * k5.C * k5.C  # the flat buffer's length
+    assert k5.CUDA_LAUNCHES == {torch.bfloat16: 6, torch.float32: 1}
+
+
+@pytest.mark.parametrize("t_out", [1, 7, 65])
+def test_stage_frames_are_what_the_next_stage_reads(t_out):
+    frames = k5.stage_frames(t_out)
+    assert len(frames) == 6 and frames[-1] == t_out
+    for s in range(5):  # stage s + 1 reads frames 0 .. 2 (T - 1) + k - 1 of stage s's output
+        assert 2 * (frames[s + 1] - 1) + k5.KERNELS[s + 1] == frames[s]
+    assert 2 * (frames[0] - 1) + k5.KERNELS[0] == k5.min_input_frames(t_out)
+
+
+def _implicit_gemm_chain(x1, weights, t_out):
+    """The bfloat16 kernel's formulation in torch: per stage, row t of the A
+    operand is the strided view of input frames 2 t .. 2 t + k - 1 (no
+    copy), times the stage's packed matrix, GELU in float32, rounded."""
+    x = x1
+    for k, w, t_s in zip(k5.KERNELS, weights, k5.stage_frames(t_out)):
+        b, t_in, c = x.shape
+        rows = x.contiguous().as_strided((b, t_s, k * c), (t_in * c, 2 * c, 1))
+        y = torch.matmul(rows.float(), k5.gemm_weight(w).float().t())
+        x = torch.nn.functional.gelu(y).to(x1.dtype)
+    return x
+
+
+@pytest.mark.parametrize("b,t_out,extra", [(1, 1, 0), (2, 5, 1), (1, 9, 37), (3, 3, 64)],
+                         ids=["one-frame", "odd-extra", "ragged", "longer-input"])
+def test_implicit_gemm_matches_plain_and_xla_conv_chain(b, t_out, extra):
+    x1, weights = _inputs(b, t_out, extra, seed=6)
+    tw = [torch.from_numpy(w) for w in weights]
+    got = _implicit_gemm_chain(torch.from_numpy(x1), tw, t_out)
+    plain = k5.conv_chain_plain(torch.from_numpy(x1), tw, t_out)
+    expected = np.asarray(xla_conv_chain(jnp.asarray(x1), [jnp.asarray(w) for w in weights], t_out))
+    assert got.shape == plain.shape == (b, t_out, k5.C)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), expected, **TOL)
+    # bfloat16: each stage rounded, as the plain version rounds it
+    x16 = torch.from_numpy(x1).bfloat16()
+    w16 = [w.bfloat16() for w in tw]
+    got16 = _implicit_gemm_chain(x16, w16, t_out).float()
+    plain16 = k5.conv_chain_plain(x16, w16, t_out).float()
+    assert float((got16 - plain16).abs().max()) <= 2e-2 * float(plain16.abs().max())
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

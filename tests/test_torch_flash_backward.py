@@ -22,11 +22,14 @@ from diarizen_tpu.ops.flash_attention import (
     flash_attention_gated_bias_trainable as jax_trainable,
 )
 from diarizen_tpu_torch.ops.flash_attention import (
+    MAX_CHUNKS,
+    chunk_bounds,
     dropout_constants,
     dropout_mask,
     flash_attention_gated_bias,
     flash_attention_gated_bias_reference,
     flash_attention_gated_bias_trainable,
+    pass_a_chunks,
 )
 
 
@@ -90,3 +93,57 @@ def test_cpu_wrappers_take_the_plain_version():
         flash_attention_gated_bias_trainable(q, k, v, pos, gate, 0.1)
     with pytest.raises(ValueError, match="rate"):
         dropout_constants(1.0)
+
+
+@pytest.mark.parametrize("b,h,t,sms,per_sm", [(16, 12, 399, 132, 2), (1, 12, 399, 132, 2),
+                                              (5, 12, 399, 132, 2), (13, 12, 399, 132, 2),
+                                              (2, 3, 37, 132, 2), (64, 12, 799, 132, 2),
+                                              (16, 12, 399, 132, 1), (7, 1, 64, 8, 3)])
+def test_pass_a_plan_puts_each_batch_element_in_one_chunk(b, h, t, sms, per_sm):
+    """K2's pass A splits the batch into S chunks of consecutive elements: each
+    element in exactly one chunk, no chunk empty, S <= B; the grid of
+    (heads, ceil(t / 64), S) blocks fills two waves where the batch allows,
+    and no S the plan may take walks fewer batch elements per block slot."""
+    s = pass_a_chunks(b, h, t, sms, per_sm)
+    bounds = chunk_bounds(b, s)
+    assert 1 <= s <= b and len(bounds) == s
+    assert bounds[0][0] == 0 and bounds[-1][1] == b
+    assert all(b0 < b1 for b0, b1 in bounds)
+    assert all(bounds[z][1] == bounds[z + 1][0] for z in range(s - 1))
+    blocks = h * -(-t // 64)
+    assert blocks * s >= 2 * sms or s == b
+    fewest = min(b, -(-2 * sms // blocks))
+    assert s <= max(fewest, MAX_CHUNKS)
+
+    def walk(n):  # rounds of resident blocks x batch elements of the largest chunk
+        return -(-blocks * n // (sms * per_sm)) * max(b1 - b0 for b0, b1 in chunk_bounds(b, n))
+
+    assert all(walk(s) < walk(n) or (walk(s) == walk(n) and s <= n)
+               for n in range(fewest, min(b, max(fewest, MAX_CHUNKS)) + 1))
+    if (b, h, t, sms, per_sm) == (16, 12, 399, 132, 2):  # WavLM-Base training on an H100
+        assert s == 6 and blocks * s == 504 and walk(s) == 6 and walk(4) == 8
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_chunked_dbias_partials_sum_to_the_autograd_dbias(rate):
+    """d pos_bias summed per chunk of the plan (each chunk's batch elements
+    alone: the cotangent zeroed elsewhere) and then over the chunks in plan
+    order equals the plain version's autograd d pos_bias over the batch."""
+    b, h, t = 5, 2, 21
+    inputs, do = _arrays(b, h, t, 8, seed=5)
+    chunks = chunk_bounds(b, pass_a_chunks(b, h, t, sms=2, per_sm=2))
+    assert len(chunks) == 2 and chunks == [(0, 2), (2, 5)]
+
+    def dbias(cotangent):
+        leaves = [torch.from_numpy(a).double().requires_grad_() for a in inputs]
+        out = flash_attention_gated_bias_reference(*leaves, dropout_rate=rate, seed=11)
+        out.backward(torch.from_numpy(cotangent))
+        return leaves[3].grad
+
+    total = dbias(do)
+    summed = torch.zeros_like(total)
+    for b0, b1 in chunks:
+        part = np.zeros_like(do)
+        part[b0:b1] = do[b0:b1]
+        summed = summed + dbias(part)
+    torch.testing.assert_close(summed, total, rtol=1e-5, atol=1e-6)
