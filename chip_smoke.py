@@ -9,7 +9,10 @@ Phases (any failure exits non-zero, before the last line is printed):
      three sources side by side;
   3. K1 against its plain PyTorch version on the card at the serving path's
      shapes, with CUDA-event timings of the kernel, the plain version and
-     one PyTorch call computing the same function (yardstick only);
+     one PyTorch call computing the same function (yardstick only): the 10
+     launches of one Base-s80-md batch, and one launch at the unpruned
+     `base` model's shape (B 32, H 12), each beside its bound; the bf16
+     kernel's shared memory and blocks per SM;
   4. K1's training instance (attention dropout) and K2 (the backward)
      against the plain version and its autograd, output and all five
      gradients, in float32 and bfloat16, at T in {37, 399, 799} and at
@@ -236,24 +239,42 @@ def phase_kernel(heads_per_layer) -> dict:
             if dtype == torch.bfloat16 and t == FRAMES:
                 slice_err = max(slice_err, err)
 
-    # timings at the slice's shapes: the 10 attention layers of one batch
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    by_bytes = by_flops = 0.0
-    for h in heads_per_layer:
+    blocks, smem = k1.forward_occupancy(HEAD_DIM)
+    print(f"K1 bf16 kernel at D={HEAD_DIM}: {smem} bytes of dynamic shared memory a block, "
+          f"{blocks} blocks an SM")
+
+    def timed(h):
+        """One launch at (BATCH, h, FRAMES) in bf16: the kernel on the bias
+        layout WavLM hands it (a padded buffer's view), the plain version,
+        the library call, and the bound."""
         args = attention_inputs(BATCH, h, FRAMES, HEAD_DIM, torch.bfloat16, gen)
+        padded = (*args[:3], k1.padded_bias(args[3], torch.bfloat16), args[4])
         row = {
-            "ms": median_ms(lambda: k1.flash_attention_gated_bias(*args)),
+            "ms": median_ms(lambda: k1.flash_attention_gated_bias(*padded)),
             "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(*args)),
             "library_ms": median_ms(lambda: library_attention(*args)),
         }
         mem_s, op_s = attention_bound_s(BATCH, h, FRAMES, HEAD_DIM, 2)
-        by_bytes += mem_s
-        by_flops += op_s
         print(f"K1 bf16 B={BATCH} H={h} T={FRAMES}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
               f"bound {1e3 * max(mem_s, op_s):.4f} ms")
+        return row, mem_s, op_s
+
+    # timings at the slice's shapes: the 10 attention layers of one batch
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    by_bytes = by_flops = 0.0
+    for h in heads_per_layer:
+        row, mem_s, op_s = timed(h)
+        by_bytes += mem_s
+        by_flops += op_s
         for key in totals:
             totals[key] += row[key]
+    print(f"K1 bf16 one Base-s80-md batch ({len(heads_per_layer)} launches): kernel "
+          f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
+          f"{totals['library_ms']:.4f} ms, bound {1e3 * max(by_bytes, by_flops):.4f} ms")
+    # one launch at the unpruned base model's shape: every layer has 12 heads
+    base_row, mem_s, op_s = timed(12)
+    base_row["bound_ms"] = 1e3 * max(mem_s, op_s)
     return {
         "name": "gated_bias_attention",
         "route": "cuda",
@@ -266,6 +287,7 @@ def phase_kernel(heads_per_layer) -> dict:
         "bound_ms": 1e3 * max(by_bytes, by_flops),
         "bound_by": "bytes" if by_bytes >= by_flops else "operations",
         "library_ms": totals["library_ms"],
+        "base_launch": base_row,  # one launch at B 32, H 12 (the `base` model)
     }
 
 
@@ -356,7 +378,7 @@ def phase_trainable_kernels() -> list:
     # timings at WavLM-Base training shapes, bf16, rate 0.1
     (q, k, v, pos, gate), do = trainable_inputs(TRAIN_BATCH, TRAIN_HEADS, FRAMES,
                                                 torch.bfloat16, gen)
-    bias = pos.to(torch.bfloat16)
+    bias = k1.padded_bias(pos, torch.bfloat16)  # as the trainable function saves it
     mask = (gate[..., None] * pos).to(torch.bfloat16)
     args = (q, k, v, pos, gate, DROPOUT_RATE, DROPOUT_SEED)
     out, lse = k1._forward_train(q, k, v, bias, gate, DROPOUT_RATE, DROPOUT_SEED)
@@ -666,9 +688,10 @@ def phase_reference(eend_sd, resnet_sd, eend_cfg, wave) -> None:
 
 
 def phase_profile(what: str, run, top: int = 15) -> float:
-    """`run()` under torch.profiler: device time by kernel, and the share of
-    the run's span in which any kernel ran. Returns the milliseconds in
-    which any kernel ran."""
+    """`run()` under torch.profiler: device time by kernel (the `top`
+    kernels and every kernel of the port's), and the share of the run's
+    span in which any kernel ran. Returns the milliseconds in which any
+    kernel ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -689,8 +712,11 @@ def phase_profile(what: str, run, top: int = 15) -> float:
           f"{span / 1e3:.3f} ms span; device busy {100 * busy / span:.1f}% of the span")
     rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
                   key=lambda a: -a.self_device_time_total)
-    for a in rows[:top]:
-        print(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:100]}")
+    ours = ("gated_bias_attention", "attention_bwd", "dbias_sum", "residual_layer_norm",
+            "conv_stage", "conv_chain")
+    for i, a in enumerate(rows):  # the top rows, and the port's own kernels wherever they rank
+        if i < top or any(name in a.key for name in ours):
+            print(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:100]}")
     return busy / 1e3
 
 

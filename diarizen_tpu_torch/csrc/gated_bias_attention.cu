@@ -8,10 +8,11 @@
 // rate 0), a pure hash of (seed, b, h, i, j) that the backward replays.
 //
 // K1 replaces the Pallas TPU kernel diarizen_tpu/ops/flash_attention.py:_kernel
-// (launched by flash_attention_gated_bias), with the "deferred" softmax
-// schedule: unnormalised p @ v accumulated in f32 and one divide by the f32
-// row sum at the end; p is rounded to the input type before the p @ v
-// product, as the TPU kernel rounds it to v's type. It has two instances:
+// (l.201, pallas_call l.302; launched by flash_attention_gated_bias), with
+// the "deferred" softmax schedule: unnormalised p @ v accumulated in f32 and
+// one divide by the f32 row sum at the end; p is rounded to the input type
+// before the p @ v product, as the TPU kernel rounds it to v's type. It has
+// two instances:
 //  * inference (kTrain = false): rate 0, no side output;
 //  * training (kTrain = true): applies the dropout mask to p after the row
 //    sum (the sum is taken before the mask, as in the TPU kernel) and writes
@@ -56,18 +57,54 @@
 // bf16): K1 moves about 44 MB (q, k, v, o, bias, gate, lse) against 7.8
 // GFLOP, K2 about 91 MB (q, k, v, o, dO read, dq, dk, dv written, the bias
 // read, dbias written in f32) against 19.6 GFLOP of the five products it
-// needs; at 3.35 TB/s and 989 TFLOP/s both are bound by bytes. The split
-// adds the S partial slices (4 x 7.6 MB written and read at that shape),
-// which stay in the 50 MB L2.
+// needs; at 3.35 TB/s and 989 TFLOP/s both are bound by bytes (K1: 13.0
+// us). K1's inference instance at the unpruned `base` model's shape (B 32,
+// H 12) moves 82.9 MB against 15.6 GFLOP: 24.7 us by bytes. The training
+// instance also has an issue-rate floor: about 30 instructions per score
+// (19 of them the dropout hash) over 30.6 M scores at 132 SMs x 4
+// schedulers x 32 lanes x 1.98 GHz is about 27 us, above its byte bound.
+// The split adds the S partial slices (4 x 7.6 MB written and read at that
+// shape), which stay in the 50 MB L2.
 //
-// Layout of both: 64-row tiles staged in shared memory, rows past T
-// zero-filled when a tile is staged, keys past T masked in the kernel.
-//  * bfloat16: four warps, 16 rows each; every product on the tensor cores
-//    with mma.sync m16n8k16 (f32 accumulate). An accumulator's register
-//    layout is the A-operand layout of the next product, so p, dS and W * m
-//    are rounded to bf16 in registers and never touch shared memory.
+// K1, bfloat16 (both instances; sm_90a):
+//  * A block owns 128 query rows of one (batch, head): two warpgroups of 64
+//    rows, 256 threads, two blocks an SM at D 64 (128 registers, 82 KB of
+//    shared memory each). Grid: ceil(T / 128) x B H. At T 399 that is 128
+//    blocks at (B 32, H 1), the smallest head count a served model launches
+//    (one block on each of 128 SMs, one partial wave); 1536 at (32, 12),
+//    the `base` model (5.8 rounds of the 264 resident blocks); 768 at the
+//    training shape (16, 12), 2.9 rounds. A warpgroup whose rows all lie
+//    past T (the last tile's second at T 399) leaves at once.
+//  * Q (staged once), the K and V tiles of 64 keys and the 128 x 64 bias
+//    tile arrive by TMA into a two-stage ring behind full / empty mbarriers,
+//    in the 128B-swizzled layout; tensor maps are 3-D per (b h) and per
+//    head, so a box never crosses into the next head and rows past T read as
+//    zeros. Thread 0 issues every load, a slot's refill as soon as the 8
+//    warps have released it. There is no producer warp: it would cost a
+//    warpgroup's worth of registers and the second block an SM (letting
+//    the last warp to release a slot refill it measured no faster). The
+//    bias is read with a row stride ldbias (a multiple of 8, 16-byte rows),
+//    so its tile is staged like the others and each lane reads bf16 pairs
+//    from shared memory, without bank conflicts through the swizzle.
+//  * Both products on wgmma m64n64k16 (f32 accumulate): s = q k^T with Q
+//    and K from shared memory (K-major); o += p v with p from registers (the
+//    accumulator rounded to bf16 in place, which is the A layout) and the V
+//    tile MN-major. The softmax runs in base 2 (ex2.approx), deferred: one
+//    f32 row sum, taken before the dropout mask, and one divide at the end.
+//  * The training instance computes the 32 keep bits of a lane's scores
+//    while that tile's q k^T runs on the tensor cores, so the hash is off
+//    the critical path; the bits select p * keep_scale or 0 after the sum.
+//
+// K2 and the float32 instance of K1: 64-row tiles staged in shared memory,
+// rows past T zero-filled when a tile is staged, keys past T masked in the
+// kernel.
+//  * bfloat16 (K2): four warps, 16 rows each; every product on the tensor
+//    cores with mma.sync m16n8k16 (f32 accumulate). An accumulator's
+//    register layout is the A-operand layout of the next product, so dS and
+//    W * m are rounded to bf16 in registers and never touch shared memory.
 //  * float32: 256 threads on the CUDA cores in f32, exact for f32 inputs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,9 +138,9 @@ __device__ __forceinline__ void dropout_streams(uint32_t seed, int b, int h,
   s2 = s1 * 0x9E3779B1u;
 }
 
-// keep value of (row, col): xorshift rounds on the absolute position
-__device__ __forceinline__ float dropout_keep(uint32_t s1, uint32_t s2, uint32_t r,
-                                              uint32_t c, const Dropout& dr) {
+// the hash of (row, col): xorshift rounds on the absolute position
+__device__ __forceinline__ uint32_t dropout_hash(uint32_t s1, uint32_t s2, uint32_t r,
+                                                 uint32_t c) {
   uint32_t x = ((r + s1) << 16) ^ (c + s2);
   x ^= x << 13;
   x ^= x >> 17;
@@ -112,7 +149,13 @@ __device__ __forceinline__ float dropout_keep(uint32_t s1, uint32_t s2, uint32_t
   x ^= x << 13;
   x ^= x >> 17;
   x ^= x << 5;
-  return x >= dr.threshold ? dr.keep_scale : 0.f;
+  return x;
+}
+
+// keep value of (row, col)
+__device__ __forceinline__ float dropout_keep(uint32_t s1, uint32_t s2, uint32_t r,
+                                              uint32_t c, const Dropout& dr) {
+  return dropout_hash(s1, s2, r, c) >= dr.threshold ? dr.keep_scale : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -250,142 +293,428 @@ __device__ __forceinline__ void mma_acc_by_tile(float (&out)[kDim / 8][4], const
   }
 }
 
-// Lane (g = lane / 4, c = lane % 4) of warp w owns query rows 16 w + g and
-// 16 w + g + 8, and in each 8-wide column tile the columns 2 c and 2 c + 1.
-template <int kDim, bool kTrain>  // head dim padded to a multiple of 16
-__global__ void __launch_bounds__(kWarps * 32)
-gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                 const __nv_bfloat16* __restrict__ k,
-                                 const __nv_bfloat16* __restrict__ v,
-                                 const __nv_bfloat16* __restrict__ bias,
+// ---------------------------------------------------------------------------
+// K1, bfloat16: TMA ring, wgmma (both products), one producer warp
+
+constexpr int kFwdWarpgroups = 2;                 // of 64 query rows each
+constexpr int kFwdRows = 64 * kFwdWarpgroups;     // query rows per block
+constexpr int kFwdStages = 2;                     // K, V and bias ring
+constexpr int kFwdThreads = 128 * kFwdWarpgroups;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// Wait for the phase of parity `parity` to complete, in one PTX loop (no
+// branch of the compiler's own in the code around the wgmma); threads where
+// `pred` is false pass at once. A phase that never completes (a TMA
+// transaction lost) traps after 2^24 tries instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity, bool pred = true) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\n"
+      "setp.eq.u32 p, %2, 0;\n"
+      "@p bra MBAR_DONE;\n"
+      "mov.u32 n, 0;\n"
+      "MBAR_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra MBAR_DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 16777216;\n"
+      "@p bra MBAR_WAIT;\n"
+      "trap;\n"
+      "MBAR_DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "r"((uint32_t)pred)
+      : "memory");
+}
+
+// The mbarrier operations below act only where `pred` holds, through a PTX
+// predicate.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(bytes), "r"((uint32_t)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %6, 0;\n"
+      "@p cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile in the 128B-swizzled layout TMA writes:
+// rows of 128 bytes, 8-row atoms 1024 bytes apart (SBO), base 1024-aligned.
+// One k16 step further along K is 32 bytes: +2 in the address field.
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// The same for an MN-major operand (the V tile: a 128-byte row per key, 64
+// columns of N): a k16 step is two 8-key atoms 1024 bytes apart. N is one
+// 64-column atom, so only that stride is read; LBO and SBO both hold it.
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* smem) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the instruction that issues or waits for it.
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 64 f32 of the warpgroup) (+)= A (64 x 16, shared memory) . B (16 x
+// 64, shared memory, K-major). Thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (d[4 j], d[4 j + 1]) and that + 8 (d[4 j + 2],
+// d[4 j + 3]), columns 8 j + 2 (t % 4) and + 1.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d = A . B as wgmma_ss with d not read: the first k16 step of a product.
+// The accumulator's old values are no operand, so the compiler keeps no
+// instruction that made them inside the wgmma pipeline.
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0u));
+}
+
+// d += A (64 x 16 bf16 in registers: the m16n8k16 A layout per warp) . B
+// (16 x 64, shared memory, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1u));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of the forward block, in bytes from a 1024-aligned base:
+// Q (kDim / 64 column halves of kFwdRows x 128 bytes), then per ring stage
+// K and V (kDim / 64 halves of 64 keys x 128 bytes each) and the bias tile
+// (kFwdRows x 64 keys), then the barriers. TMA writes every tile in the
+// 128B-swizzled layout.
+template <int kDim>
+struct FwdLayout {
+  static constexpr int kHalves = kDim / 64;
+  static constexpr uint32_t kQBytes = kFwdRows * kDim * 2;
+  static constexpr uint32_t kKVBytes = kBlockK * kDim * 2;
+  static constexpr uint32_t kBiasBytes = kFwdRows * kBlockK * 2;
+  static constexpr uint32_t kStageBytes = 2 * kKVBytes + kBiasBytes;
+  static constexpr uint32_t kBarriers = kQBytes + kFwdStages * kStageBytes;
+  static constexpr size_t kSmem = kBarriers + (2 * kFwdStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// s = q k^T of one key tile over the head dim, issued and committed, not
+// waited for
+template <int kDim>
+__device__ __forceinline__ void issue_scores(float (&s)[32], const uint64_t (&qd)[kDim / 64],
+                                             const unsigned char* k_tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int st = 0; st < kDim / 16; ++st) {
+    const uint64_t kd = sw128_desc(k_tile + (st / 4) * kBlockK * 128);
+    if (st == 0)
+      wgmma_ss_first(s, qd[0], kd);
+    else
+      wgmma_ss(s, qd[st / 4] + 2 * (st % 4), kd + 2 * (st % 4), 1u);
+  }
+  wgmma_commit();
+}
+
+// The dropout keep bits of this lane's 32 scores of a key tile (bit
+// 4 j + 2 i + e: accumulator entry 4 j + 2 i + e, row i, column
+// k0 + 8 j + 2 c + e).
+__device__ __forceinline__ uint32_t keep_bits(uint32_t s1, uint32_t s2, const int (&row)[2],
+                                              int k0, int c, uint32_t threshold) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t x = dropout_hash(s1, s2, row[i], k0 + 8 * j + 2 * c + e);
+        bits |= (x >= threshold ? 1u : 0u) << (4 * j + 2 * i + e);
+      }
+  return bits;
+}
+
+// The scores of one key tile to p: scale, gated bias from the staged tile,
+// the running max (corr: the factor of the old max against the new one),
+// the row sum before the dropout mask, p = 2^(x - m) rounded to bf16 in the
+// A layout of the p @ v product. Everything in base 2: x = s log2(e) /
+// sqrt(D) + gate log2(e) bias. kMask: the tile holds keys past t.
+template <bool kTrain, bool kMask>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const __nv_bfloat16* bias_row, int g, int c,
+                                             float c1, const float (&gt2)[2], int k0, int t,
+                                             uint32_t keep, float keep_scale) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // row r of the tile holds 16-byte chunk j at chunk j ^ (r % 8); r % 8 == g
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          bias_row + i * 8 * kBlockK + ((j ^ g) * 8) + 2 * c));
+      float x0 = fmaf(s[4 * j + 2 * i], c1, gt2[i] * b.x);
+      float x1 = fmaf(s[4 * j + 2 * i + 1], c1, gt2[i] * b.y);
+      if (kMask) {
+        const int col = k0 + 8 * j + 2 * c;
+        if (col >= t) x0 = kMasked;
+        if (col + 1 >= t) x1 = kMasked;
+      }
+      s[4 * j + 2 * i] = x0;
+      s[4 * j + 2 * i + 1] = x1;
+      tmax[i] = fmaxf(tmax[i], fmaxf(x0, x1));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the 4 lanes of a row group hold its 64 columns
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+    const float m_new = fmaxf(m[i], tmax[i]);  // finite: key 0 is valid
+    corr[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float p0 = ex2(s[4 * j + 2 * i] - m[i]);
+      float p1 = ex2(s[4 * j + 2 * i + 1] - m[i]);
+      l[i] += p0 + p1;
+      if (kTrain) {  // dropout after the row sum: bit 4 j + 2 i + e of `keep`
+        p0 = (keep >> (4 * j + 2 * i)) & 1u ? p0 * keep_scale : 0.f;
+        p1 = (keep >> (4 * j + 2 * i + 1)) & 1u ? p1 * keep_scale : 0.f;
+      }
+      s[4 * j + 2 * i] = p0;
+      s[4 * j + 2 * i + 1] = p1;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {  // keys 16 kk .. 16 kk + 15: accumulator tiles 2 kk, 2 kk + 1
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[4 * kk + e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+  }
+}
+
+// Block (query tile of kFwdRows rows, b * h + head): two warpgroups of 64
+// query rows. Lane (g = lane / 4, c = lane % 4) of warp w of warpgroup wg
+// owns rows q0 + 64 wg + 16 w + g and + 8, and in each 8-wide column tile the
+// columns 2 c and 2 c + 1.
+template <int kDim, bool kTrain>
+__global__ void __launch_bounds__(kFwdThreads, kDim == 64 ? 2 : 1)
+gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const __grid_constant__ CUtensorMap bias_map,
                                  const float* __restrict__ gate,
                                  __nv_bfloat16* __restrict__ out,
                                  float* __restrict__ lse,
                                  int num_heads, int t, int d, float scale, Dropout dr) {
-  constexpr int ld = kDim + 8;  // row stride: fragment loads hit 32 distinct banks
-  constexpr int kSteps = kDim / 16;
-  constexpr int kOut = kDim / 8;  // 8-wide output column tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockQ * ld;
-  __nv_bfloat16* vs = ks + kBlockK * ld;
+  using L = FwdLayout<kDim>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + L::kBarriers);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kFwdStages;
+  auto stage = [&](int slot) { return base + L::kQBytes + slot * L::kStageBytes; };
 
-  const int bh = blockIdx.x;  // b * num_heads + h
-  const int h = bh % num_heads;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
+  const int q0 = blockIdx.x * kFwdRows;
+  const int bh = blockIdx.y, h = bh % num_heads;
+  const int tiles = (t + kBlockK - 1) / kBlockK;
+  const int active = min(kFwdWarpgroups, (t - q0 + 63) / 64);  // warpgroups with rows < t
+  const int wg = threadIdx.x / 128;
+  const bool producer = threadIdx.x == 0;
 
-  const size_t head = (size_t)bh * t * d;
-  const __nv_bfloat16* bias_h = bias + (size_t)h * t * t;
-  load_tile<kDim>(qs, q + head, q0, t, d);
-  __syncthreads();
-
-  const int rq = 16 * warp + g;  // this lane's first row within the tile
-  uint32_t qf[kSteps][4];
+  // the K, V and bias tiles of key tile j into its ring slot (thread 0)
+  auto load_tile = [&](int j) {
+    const int slot = j % kFwdStages;
+    unsigned char* st = stage(slot);
+    mbar_expect_tx(&full[slot], L::kStageBytes, producer);
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const __nv_bfloat16* base = qs + rq * ld + 16 * s + c2;
-    qf[s][0] = load_u32(base);
-    qf[s][1] = load_u32(base + 8 * ld);
-    qf[s][2] = load_u32(base + 8);
-    qf[s][3] = load_u32(base + 8 * ld + 8);
+    for (int hf = 0; hf < L::kHalves; ++hf) {
+      tma_load_3d(st + hf * kBlockK * 128, &k_map, &full[slot], 64 * hf, j * kBlockK, bh,
+                  producer);
+      tma_load_3d(st + L::kKVBytes + hf * kBlockK * 128, &v_map, &full[slot], 64 * hf,
+                  j * kBlockK, bh, producer);
+    }
+    tma_load_3d(st + 2 * L::kKVBytes, &bias_map, &full[slot], j * kBlockK, q0, h, producer);
+  };
+
+  if (producer) {
+    mbar_init(q_bar, 1);
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(&full[i], 1);            // thread 0's expect_tx; TMA completes the bytes
+      mbar_init(&empty[i], 4 * active);  // one arrive per warp that reads the slot
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int row[2] = {q0 + rq, q0 + rq + 8};
-  float gt[2], m[2], l[2];
+  __syncthreads();
+  if (wg >= active) return;  // no query row of this warpgroup is below t
+  mbar_expect_tx(q_bar, L::kQBytes, producer);
+#pragma unroll
+  for (int hf = 0; hf < L::kHalves; ++hf)
+    tma_load_3d(base + hf * kFwdRows * 128, &q_map, q_bar, 64 * hf, q0, bh, producer);
+  for (int j = 0; j < kFwdStages && j < tiles; ++j) load_tile(j);  // the ring starts empty
+
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int r_tile = 64 * wg + 16 * (threadIdx.x % 128 / 32) + g;  // first row within the block
+  const int row[2] = {q0 + r_tile, q0 + r_tile + 8};
+  const float c1 = scale * kLog2e;
+  float gt2[2], m[2], l[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    gt[i] = row[i] < t ? gate[(size_t)bh * t + row[i]] : 0.f;
+    gt2[i] = row[i] < t ? gate[(size_t)bh * t + row[i]] * kLog2e : 0.f;
     m[i] = -INFINITY;
     l[i] = 0.f;  // this lane's share of the row sum; lanes are summed at the end
   }
   uint32_t s1 = 0, s2 = 0;
   if (kTrain) dropout_streams(dr.seed, bh / num_heads, h, s1, s2);
-  float o[kOut][4];
+  uint64_t qd[L::kHalves];
+  float o[L::kHalves][32];
 #pragma unroll
-  for (int j = 0; j < kOut; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int hf = 0; hf < L::kHalves; ++hf) {
+    qd[hf] = sw128_desc(base + hf * kFwdRows * 128 + wg * 64 * 128);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hf][i] = 0.f;
+  }
+  float sc[32];
+  uint32_t p[16];
+  mbar_wait(q_bar, 0);
 
-  for (int k0 = 0; k0 < t; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's ks and vs are no longer read
-    load_tile<kDim>(ks, k + head, k0, t, d);
-    load_tile<kDim>(vs, v + head, k0, t, d);
-    __syncthreads();
-
-    // s = q k^T over 8 key tiles of 8: s[j][e], e < 2 on row 0, e >= 2 on row 1
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* base = ks + (8 * j + g) * ld + c2;
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st)
-        mma_bf16(s[j], qf[st], load_u32(base + 16 * st), load_u32(base + 16 * st + 8));
-    }
-
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const int col = k0 + 8 * j + c2 + (e & 1);
-        float x = kMasked;
-        if (col < t) {
-          x = s[j][e] * scale;
-          if (row[i] < t) x += gt[i] * __bfloat162float(bias_h[(size_t)row[i] * t + col]);
-        }
-        s[j][e] = x;
-        tile_max[i] = fmaxf(tile_max[i], x);
-      }
-    }
+  // Key tile j: q k^T is issued; while it runs on the tensor cores the
+  // training instance hashes the tile's keep bits. The softmax makes p, and
+  // p @ v is issued and waited for; then the slot goes back to the ring and
+  // thread 0 refills it with tile j + 2 once all warps have released it. (A p @ v left in flight into the
+  // next tile makes ptxas serialise every wgmma; issuing the next tile's
+  // q k^T before this tile's softmax measured slower.)
+  for (int j = 0; j < tiles; ++j) {
+    const int slot = j % kFwdStages;
+    unsigned char* st = stage(slot);
+    mbar_wait(&full[slot], (j / kFwdStages) & 1);
+    issue_scores<kDim>(sc, qd, st);
+    const int k0 = j * kBlockK;
+    const uint32_t keep = kTrain ? keep_bits(s1, s2, row, k0, c, dr.threshold) : 0u;
+    wgmma_wait<0>();
+    fence_regs(sc);
     float corr[2];
+    const __nv_bfloat16* bias_row =
+        reinterpret_cast<const __nv_bfloat16*>(st + 2 * L::kKVBytes) + r_tile * kBlockK;
+    if (k0 + kBlockK <= t)
+      softmax_tile<kTrain, false>(sc, p, m, l, corr, bias_row, g, c, c1, gt2, k0, t, keep,
+                                  dr.keep_scale);
+    else
+      softmax_tile<kTrain, true>(sc, p, m, l, corr, bias_row, g, c, c1, gt2, k0, t, keep,
+                                 dr.keep_scale);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // the 4 lanes of a row group hold its 64 columns
-      tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 1));
-      tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 2));
-      const float m_new = fmaxf(m[i], tile_max[i]);  // finite: key 0 is valid
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
+    for (int hf = 0; hf < L::kHalves; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hf][i] *= corr[(i / 2) % 2];
+    // p and the rescaled o are complete before the fence: the compiler may
+    // not sink their instructions into the wgmma pipeline
+    fence_regs(p);
+#pragma unroll
+    for (int hf = 0; hf < L::kHalves; ++hf) fence_regs(o[hf]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 keys per step
+#pragma unroll
+      for (int hf = 0; hf < L::kHalves; ++hf)
+        wgmma_rs(o[hf], p + 4 * kk,
+                 sw128_mn_desc(st + L::kKVBytes + hf * kBlockK * 128) + 128 * kk);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(p);
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-
-    // p = exp(s - m): the f32 values feed the row sum, bf16 ones the product
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // 16 keys per step of p @ v
-      uint32_t pa[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = 2 * kk + half;
-        float p0 = expf(s[j][0] - m[0]), p1 = expf(s[j][1] - m[0]);
-        float p2 = expf(s[j][2] - m[1]), p3 = expf(s[j][3] - m[1]);
-        l[0] += p0 + p1;
-        l[1] += p2 + p3;
-        if (kTrain) {  // dropout after the row sum
-          const uint32_t col = k0 + 8 * j + c2;
-          p0 *= dropout_keep(s1, s2, row[0], col, dr);
-          p1 *= dropout_keep(s1, s2, row[0], col + 1, dr);
-          p2 *= dropout_keep(s1, s2, row[1], col, dr);
-          p3 *= dropout_keep(s1, s2, row[1], col + 1, dr);
-        }
-        pa[2 * half] = pack_bf16(p0, p1);
-        pa[2 * half + 1] = pack_bf16(p2, p3);
-      }
-      const int key = 16 * kk + (lane / 8 % 2) * 8 + lane % 8;
-#pragma unroll
-      for (int j = 0; j < kOut; j += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vs + key * ld + 8 * (j + lane / 16));
-        mma_bf16(o[j], pa, vb[0], vb[1]);
-        mma_bf16(o[j + 1], pa, vb[2], vb[3]);
-      }
+    for (int hf = 0; hf < L::kHalves; ++hf) fence_regs(o[hf]);
+    __syncwarp();
+    mbar_arrive(&empty[slot], lane == 0);  // this warp no longer reads tile j
+    if (j + kFwdStages < tiles) {
+      mbar_wait(&empty[slot], (j / kFwdStages) & 1, producer);
+      load_tile(j + kFwdStages);
     }
   }
 
@@ -394,19 +723,22 @@ gated_bias_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  const size_t head = (size_t)bh * t * d;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= t) continue;
     const float inv = 1.f / l[i];
-    if (kTrain && c2 == 0) lse[(size_t)bh * t + row[i]] = m[i] + logf(l[i]);
+    if (kTrain && c == 0) lse[(size_t)bh * t + row[i]] = (m[i] + log2f(l[i])) * kLn2;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int col = 8 * j + c2;
-      if (col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(out + head + (size_t)row[i] * d + col) =
-            __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+    for (int hf = 0; hf < L::kHalves; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * hf + 8 * j + 2 * c;
+        if (col < d) {
+          *reinterpret_cast<__nv_bfloat162*>(out + head + (size_t)row[i] * d + col) =
+              __floats2bfloat162_rn(o[hf][4 * j + 2 * i] * inv, o[hf][4 * j + 2 * i + 1] * inv);
+        }
       }
-    }
   }
 }
 
@@ -607,7 +939,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
-                               const __nv_bfloat16* __restrict__ bias,
+                               const __nv_bfloat16* __restrict__ bias, int ldbias,
                                const float* __restrict__ gate,
                                const __nv_bfloat16* __restrict__ dout,
                                const float* __restrict__ lse,
@@ -638,7 +970,7 @@ attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int rk = 16 * warp + g;
   const int key[2] = {k0 + rk, k0 + rk + 8};
   const size_t head = (size_t)bh * t * d;
-  const __nv_bfloat16* bias_h = bias + (size_t)h * t * t;
+  const __nv_bfloat16* bias_h = bias + (size_t)h * t * ldbias;
 
   load_tile<kDim>(ks, k + head, k0, t, d);
   load_tile<kDim>(vs, v + head, k0, t, d);
@@ -662,7 +994,7 @@ attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = tid; i < kBlockQ * kBlockK; i += kWarps * 32) {
       const int qi = i / kBlockK, kj = i % kBlockK;
       const bool valid = q0 + qi < t && k0 + kj < t;
-      pt[qi * ldp + kj] = valid ? bias_h[(size_t)(q0 + qi) * t + k0 + kj] : __float2bfloat16(0.f);
+      pt[qi * ldp + kj] = valid ? bias_h[(size_t)(q0 + qi) * ldbias + k0 + kj] : __float2bfloat16(0.f);
     }
     if (tid < kBlockQ) {
       const bool valid = q0 + tid < t;
@@ -743,7 +1075,7 @@ template <int kCols, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ bias,
-                                const float* __restrict__ gate, float* __restrict__ out,
+                                int ldbias, const float* __restrict__ gate, float* __restrict__ out,
                                 float* __restrict__ lse,
                                 int num_heads, int t, int d, float scale, Dropout dr) {
   extern __shared__ float smem[];
@@ -765,7 +1097,7 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
   const float* qh = q + head;
   const float* kh = k + head;
   const float* vh = v + head;
-  const float* bias_h = bias + (size_t)h * t * t;
+  const float* bias_h = bias + (size_t)h * t * ldbias;
   const float* gate_h = gate + (size_t)bh * t;
 
   for (int i = tid; i < kBlockQ * d; i += kThreads) {
@@ -826,7 +1158,7 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
         if (col >= t) {
           s[i][j] = kMasked;
         } else if (row < t) {
-          s[i][j] += g[i] * bias_h[(size_t)row * t + col];
+          s[i][j] += g[i] * bias_h[(size_t)row * ldbias + col];
         }
         row_max = fmaxf(row_max, s[i][j]);
       }
@@ -1039,7 +1371,8 @@ template <int kCols>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ bias,
-                              const float* __restrict__ gate, const float* __restrict__ dout,
+                              int ldbias, const float* __restrict__ gate,
+                              const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
                               int num_heads, int t, int d, float scale, Dropout dr) {
@@ -1062,7 +1395,7 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restri
   const int tid = threadIdx.x;
   const int tx = tid % kThreadsX, ty = tid / kThreadsX;
   const size_t head = (size_t)bh * t * d;
-  const float* bias_h = bias + (size_t)h * t * t;
+  const float* bias_h = bias + (size_t)h * t * ldbias;
 
   load_tile_f32(ks, k + head, k0, t, d, ld, 1.f);
   load_tile_f32(vs, v + head, k0, t, d, ld, 1.f);
@@ -1122,7 +1455,7 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restri
         const int qi = tx + kThreadsX * j, qrow = q0 + qi;
         float wd = 0.f, ds = 0.f;
         if (qrow < t && key < t) {
-          const float pb = bias_h[(size_t)qrow * t + key];
+          const float pb = bias_h[(size_t)qrow * ldbias + key];
           const float w = expf(st[i][j] + gate_s[qi] * pb - lse_s[qi]);
           const float keep = dropout_keep(s1, s2, qrow, key, dr);
           wd = w * keep;
@@ -1190,64 +1523,142 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D bf16 tensor map (cols, rows, mats) with row and matrix strides in
+// elements, boxes of (box_cols, box_rows, 1) in the 128B-swizzled layout;
+// elements outside the tensor read as zeros. 0 or -1000 - the driver's error.
+int encode_3d(const EncodeTiled encode, CUtensorMap* map, const void* ptr, int cols, int rows,
+              int mats, size_t row_stride, size_t mat_stride, int box_cols, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)mat_stride * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
+}
+
+template <int kDim, bool kTrain>
+int launch_forward_bf16(const void* q, const void* k, const void* v, const void* bias,
+                        int ldbias, const float* gate, void* out, float* lse, int b, int h,
+                        int t, int d, float scale, Dropout dr, cudaStream_t s) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  CUtensorMap q_map, k_map, v_map, bias_map;
+  int rc;
+  // q, k, v: (d, t, b h) with boxes of 64 columns by a block's rows or a key tile
+  if ((rc = encode_3d(encode, &q_map, q, d, t, b * h, d, (size_t)t * d, 64, kFwdRows)) != 0 ||
+      (rc = encode_3d(encode, &k_map, k, d, t, b * h, d, (size_t)t * d, 64, kBlockK)) != 0 ||
+      (rc = encode_3d(encode, &v_map, v, d, t, b * h, d, (size_t)t * d, 64, kBlockK)) != 0 ||
+      // the bias: (t keys, t rows, h) in rows of ldbias; keys past t read as zeros
+      (rc = encode_3d(encode, &bias_map, bias, t, t, h, ldbias, (size_t)t * ldbias, kBlockK,
+                      kFwdRows)) != 0)
+    return rc;
+  auto kernel = gated_bias_attention_bf16_kernel<kDim, kTrain>;
+  const size_t smem = FwdLayout<kDim>::kSmem;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t + kFwdRows - 1) / kFwdRows, b * h);
+  kernel<<<grid, kFwdThreads, smem, s>>>(q_map, k_map, v_map, bias_map, gate,
+                                         static_cast<__nv_bfloat16*>(out), lse, h, t, d, scale,
+                                         dr);
+  return (int)cudaGetLastError();
+}
+
 template <bool kTrain>
-int launch_forward(const void* q, const void* k, const void* v, const void* bias,
+int launch_forward(const void* q, const void* k, const void* v, const void* bias, int ldbias,
                    const void* gate, void* out, float* lse, int b, int h, int t, int d,
                    int is_bf16, Dropout dr, cudaStream_t s) {
-  const dim3 grid(b * h, (t + kBlockQ - 1) / kBlockQ);
   const float scale = 1.0f / sqrtf((float)d);
-  cudaError_t err;
+  const float* gate_f = static_cast<const float*>(gate);
   if (is_bf16) {
-    using bf16 = __nv_bfloat16;
-    auto kernel = d <= 64 ? gated_bias_attention_bf16_kernel<64, kTrain>
-                          : gated_bias_attention_bf16_kernel<128, kTrain>;
-    const int dim = d <= 64 ? 64 : 128;
-    const size_t smem = sizeof(bf16) * (size_t)(kBlockQ + 2 * kBlockK) * (dim + 8);
-    err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kWarps * 32, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), static_cast<const float*>(gate), static_cast<bf16*>(out),
-        lse, h, t, d, scale, dr);
-  } else {
-    auto kernel = d <= 64 ? gated_bias_attention_f32_kernel<4, kTrain>
-                          : gated_bias_attention_f32_kernel<8, kTrain>;
-    const size_t smem = sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (d + 1) +
-                                         (size_t)kBlockQ * (kBlockK + 1));
-    err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), static_cast<const float*>(gate), static_cast<float*>(out),
-        lse, h, t, d, scale, dr);
+    return d <= 64 ? launch_forward_bf16<64, kTrain>(q, k, v, bias, ldbias, gate_f, out, lse, b,
+                                                     h, t, d, scale, dr, s)
+                   : launch_forward_bf16<128, kTrain>(q, k, v, bias, ldbias, gate_f, out, lse,
+                                                      b, h, t, d, scale, dr, s);
   }
+  const dim3 grid(b * h, (t + kBlockQ - 1) / kBlockQ);
+  auto kernel = d <= 64 ? gated_bias_attention_f32_kernel<4, kTrain>
+                        : gated_bias_attention_f32_kernel<8, kTrain>;
+  const size_t smem = sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (d + 1) +
+                                       (size_t)kBlockQ * (kBlockK + 1));
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), ldbias, gate_f, static_cast<float*>(out), lse, h, t, d,
+      scale, dr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out: (b, h, t, d) contiguous, float32 (is_bf16 == 0) or bfloat16;
-// bias: (h, t, t) in the same type; gate: (b, h, t) float32; d <= 128 and a
-// multiple of 8; bfloat16 rows 16-byte aligned.
-// Returns the CUDA error of the launch (0 on success).
+// q, k, v, out: (b, h, t, d) contiguous, float32 (is_bf16 == 0) or bfloat16,
+// 16-byte aligned; bias: (h, t, t) in the same type, rows of ldbias elements
+// (ldbias >= t, a multiple of 8, heads t * ldbias apart, 16-byte aligned);
+// gate: (b, h, t) float32; d <= 128 and a multiple of 8.
+// Returns the CUDA error of the launch (0 on success), -1 when the driver
+// has no cuTensorMapEncodeTiled, -1000 - the driver's error when a tensor
+// map is refused.
 extern "C" int gated_bias_attention_fwd(const void* q, const void* k, const void* v,
-                                        const void* bias, const void* gate, void* out,
-                                        int b, int h, int t, int d, int is_bf16,
+                                        const void* bias, int ldbias, const void* gate,
+                                        void* out, int b, int h, int t, int d, int is_bf16,
                                         void* stream) {
-  return launch_forward<false>(q, k, v, bias, gate, out, nullptr, b, h, t, d, is_bf16,
+  return launch_forward<false>(q, k, v, bias, ldbias, gate, out, nullptr, b, h, t, d, is_bf16,
                                Dropout{0u, 0u, 1.f}, static_cast<cudaStream_t>(stream));
 }
 
 // As gated_bias_attention_fwd, with the dropout mask of (seed, threshold,
 // keep_scale) and the (b, h, t) float32 row log-sum-exp written to lse.
 extern "C" int gated_bias_attention_fwd_train(const void* q, const void* k, const void* v,
-                                              const void* bias, const void* gate, void* out,
-                                              void* lse, int b, int h, int t, int d,
+                                              const void* bias, int ldbias, const void* gate,
+                                              void* out, void* lse, int b, int h, int t, int d,
                                               int is_bf16, uint32_t seed, uint32_t threshold,
                                               float keep_scale, void* stream) {
-  return launch_forward<true>(q, k, v, bias, gate, out, static_cast<float*>(lse), b, h, t, d,
-                              is_bf16, Dropout{seed, threshold, keep_scale},
+  return launch_forward<true>(q, k, v, bias, ldbias, gate, out, static_cast<float*>(lse), b, h,
+                              t, d, is_bf16, Dropout{seed, threshold, keep_scale},
                               static_cast<cudaStream_t>(stream));
+}
+
+// K1's bf16 blocks (either instance) for head dim d: writes the dynamic
+// shared memory of a block to *smem and returns the blocks one SM of the
+// current device holds at once, or minus the CUDA error.
+extern "C" int gated_bias_attention_fwd_bf16_occupancy(int d, int* smem) {
+  auto kernel = d <= 64 ? gated_bias_attention_bf16_kernel<64, false>
+                        : gated_bias_attention_bf16_kernel<128, false>;
+  const size_t bytes = d <= 64 ? FwdLayout<64>::kSmem : FwdLayout<128>::kSmem;
+  *smem = (int)bytes;
+  cudaError_t err = allow_smem(kernel, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kFwdThreads, bytes);
+  return err != cudaSuccess ? -(int)err : blocks;
 }
 
 // Pass A's shared memory. bf16 (dim 64 or 128): the q and dO tiles, two K,
@@ -1340,11 +1751,12 @@ extern "C" int gated_bias_attention_bwd_a(const void* q, const void* k, const vo
   return (int)cudaGetLastError();
 }
 
-// K2 pass B: dk, dv in q's type from q, k, v, bias, gate, dout, lse and the
-// delta that pass A wrote, with the same dropout arguments. Returns the CUDA
-// error of the launch (0 on success).
+// K2 pass B: dk, dv in q's type from q, k, v, bias (rows of ldbias), gate,
+// dout, lse and the delta that pass A wrote, with the same dropout
+// arguments. Returns the CUDA error of the launch (0 on success).
 extern "C" int gated_bias_attention_bwd_b(const void* q, const void* k, const void* v,
-                                          const void* bias, const void* gate, const void* dout,
+                                          const void* bias, int ldbias, const void* gate,
+                                          const void* dout,
                                           const void* lse, const void* delta, void* dk, void* dv,
                                           int b, int h, int t, int d, int is_bf16, uint32_t seed,
                                           uint32_t threshold, float keep_scale, void* stream) {
@@ -1366,7 +1778,8 @@ extern "C" int gated_bias_attention_bwd_b(const void* q, const void* k, const vo
     if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return (int)err;
     pass_b<<<grid, kWarps * 32, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), gate_f, static_cast<const bf16*>(dout), lse_f, delta_f,
+        static_cast<const bf16*>(bias), ldbias, gate_f, static_cast<const bf16*>(dout), lse_f,
+        delta_f,
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, t, d, scale, dr);
   } else {
     auto pass_b = d <= 64 ? attention_bwd_dkdv_f32_kernel<4> : attention_bwd_dkdv_f32_kernel<8>;
@@ -1375,7 +1788,8 @@ extern "C" int gated_bias_attention_bwd_b(const void* q, const void* k, const vo
     if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return (int)err;
     pass_b<<<grid, kThreads, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), gate_f, static_cast<const float*>(dout), lse_f, delta_f,
+        static_cast<const float*>(bias), ldbias, gate_f, static_cast<const float*>(dout), lse_f,
+        delta_f,
         static_cast<float*>(dk), static_cast<float*>(dv), h, t, d, scale, dr);
   }
   return (int)cudaGetLastError();

@@ -15,12 +15,18 @@ runs without released checkpoints.
 `load_reference_wavlm_checkpoint` and `load_eend_checkpoint` read the
 reference's torch files. The port's modules keep the reference's key layout,
 so what they return loads with `load_state_dict(strict=True)`.
+
+`load_pytree` reads a pytree that the JAX package saved as `.npz` (its
+trainer's `params.npz`) with numpy alone, and `eend_state_dict_from_params`
+carries such EEND params into a model, keeping the model's own BatchNorm
+statistics as the JAX loader keeps its initial state.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from pathlib import Path
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -211,3 +217,65 @@ def load_eend_checkpoint(path: str) -> StateDict:
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return {k: torch.as_tensor(v) for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's npz pytrees (diarizen_tpu/train/checkpoint.py), numpy only
+
+SEP = "::"  # joins the path of a leaf: kind and key pairs, kinds d (dict), l (list), t (tuple)
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
+    """The pytree of {joined path: leaf}, as the JAX package's `_unflatten`
+    rebuilds it: dicts, lists and tuples, or the lone leaf under "leaf"."""
+    if list(flat.keys()) == ["leaf"]:
+        return flat["leaf"]
+
+    def insert(node, tokens, value):
+        kind, key = tokens[0], tokens[1]
+        key = int(key) if kind in ("l", "t") else key
+        if len(tokens) == 2:
+            node[1][key] = value
+        else:
+            child = node[1].get(key)
+            if child is None:
+                child = (tokens[2], {})
+                node[1][key] = child
+            insert(child, tokens[2:], value)
+
+    root = None
+    store: Dict = {}
+    for name, value in flat.items():
+        tokens = name.split(SEP)
+        if root is None:
+            root = (tokens[0], store)
+        insert(root, tokens, value)
+
+    def build(node):
+        kind, children = node
+        items = {k: build(v) if isinstance(v, tuple) else v for k, v in children.items()}
+        if kind == "d":
+            return items
+        seq = [items[i] for i in range(len(items))]
+        return tuple(seq) if kind == "t" else seq
+
+    return build(root)
+
+
+def load_pytree(path: Union[str, Path]) -> Any:
+    """A pytree saved by the JAX package's `save_pytree` (`.npz`)."""
+    with np.load(path, allow_pickle=False) as data:
+        return _unflatten({k: data[k] for k in data.files})
+
+
+def eend_state_dict_from_params(params: dict, model: nn.Module) -> StateDict:
+    """JAX EEND params alone -> `model`'s state dict. The Conformer's
+    BatchNorm running statistics are the model's current ones: the JAX
+    loader of `params.npz` keeps the state its initialiser made."""
+    current = model.state_dict()
+    blocks = []
+    for i in range(model.cfg.conformer.num_layers):
+        key = f"conformer.conformer_layer.{i}.conv.bn_norm"
+        blocks.append({"bn": {"mean": current[f"{key}.running_mean"].numpy(),
+                              "var": current[f"{key}.running_var"].numpy()}})
+    return eend_state_dict_from_jax(params, {"conformer": {"blocks": blocks}}, model.cfg)

@@ -52,6 +52,7 @@ from diarizen_tpu_torch.ops.conv_chain import (
     pack_weights,
 )
 from diarizen_tpu_torch.ops.flash_attention import (
+    bias_row_stride,
     flash_attention_gated_bias,
     flash_attention_gated_bias_trainable,
 )
@@ -470,7 +471,7 @@ class WavLM(nn.Module):
         if not cfg.layer_norm_first:
             x = layer_norm(transformer.layer_norm, x)
         x = dropout(x, cfg.dropout, gen)
-        position_bias = self._position_bias(x.shape[1], x.device)
+        position_bias = self._position_bias(x.shape[1], x.dtype, x.device, train)
 
         w = layer_weights.float()
         acc = w[0] * x.float()
@@ -549,14 +550,25 @@ class WavLM(nn.Module):
             y = y[..., :-1]
         return gelu(y.transpose(1, 2))
 
-    def _position_bias(self, t: int, device: torch.device) -> torch.Tensor:
-        """(H_total, T, T) float32 bias from layer 0's bucket embedding."""
+    def _position_bias(self, t: int, dtype: torch.dtype, device: torch.device,
+                       train: bool = False) -> torch.Tensor:
+        """Layer 0's bucket embedding as the (H_total, T, T) bias, padded to
+        (H_total, T, ldbias) rows whose `[..., :T]` view every layer's
+        attention slices. Training keeps it in float32 and unpadded (ldbias
+        = T): its gradient flows into the table, and the attention function
+        rounds and pads it. Inference makes it once per forward in `dtype`
+        with the rows K1 reads (`padded_bias`)."""
         cfg = self.cfg
         buckets = device_constant(
             ("wavlm.buckets", t, cfg.num_buckets, cfg.max_distance),
             lambda: _rel_pos_buckets(t, cfg.num_buckets, cfg.max_distance), device)
         table = self.encoder.transformer.layers[0].attention.rel_attn_embed.weight
-        return table[buckets].permute(2, 0, 1).float()
+        bias = table[buckets].permute(2, 0, 1)
+        if train:
+            return bias.float()
+        padded = torch.zeros((bias.shape[0], t, bias_row_stride(t)), dtype=dtype, device=device)
+        padded[..., :t] = bias
+        return padded
 
     def _layer(self, i: int, layer: _EncoderLayer, x: torch.Tensor,
                position_bias: torch.Tensor, train: bool = False,
@@ -624,7 +636,11 @@ class WavLM(nn.Module):
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Ht)
         gate = gate.transpose(1, 2)[:, remaining].contiguous()  # (B, nh, T)
 
-        pos = position_bias[remaining]  # (nh, T, T) float32
+        if remaining and remaining == list(range(remaining[0], remaining[0] + nh)):
+            pos = position_bias[remaining[0]:remaining[0] + nh]  # a view, no copy
+        else:
+            pos = position_bias[remaining]
+        pos = pos[..., :t]  # (nh, T, T), rows of the padded stride
         if train:
             # the bias gradient flows into layer 0's table from every layer
             rate = cfg.attention_dropout if rng is not None else 0.0

@@ -19,6 +19,12 @@ PyTorch versions below. On an H100 both kernels are bound by memory traffic
 at WavLM's shapes (the source note has the numbers); their design keeps the
 (T, T) scores, weights and gated bias out of device memory.
 
+The kernels read pos_bias as rows of `ldbias` elements, a multiple of 8, so
+that every row starts on a 16-byte boundary and its tiles load by TMA and
+16-byte copies: `padded_bias` gives that layout, a (H, T, ldbias) buffer's
+`[..., :T]` view (WavLM makes one per forward), and the wrappers copy into
+one only when handed anything else.
+
 The kernels are compiled with nvcc into `build/diarizen_tpu_torch/` at first
 use and bound through ctypes (a plain C interface, so the build takes
 seconds). The counters count kernel launches, so a run can show that a path
@@ -37,7 +43,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, library_path
 
@@ -66,18 +71,32 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(LIBRARY))
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         dropout = [u32, u32, ctypes.c_float]
-        lib.gated_bias_attention_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-        lib.gated_bias_attention_fwd_train.argtypes = [ptr] * 7 + [i32] * 5 + dropout + [ptr]
+        lib.gated_bias_attention_fwd.argtypes = [ptr] * 4 + [i32] + [ptr] * 2 + [i32] * 5 + [ptr]
+        lib.gated_bias_attention_fwd_train.argtypes = ([ptr] * 4 + [i32] + [ptr] * 3 + [i32] * 5
+                                                       + dropout + [ptr])
         lib.gated_bias_attention_bwd_a.argtypes = ([ptr] * 4 + [i32] + [ptr] * 9 + [i32] * 7
                                                    + dropout + [ptr])
-        lib.gated_bias_attention_bwd_b.argtypes = [ptr] * 10 + [i32] * 5 + dropout + [ptr]
+        lib.gated_bias_attention_bwd_b.argtypes = ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 5
+                                                   + dropout + [ptr])
         lib.gated_bias_attention_bwd_a_blocks_per_sm.argtypes = [i32, i32]
+        lib.gated_bias_attention_fwd_bf16_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
         for fn in (lib.gated_bias_attention_fwd, lib.gated_bias_attention_fwd_train,
                    lib.gated_bias_attention_bwd_a, lib.gated_bias_attention_bwd_b,
-                   lib.gated_bias_attention_bwd_a_blocks_per_sm):
+                   lib.gated_bias_attention_bwd_a_blocks_per_sm,
+                   lib.gated_bias_attention_fwd_bf16_occupancy):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def forward_occupancy(head_dim: int) -> Tuple[int, int]:
+    """(blocks one SM of the current card holds at once, dynamic shared
+    memory of a block in bytes) of K1's bfloat16 kernel."""
+    smem = ctypes.c_int(0)
+    blocks = _library().gated_bias_attention_fwd_bf16_occupancy(head_dim, ctypes.byref(smem))
+    if blocks <= 0:
+        raise RuntimeError(f"K1 occupancy query failed: CUDA error {-blocks}")
+    return blocks, smem.value
 
 
 # ---------------------------------------------------------------------------
@@ -181,26 +200,66 @@ def _check(q, k, v, pos_bias, gate) -> None:
         raise ValueError("q, k, v, pos_bias and gate must be on one device")
 
 
-def _check_cuda(*tensors) -> None:
-    """What the kernels take: q, k, v, pos_bias (and o, dO) in one type
-    (float32 or bfloat16), gate in float32, all contiguous, q, k, v 16-byte
-    aligned, and D <= 128 a multiple of 8."""
+BIAS_ALIGN = 8  # elements: a bias row stride that keeps bf16 and f32 rows 16-byte aligned
+
+
+def bias_row_stride(t: int) -> int:
+    """ldbias of a padded (H, T, ldbias) bias: T rounded up to a multiple of 8."""
+    return -(-t // BIAS_ALIGN) * BIAS_ALIGN
+
+
+def _bias_layout_ok(pos_bias: torch.Tensor) -> bool:
+    """pos_bias (H, T, T) is rows of ldbias elements, ldbias >= T a multiple
+    of 8, heads T * ldbias apart, the first row 16-byte aligned."""
+    _, t, _ = pos_bias.shape
+    sh, ld, sc = pos_bias.stride()
+    return (sc == 1 and ld >= t and ld % BIAS_ALIGN == 0 and sh == t * ld
+            and pos_bias.data_ptr() % 16 == 0)
+
+
+def padded_bias(pos_bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """pos_bias (H, T, T) in `dtype`, laid out as the kernels read it: the
+    tensor itself where it already is, else a copy into a zero-padded
+    (H, T, bias_row_stride(T)) buffer, of which the `[..., :T]` view is
+    returned."""
+    if pos_bias.dtype == dtype and _bias_layout_ok(pos_bias):
+        return pos_bias
+    h, t, _ = pos_bias.shape
+    buf = torch.zeros((h, t, bias_row_stride(t)), dtype=dtype, device=pos_bias.device)
+    buf[..., :t] = pos_bias
+    return buf[..., :t]
+
+
+def check_kernel_inputs(*tensors) -> None:
+    """What the kernels take, whatever the device: q, k, v, pos_bias (and o,
+    dO) in one type (float32 or bfloat16), gate in float32, all contiguous
+    but pos_bias, which is rows of ldbias elements (`_bias_layout_ok`), q, k,
+    v 16-byte aligned, and D <= 128 a multiple of 8."""
     q, k, v, pos_bias, gate = tensors[:5]
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if any(x.dtype != q.dtype for x in (k, v, pos_bias, *tensors[5:])):
         raise TypeError("k, v and pos_bias must have q's type")
     if gate.dtype != torch.float32:
         raise TypeError(f"gate must be float32, got {gate.dtype}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("q, k, v, pos_bias and gate must be contiguous")
+    if not all(x.is_contiguous() for x in tensors if x is not pos_bias):
+        raise ValueError("q, k, v, gate (and o, dO) must be contiguous")
+    if not _bias_layout_ok(pos_bias):
+        raise ValueError(
+            f"pos_bias must be rows of a contiguous last dimension with a row stride that is "
+            f"a multiple of {BIAS_ALIGN} and >= T, heads T row strides apart, 16-byte "
+            f"aligned (padded_bias makes one); got strides {tuple(pos_bias.stride())}")
     d = q.shape[-1]
     if d % 8 or d > 128:
         raise ValueError(f"head dim must be a multiple of 8 and <= 128, got {d}")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries")
+
+
+def _check_cuda(*tensors) -> None:
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"unsupported device {tensors[0].device}")
+    check_kernel_inputs(*tensors)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -214,6 +273,7 @@ def _stream(x: torch.Tensor) -> int:
 def _forward_train(q, k, v, pos_bias, gate, rate: float, seed: int):
     """K1's training instance: (o, f32 row log-sum-exp (B, H, T))."""
     global train_launches
+    pos_bias = padded_bias(pos_bias, q.dtype)
     _check_cuda(q, k, v, pos_bias, gate)
     threshold, keep = dropout_constants(rate)
     b, h, t, d = q.shape
@@ -224,8 +284,9 @@ def _forward_train(q, k, v, pos_bias, gate, rate: float, seed: int):
     lib = _library()
     with torch.cuda.device(q.device):
         rc = lib.gated_bias_attention_fwd_train(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, t, d, int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
+            gate.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, t, d,
+            int(q.dtype == torch.bfloat16),
             int(seed) & _U32, threshold, keep, _stream(q))
     if rc != 0:
         raise RuntimeError(f"gated_bias_attention_fwd_train launch failed: CUDA error {rc}")
@@ -294,10 +355,9 @@ def _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int)
     chunks = _pass_a_plan(q)
     ldb = -(-t // 4) * 4  # rows of the partial slices start on 16-byte boundaries
     part = torch.empty((chunks, h, t, ldb), **f32)
-    ldbias = -(-t // 8) * 8  # bias rows padded with zeros: bf16 tiles load in 16 bytes
-    padded = F.pad(pos_bias, (0, ldbias - t))
     rc = _library().gated_bias_attention_bwd_a(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), padded.data_ptr(), ldbias, gate.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
+        gate.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dgate.data_ptr(), part.data_ptr(), dbias.data_ptr(), b, h, t, d,
         int(q.dtype == torch.bfloat16), chunks, ldb, int(seed) & _U32, threshold, keep,
@@ -313,8 +373,9 @@ def _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate: float, seed: in
     b, h, t, d = q.shape
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     rc = _library().gated_bias_attention_bwd_b(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
+        gate.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h,
         t, d, int(q.dtype == torch.bfloat16), int(seed) & _U32, threshold, keep, _stream(q))
     if rc != 0:
         raise RuntimeError(f"gated_bias_attention_bwd_b launch failed: CUDA error {rc}")
@@ -324,6 +385,7 @@ def _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate: float, seed: in
 def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
     """K2: (dq, dk, dv in q's type, f32 dpos_bias (H, T, T), f32 dgate)."""
     global bwd_launches
+    pos_bias = padded_bias(pos_bias, q.dtype)
     _check_cuda(q, k, v, pos_bias, gate, out, dout)
     b, h, t, d = q.shape
     if q.numel() == 0:
@@ -351,9 +413,10 @@ def flash_attention_gated_bias(
     CUDA tensors go to K1 (the inference instance at rate 0, the training
     instance otherwise), which takes q, k, v and pos_bias in one type
     (float32 or bfloat16; bfloat16 runs on the tensor cores), gate in
-    float32, all contiguous, q, k, v 16-byte aligned, and D <= 128 a
-    multiple of 8; anything else raises. CPU tensors go to the plain
-    version."""
+    float32, q, k, v and gate contiguous, q, k, v 16-byte aligned, and
+    D <= 128 a multiple of 8; anything else raises. pos_bias not in
+    `padded_bias`'s layout is copied into it first. CPU tensors go to the
+    plain version."""
     global launches
     _check(q, k, v, pos_bias, gate)
     if dropout_rate > 0.0:
@@ -362,6 +425,7 @@ def flash_attention_gated_bias(
         return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed)
     if dropout_rate > 0.0:
         return _forward_train(q, k, v, pos_bias, gate, dropout_rate, seed)[0]
+    pos_bias = padded_bias(pos_bias, q.dtype)
     _check_cuda(q, k, v, pos_bias, gate)
     b, h, t, d = q.shape
     out = torch.empty_like(q)
@@ -370,7 +434,7 @@ def flash_attention_gated_bias(
     lib = _library()
     with torch.cuda.device(q.device):
         rc = lib.gated_bias_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
             gate.data_ptr(), out.data_ptr(), b, h, t, d,
             int(q.dtype == torch.bfloat16), _stream(q))
     if rc != 0:
@@ -381,11 +445,12 @@ def flash_attention_gated_bias(
 
 class _TrainableAttention(torch.autograd.Function):
     """K1 (training instance) forward, K2 backward. pos_bias is rounded to
-    q's type for the kernels; its gradient comes back in its own type."""
+    q's type into the padded layout once; K1 and both passes of K2 read that
+    copy. Its gradient comes back in pos_bias's own type."""
 
     @staticmethod
     def forward(ctx, q, k, v, pos_bias, gate, rate, seed):
-        bias = pos_bias.to(q.dtype).contiguous()
+        bias = padded_bias(pos_bias, q.dtype)
         out, lse = _forward_train(q, k, v, bias, gate, rate, seed)
         ctx.save_for_backward(q, k, v, bias, gate, out, lse)
         ctx.rate, ctx.seed, ctx.bias_dtype = rate, seed, pos_bias.dtype

@@ -3,7 +3,8 @@ of diarizen_tpu/pipelines.py).
 
 A model directory, laid out like a released DiariZen snapshot, holds
 `config.toml` (model, inference and clustering sections), the segmentation
-checkpoint `pytorch_model.bin`, and a `plda/` directory for VBx; the WeSpeaker
+checkpoint `pytorch_model.bin` (or, failing that, the JAX trainer's
+`params.npz`), and a `plda/` directory for VBx; the WeSpeaker
 ResNet34 embedding checkpoint is a separate file. `from_pretrained` takes a
 local directory or a Hugging Face repo id: an id resolves through
 `huggingface_hub.snapshot_download` (cache first, so a populated cache works
@@ -28,7 +29,12 @@ from diarizen_tpu_torch.config import instantiate_model_for_inference, load_toml
 from diarizen_tpu_torch.core.audio import read_audio
 from diarizen_tpu_torch.core.io_rttm import load_scp
 from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
-from diarizen_tpu_torch.models.convert import load_eend_checkpoint, random_state_dict
+from diarizen_tpu_torch.models.convert import (
+    eend_state_dict_from_params,
+    load_eend_checkpoint,
+    load_pytree,
+    random_state_dict,
+)
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
 from diarizen_tpu_torch.utils import resolve_device
 
@@ -86,8 +92,12 @@ def from_pretrained(
         config["model"]["path"], config["model"].get("args", {})
     )
     ckpt_bin = model_dir / "pytorch_model.bin"
+    ckpt_npz = model_dir / "params.npz"
     if ckpt_bin.exists():
         model.load_state_dict(load_eend_checkpoint(str(ckpt_bin)), strict=True)
+    elif ckpt_npz.exists():  # the JAX trainer's params; BatchNorm statistics stay initial
+        model.load_state_dict(eend_state_dict_from_params(load_pytree(ckpt_npz), model),
+                              strict=True)
 
     inference_args = config.get("inference", {}).get("args", {})
     seg_duration = float(inference_args.get("seg_duration", 8))

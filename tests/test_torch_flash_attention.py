@@ -15,8 +15,12 @@ from diarizen_tpu.ops.flash_attention import (
     xla_attention_gated_bias,
 )
 from diarizen_tpu_torch.ops.flash_attention import (
+    bias_row_stride,
+    check_kernel_inputs,
     flash_attention_gated_bias,
     flash_attention_gated_bias_reference,
+    flash_attention_gated_bias_trainable,
+    padded_bias,
 )
 
 
@@ -53,3 +57,42 @@ def test_cpu_wrapper_is_the_plain_version_and_checks_inputs():
         flash_attention_gated_bias(q, k, v, pos, gate[..., :-1])
     with pytest.raises(ValueError, match="shape"):
         flash_attention_gated_bias(q, k[..., :4], v, pos, gate)
+
+
+@pytest.mark.parametrize("t", [37, 399])
+def test_padded_bias_view_equals_the_contiguous_call(t):
+    """The wrappers on a `[..., :T]` view of a padded (H, T, ldbias) buffer,
+    as WavLM hands them its position bias, equal the contiguous call: the
+    output, and through the trainable function the five gradients."""
+    q, k, v, pos, gate = (torch.from_numpy(a) for a in _inputs(1, 2, t, 16, seed=2))
+    view = padded_bias(pos, torch.float32)
+    assert view.shape == pos.shape and view.stride() == (t * bias_row_stride(t),
+                                                         bias_row_stride(t), 1)
+    assert bias_row_stride(t) % 8 == 0 and bias_row_stride(t) - t < 8
+    assert padded_bias(view, torch.float32) is view  # already in the kernels' layout
+    torch.testing.assert_close(flash_attention_gated_bias(q, k, v, view, gate),
+                               flash_attention_gated_bias(q, k, v, pos, gate), rtol=0, atol=0)
+    do = torch.from_numpy(np.random.default_rng(3).standard_normal(q.shape).astype(np.float32))
+    results = []
+    for bias in (view, pos):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, bias, gate)]
+        out = flash_attention_gated_bias_trainable(*leaves, dropout_rate=0.1, seed=7)
+        out.backward(do)
+        results.append([out.detach()] + [x.grad for x in leaves])
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_kernel_input_check_takes_only_padded_bias_rows():
+    """What a CUDA tensor must satisfy, checked without a card: the bias
+    rows lie a multiple of 8 elements apart (16-byte aligned for TMA)."""
+    t = 399
+    q, k, v, pos, gate = (torch.from_numpy(a) for a in _inputs(1, 2, t, 64, seed=4))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    check_kernel_inputs(q, k, v, padded_bias(pos, torch.bfloat16), gate)
+    for ld in (t, 401, 404):  # contiguous rows, then two strides that are not a multiple of 8
+        bad = torch.zeros((2, t, ld), dtype=torch.bfloat16)[..., :t]
+        with pytest.raises(ValueError, match="multiple of 8"):
+            check_kernel_inputs(q, k, v, bad, gate)
+    with pytest.raises(TypeError, match="q's type"):
+        check_kernel_inputs(q, k, v, padded_bias(pos, torch.float32), gate)

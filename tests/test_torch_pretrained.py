@@ -18,7 +18,10 @@ from diarizen_tpu import config as jax_config
 from diarizen_tpu.core import audio as jax_audio
 from diarizen_tpu.core.segments import Segment as JaxSegment
 from diarizen_tpu.infer import SlidingInference as JaxSlidingInference
+from diarizen_tpu.models.convert import load_eend_checkpoint as jax_load_eend_checkpoint
 from diarizen_tpu.pipelines import from_pretrained as jax_from_pretrained
+from diarizen_tpu.train.checkpoint import load_pytree as jax_load_pytree
+from diarizen_tpu.train.checkpoint import save_pytree as jax_save_pytree
 from diarizen_tpu_torch import config, pipelines, utils
 from diarizen_tpu_torch.cluster import AgglomerativeClustering, VBxClustering
 from diarizen_tpu_torch.core import audio
@@ -26,7 +29,7 @@ from diarizen_tpu_torch.core.segments import Segment
 from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
 from diarizen_tpu_torch.models import build
 from diarizen_tpu_torch.models.conformer import ConformerConfig
-from diarizen_tpu_torch.models.convert import random_state_dict
+from diarizen_tpu_torch.models.convert import load_pytree, random_state_dict
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
 from diarizen_tpu_torch.models.wavlm import WavLM, WavLMConfig
@@ -218,6 +221,83 @@ def test_rttm_identical_to_jax(snapshots, method, tmp_path):
     assert len(expected.splitlines()) > 1
     assert got.to_rttm() == expected
     assert (tmp_path / "out" / "meeting.rttm").read_text() == expected
+
+
+@pytest.fixture(scope="module")
+def npz_snapshot(snapshots):
+    """A snapshot directory as the JAX trainer leaves one: the AHC
+    snapshot's config.toml and, instead of pytorch_model.bin, the params of
+    the fixture's state dict (through the JAX loader) in params.npz."""
+    dirs, _, _, _ = snapshots
+    src = dirs["AgglomerativeClustering"]
+    snap = src.parent / "npz_only"
+    snap.mkdir()
+    (snap / "config.toml").write_text((src / "config.toml").read_text())
+    cfg = jax_from_pretrained(src).seg_inference.cfg
+    params, _ = jax_load_eend_checkpoint(str(src / "pytorch_model.bin"), cfg)
+    jax_save_pytree(snap / "params.npz", params)
+    return snap
+
+
+def test_params_npz_snapshot_loads_its_weights(snapshots, npz_snapshot, tmp_path):
+    _, eend_sd, resnet_ckpt, _ = snapshots
+    loaded = _port_pipeline(npz_snapshot, resnet_ckpt).seg_inference.model.state_dict()
+    assert loaded.keys() == eend_sd.keys()
+    for name, value in eend_sd.items():
+        assert torch.equal(loaded[name], value), name
+    # pytorch_model.bin keeps its priority over params.npz
+    both = tmp_path / "both"
+    both.mkdir()
+    (both / "config.toml").write_text((npz_snapshot / "config.toml").read_text())
+    (both / "params.npz").write_bytes((npz_snapshot / "params.npz").read_bytes())
+    other = {k: v + 1.0 if v.is_floating_point() else v for k, v in eend_sd.items()}
+    torch.save(other, both / "pytorch_model.bin")
+    loaded = _port_pipeline(both, resnet_ckpt).seg_inference.model.state_dict()
+    assert torch.equal(loaded["classifier.weight"], other["classifier.weight"])
+
+
+def test_params_npz_rttm_identical_to_jax(snapshots, npz_snapshot):
+    _, _, resnet_ckpt, wav = snapshots
+    pipe = _port_pipeline(npz_snapshot, resnet_ckpt)
+    ref = jax_from_pretrained(npz_snapshot, embedding_ckpt=resnet_ckpt)
+    old = ref.seg_inference
+    ref.seg_inference = JaxSlidingInference(
+        old._params, old._state, old.cfg, duration=old.duration, step=old.step,
+        batch_size=old.batch_size, compute_dtype=jnp.float32)
+    ref.fused_stitch = False
+    wave, sr = jax_audio.read_audio(wav)
+    expected = ref(wave, sr, uri="meeting").to_rttm()
+    assert len(expected.splitlines()) > 1
+    assert pipelines.diarize_file(pipe, wav).to_rttm() == expected
+
+
+def test_npz_reader_equals_jax(tmp_path):
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.standard_normal((3, 2)).astype(np.float32),
+            "blocks": [{"w": rng.standard_normal(4), "pair": (np.arange(3), np.float32(2.5))},
+                       {"w": rng.standard_normal(4), "pair": (np.arange(2), np.float32(-1.0))}],
+            "nested": {"t": (np.ones(2, np.int32), [np.zeros((1, 1)), np.array(7)])}}
+    jax_save_pytree(tmp_path / "tree.npz", tree)
+    got, want = load_pytree(tmp_path / "tree.npz"), jax_load_pytree(tmp_path / "tree.npz")
+
+    def same(a, b):
+        assert type(a) is type(b)
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+    same(got, want)
+    assert isinstance(got["blocks"], list) and isinstance(got["nested"]["t"], tuple)
+    jax_save_pytree(tmp_path / "leaf.npz", np.arange(5))
+    np.testing.assert_array_equal(load_pytree(tmp_path / "leaf.npz"), np.arange(5))
 
 
 def test_cli_writes_the_rttm_of_diarize_file(snapshots, tmp_path, capsys):

@@ -25,7 +25,9 @@ from diarizen_tpu.models.wavlm import set_flash_attention, wavlm_extract_feature
 from diarizen_tpu_torch.models.conformer import ConformerConfig
 from diarizen_tpu_torch.models.convert import eend_state_dict_from_jax
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
+from diarizen_tpu_torch.models import wavlm as port_wavlm
 from diarizen_tpu_torch.models.wavlm import WavLMConfig
+from diarizen_tpu_torch.ops.flash_attention import bias_row_stride, padded_bias
 
 # float32 on both sides: reassociation differences only
 TOL = dict(rtol=5e-4, atol=5e-4)
@@ -124,3 +126,30 @@ def test_state_dict_round_trips_through_jax_converter(models):
         assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(original)
         for a, b in zip(jax.tree_util.tree_leaves(original), jax.tree_util.tree_leaves(back)):
             np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+
+
+def test_layers_hand_the_kernel_its_padded_bias_rows(models, monkeypatch):
+    """Inference makes the position bias once per forward as a padded
+    (H, T, ldbias) buffer; every attention layer, with contiguous or
+    scattered remaining heads, hands the kernel a `[..., :T]` view of it in
+    the kernels' layout, holding the training route's values."""
+    cfg, _, _, model, wave = models
+    seen = []
+    original = port_wavlm.flash_attention_gated_bias
+
+    def spy(q, k, v, pos_bias, gate, *args, **kwargs):
+        seen.append(pos_bias)
+        return original(q, k, v, pos_bias, gate, *args, **kwargs)
+
+    monkeypatch.setattr(port_wavlm, "flash_attention_gated_bias", spy)
+    with torch.no_grad():
+        model.wavlm_model(torch.from_numpy(wave), torch.ones(cfg.wavlm.num_layers + 1))
+    t = cfg.num_frames(2000)
+    heads = [h for h, a in zip(cfg.wavlm.remaining_heads, cfg.wavlm.use_attention) if a]
+    assert [tuple(p.shape) for p in seen] == [(len(h), t, t) for h in heads]
+    with torch.no_grad():
+        exact = model.wavlm_model._position_bias(t, torch.float32, torch.device("cpu"), train=True)
+    for pos, h in zip(seen, heads):
+        assert pos.stride() == (t * bias_row_stride(t), bias_row_stride(t), 1)
+        assert padded_bias(pos, torch.float32) is pos  # no copy before the kernel
+        torch.testing.assert_close(pos, exact[list(h)], rtol=0, atol=0)
