@@ -11,7 +11,8 @@ Phases (any failure exits non-zero, before the last line is printed):
      shapes, with CUDA-event timings of the kernel, the plain version and
      one PyTorch call computing the same function (yardstick only): the 10
      launches of one Base-s80-md batch, and one launch at the unpruned
-     `base` model's shape (B 32, H 12), each beside its bound; the bf16
+     `base` model's shape (B 32, H 12), each beside its bound, and the 10
+     launches of one `whole` forward over 30 s (B 1, T 1499); the bf16
      kernel's shared memory and blocks per SM;
   4. K1's training instance (attention dropout) and K2 (the backward)
      against the plain version and its autograd, output and all five
@@ -66,7 +67,22 @@ Phases (any failure exits non-zero, before the last line is printed):
      audio-s/s with the route on and off, the extractor's time, a profiled
      pass. Large-s80-md (pre-LN, 400 K1 launches, no K3, K4 or K5): float32
      scores on the card against the CPU, streamed audio-s/s, a profiled pass;
- 12. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
+ 12. scoring and the frame-level modes at Base-s80-md's full width: four
+     120 s files written as WAV and as FLAC (encoded by
+     tests/flac_ref_encoder.py in worker processes started at the beginning
+     of the run) must read back bit for bit equal; an experiment directory
+     of three seeded checkpoints with a recipe TOML naming the repository's
+     own class path; the float32 pipeline's RTTMs of the WAV copies as the
+     reference; the recipe CLI (`recipes.diar_ssl.infer.main`: three
+     checkpoints averaged, bf16, AHC, the FLAC wav.scp) with its K1
+     launches, its `der.json` against `der_report` and its DER against the
+     reference (at most 0.5%); aggregated speech and overlap decisions in
+     bf16 against float32, VAD, OSD, multi-label segmentation and
+     resegmentation of the recipe's output; the per-window fbank route of
+     the embedding stage against the shared one (float32, within 1e-4); and
+     `whole` over 30 s (T 1499): bf16 scores against float32 within the
+     margin-aware bar, K1's launches;
+ 13. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
      last JSON line {"ok": true, "device": {...}}.
 """
 
@@ -80,7 +96,9 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+import wave as wavefile
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from multiprocessing import get_context
 from pathlib import Path
 
 import numpy as np
@@ -89,9 +107,20 @@ import torch.nn.functional as F
 from scipy.optimize import linear_sum_assignment
 
 from diarizen_tpu_torch.cluster import AgglomerativeClustering
+from diarizen_tpu_torch import config as port_config
 from diarizen_tpu_torch import pipelines
-from diarizen_tpu_torch.core.audio import write_wav
-from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
+from diarizen_tpu_torch.core.audio import read_audio, write_wav
+from diarizen_tpu_torch.core.io_rttm import load_rttm, write_rttm
+from diarizen_tpu_torch.infer import (
+    DiarizationPipeline,
+    EmbeddingInference,
+    MultiLabelSegmentation,
+    OverlappedSpeechDetection,
+    Resegmentation,
+    SlidingInference,
+    VoiceActivityDetection,
+)
+from diarizen_tpu_torch.models import build
 from diarizen_tpu_torch.models.conformer import ConformerConfig
 from diarizen_tpu_torch.models.convert import random_state_dict
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
@@ -101,8 +130,17 @@ from diarizen_tpu_torch.models.wavlm import WavLMConfig, set_conv_chain, set_fus
 from diarizen_tpu_torch.ops import conv_chain as k5
 from diarizen_tpu_torch.ops import flash_attention as k1
 from diarizen_tpu_torch.ops import fused_ln as k3
+from diarizen_tpu_torch.ops.binarize import binarize_hysteresis
+from diarizen_tpu_torch.ops.der import der_report
+from diarizen_tpu_torch.recipes.diar_ssl import infer as recipe_infer
 from diarizen_tpu_torch.train import Trainer, TrainerConfig, dual_lr_optimizer, train_step
-from diarizen_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+from diarizen_tpu_torch.train.checkpoint import (
+    append_metrics,
+    average_checkpoints,
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
 from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
 from diarizen_tpu_torch.train.step import create_train_state
 
@@ -113,6 +151,7 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 BATCH, FRAMES, HEAD_DIM = 32, 399, 64  # one segmentation batch of 8 s windows
+WHOLE_SECONDS, WHOLE_FRAMES = 30, 1499  # `whole`: one forward over a 30 s file
 AUDIO_SECONDS = 120
 TRAIN_BATCH, TRAIN_HEADS, TRAIN_STEPS = 16, 12, 8  # WavLM-Base, the recipe's batch
 DROPOUT_RATE, DROPOUT_SEED = 0.1, 1234
@@ -222,8 +261,11 @@ def path_head_counts() -> list:
 def phase_kernel(heads_per_layer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # unit-scale inputs
+    # T 1499: `whole` over a 30 s file, one sequence at each Base-s80-md
+    # head count and at the unpruned 12 (partial last query block and key tile)
     cases = ([(BATCH, h, FRAMES) for h in path_head_counts()] + [(13, 12, FRAMES)]
-             + [(BATCH, 2, 37), (BATCH, 2, 799)])
+             + [(BATCH, 2, 37), (BATCH, 2, 799)]
+             + [(1, h, WHOLE_FRAMES) for h in sorted(set(heads_per_layer) | {12})])
     slice_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, t in cases:
@@ -243,38 +285,50 @@ def phase_kernel(heads_per_layer) -> dict:
     print(f"K1 bf16 kernel at D={HEAD_DIM}: {smem} bytes of dynamic shared memory a block, "
           f"{blocks} blocks an SM")
 
-    def timed(h):
-        """One launch at (BATCH, h, FRAMES) in bf16: the kernel on the bias
-        layout WavLM hands it (a padded buffer's view), the plain version,
-        the library call, and the bound."""
-        args = attention_inputs(BATCH, h, FRAMES, HEAD_DIM, torch.bfloat16, gen)
+    def timed(h, b=BATCH, t=FRAMES):
+        """One launch at (b, h, t) in bf16: the kernel on the bias layout
+        WavLM hands it (a padded buffer's view), the plain version, the
+        library call, and the bound."""
+        args = attention_inputs(b, h, t, HEAD_DIM, torch.bfloat16, gen)
         padded = (*args[:3], k1.padded_bias(args[3], torch.bfloat16), args[4])
         row = {
             "ms": median_ms(lambda: k1.flash_attention_gated_bias(*padded)),
             "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(*args)),
             "library_ms": median_ms(lambda: library_attention(*args)),
         }
-        mem_s, op_s = attention_bound_s(BATCH, h, FRAMES, HEAD_DIM, 2)
-        print(f"K1 bf16 B={BATCH} H={h} T={FRAMES}: kernel {row['ms']:.4f} ms, plain "
+        mem_s, op_s = attention_bound_s(b, h, t, HEAD_DIM, 2)
+        print(f"K1 bf16 B={b} H={h} T={t}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
               f"bound {1e3 * max(mem_s, op_s):.4f} ms")
         return row, mem_s, op_s
 
+    def timed_layers(what, b, t):
+        """The attention layers of one Base-s80-md forward at (b, t), one
+        launch each, summed."""
+        totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        by_bytes = by_flops = 0.0
+        for h in heads_per_layer:
+            row, mem_s, op_s = timed(h, b, t)
+            by_bytes += mem_s
+            by_flops += op_s
+            for key in totals:
+                totals[key] += row[key]
+        print(f"K1 bf16 {what} ({len(heads_per_layer)} launches): kernel "
+              f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
+              f"{totals['library_ms']:.4f} ms, bound {1e3 * max(by_bytes, by_flops):.4f} ms "
+              f"(by {'bytes' if by_bytes >= by_flops else 'operations'})")
+        return totals, by_bytes, by_flops
+
     # timings at the slice's shapes: the 10 attention layers of one batch
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    by_bytes = by_flops = 0.0
-    for h in heads_per_layer:
-        row, mem_s, op_s = timed(h)
-        by_bytes += mem_s
-        by_flops += op_s
-        for key in totals:
-            totals[key] += row[key]
-    print(f"K1 bf16 one Base-s80-md batch ({len(heads_per_layer)} launches): kernel "
-          f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, library "
-          f"{totals['library_ms']:.4f} ms, bound {1e3 * max(by_bytes, by_flops):.4f} ms")
+    totals, by_bytes, by_flops = timed_layers("one Base-s80-md batch", BATCH, FRAMES)
     # one launch at the unpruned base model's shape: every layer has 12 heads
     base_row, mem_s, op_s = timed(12)
     base_row["bound_ms"] = 1e3 * max(mem_s, op_s)
+    # `whole` over a 30 s file: the same layers at B 1, T 1499
+    whole, mem_s, op_s = timed_layers(f"one Base-s80-md `whole` forward over {WHOLE_SECONDS} s",
+                                      1, WHOLE_FRAMES)
+    whole["bound_ms"] = 1e3 * max(mem_s, op_s)
+    whole["bound_by"] = "bytes" if mem_s >= op_s else "operations"
     return {
         "name": "gated_bias_attention",
         "route": "cuda",
@@ -288,6 +342,7 @@ def phase_kernel(heads_per_layer) -> dict:
         "bound_by": "bytes" if by_bytes >= by_flops else "operations",
         "library_ms": totals["library_ms"],
         "base_launch": base_row,  # one launch at B 32, H 12 (the `base` model)
+        "whole_t1499": whole,  # the launches of one `whole` forward (B 1, T 1499)
     }
 
 
@@ -1199,20 +1254,28 @@ def compare_routes(model, windows, dtype, score_limit: float, flip_limit: float)
     on = route_scores(model, windows, dtype, True)
     check(k5.launches - before == -(-len(windows) // BATCH),
           "the conv-chain route did not launch K5 once per batch")
-    err = (on - off).abs().max().item()
-    top2 = off.topk(2, dim=-1).values
+    check_scores(on, off, score_limit, flip_limit,
+                 f"base scores {str(dtype)[6:]}, conv-chain route on vs off on "
+                 f"{len(windows)} windows")
+
+
+def check_scores(got, want, score_limit: float, flip_limit: float, what: str) -> None:
+    """Powerset scores `got` against `want`: within `score_limit`, and a
+    hard decision may flip only where want's top-2 margin is below twice
+    the score difference, on at most `flip_limit` of the frames."""
+    err = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
-    flipped = on.argmax(-1) != off.argmax(-1)
+    flipped = got.argmax(-1) != want.argmax(-1)
     share = flipped.float().mean().item()
     worst = margin[flipped].max().item() if bool(flipped.any()) else 0.0
-    print(f"base scores {str(dtype)[6:]}, conv-chain route on vs off on {len(windows)} windows: "
-          f"max abs err {err:.3e} (limit {score_limit:.0e}); {int(flipped.sum())} of "
+    print(f"{what}: max abs err {err:.3e} (limit {score_limit:.0e}); {int(flipped.sum())} of "
           f"{flipped.numel()} hard decisions differ ({100 * share:.4f}%, limit "
           f"{100 * flip_limit:.2f}%), the largest top-2 margin among them {worst:.3e}")
-    check(bool(torch.isfinite(on).all()) and err <= score_limit,
-          f"the conv-chain route's scores disagree with the ordinary route's: {err}")
+    check(bool(torch.isfinite(got).all()) and err <= score_limit,
+          f"{what}: the scores disagree: {err}")
     check(share <= flip_limit and worst <= 2 * err,
-          f"hard decisions flip away from small margins: {share}, margin {worst}")
+          f"{what}: hard decisions flip away from small margins: {share}, margin {worst}")
 
 
 def stream_rate(pipe, waves, uris, repeats: int = STREAM_REPEATS) -> list:
@@ -1397,6 +1460,233 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
     return launches
 
 
+# The repository's recipe TOML layout, with its own (JAX package) class path,
+# for the released Base-s80-md model
+EVAL_TOML = """\
+[model]
+path = "diarizen_tpu.models.build.wavlm_conformer"
+[model.args]
+wavlm_src = "wavlm_base_s80_md"
+wavlm_layer_num = 13
+wavlm_feat_dim = 768
+attention_in = 256
+ffn_hidden = 1024
+num_head = 4
+num_layer = 4
+dropout = 0.1
+chunk_size = 8
+use_posi = false
+output_activate_function = false
+selected_channel = 0
+max_speakers_per_chunk = 4
+
+[inference]
+[inference.args]
+seg_duration = 8
+batch_size = 32
+apply_median_filtering = true
+
+[clustering]
+[clustering.args]
+method = "AgglomerativeClustering"
+ahc_threshold = 0.70
+min_cluster_size = 30
+min_speakers = 1
+max_speakers = 8
+"""
+EVAL_CHECKPOINTS = 3
+DER_LIMIT = 0.005  # bf16 recipe against the f32 reference: rttm_disagreement's limit
+
+
+def pcm16(wave: np.ndarray) -> np.ndarray:
+    """The int16 samples of a PCM16-quantised waveform (channels, samples)."""
+    return np.rint(wave * 32768.0).astype(np.int64)
+
+
+def encode_flac_copy(pcm: np.ndarray) -> bytes:
+    """FLAC bytes of int16 samples by the repository's reference encoder
+    (tests/flac_ref_encoder.py, numpy only); run in worker processes."""
+    from flac_ref_encoder import encode_flac
+
+    return encode_flac(pcm, 16000)
+
+
+def write_pcm16(path: Path, pcm: np.ndarray) -> None:
+    with wavefile.open(str(path), "wb") as w:
+        w.setnchannels(pcm.shape[0])
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.T.astype("<i2").tobytes())
+
+
+def frame_decisions(agg) -> tuple:
+    """Speech (largest speaker score) and overlap (second largest) of an
+    aggregated soft feature, binarized at 0.5 as VAD and OSD do."""
+    top2 = np.sort(agg.data, axis=-1)[:, -2:]
+    return tuple(binarize_hysteresis(top2[:, i][None], 0.5, 0.5)[0] for i in (1, 0))
+
+
+def phase_evaluation(card: str, resnet_sd, flac_jobs) -> dict:
+    """Scoring and the frame-level modes at the full width of Base-s80-md:
+    an experiment directory of seeded checkpoints, FLAC and WAV copies of
+    four 120 s files, the float32 pipeline's RTTMs as the reference, then the
+    recipe CLI (`recipes.diar_ssl.infer.main`, bf16, AHC, three checkpoints
+    averaged, FLAC in) with its DER; VAD/OSD bf16 against f32, multi-label
+    segmentation, resegmentation, the per-window embedding route against the
+    shared one, and `whole` over a 30 s file (K1 at T 1499). Returns K1's
+    launches in the recipe run and in one `whole` forward."""
+    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(STREAM_FILES)]
+    uris = [f"rec{i}" for i in range(STREAM_FILES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # ---- inputs: WAV and FLAC copies of the same int16 samples ---------
+        t0 = time.perf_counter()
+        flac_lines = []
+        for uri, wave, job in zip(uris, waves, flac_jobs):
+            write_pcm16(root / f"{uri}.wav", pcm16(wave))
+            (root / f"{uri}.flac").write_bytes(job.result())
+            flac_lines.append(f"{uri} {root / (uri + '.flac')}")
+            from_flac, from_wav = read_audio(root / f"{uri}.flac"), read_audio(root / f"{uri}.wav")
+            check(from_flac[1] == from_wav[1] == 16000
+                  and np.array_equal(from_flac[0], from_wav[0])
+                  and np.array_equal(from_wav[0], wave),
+                  f"{uri}: the FLAC copy does not read back as the WAV copy")
+        (root / "wav.scp").write_text("\n".join(flac_lines) + "\n")
+        print(f"evaluation inputs: {STREAM_FILES} x {AUDIO_SECONDS} s as WAV and FLAC, read back "
+              f"bit for bit equal ({time.perf_counter() - t0:.1f} s with the FLAC decoding)")
+
+        # ---- the experiment directory --------------------------------------
+        (root / "conf.toml").write_text(EVAL_TOML)
+        model_section = port_config.load_toml(root / "conf.toml")["model"]
+        eend_cfg, model = build.wavlm_conformer(**model_section["args"])
+        # nearby checkpoints, as successive epochs of one run are. Seeded
+        # weights spread the powerset probability over many classes, so that
+        # no speaker's soft score reaches the resegmentation onset (0.81); a
+        # sharper head gives the confident scores of a trained model
+        seeded = random_state_dict(model, seed=30)
+        base = {**seeded, "classifier.weight": seeded["classifier.weight"] * 10.0}
+        rng = np.random.default_rng(31)
+        for epoch in range(EVAL_CHECKPOINTS):
+            sd = {k: v + 0.01 * v.abs().mean() * torch.from_numpy(
+                      rng.standard_normal(tuple(v.shape)).astype(np.float32))
+                  if v.is_floating_point() and v.dim() > 1 else v
+                  for k, v in base.items()}
+            save_checkpoint(root / "exp" / "checkpoints", epoch, sd)
+            append_metrics(root / "exp", {"epoch": epoch, "loss": 1.0 - 0.1 * epoch})
+        resnet_ckpt = root / "resnet34.bin"
+        torch.save({"state_dict": resnet_sd}, resnet_ckpt)
+
+        # ---- the float32 reference on the WAV copies -----------------------
+        model.load_state_dict(average_checkpoints(
+            [root / "exp" / "checkpoints" / f"epoch_{e:04d}" for e in range(EVAL_CHECKPOINTS)]))
+        seg32 = SlidingInference(model, batch_size=BATCH, compute_dtype=torch.float32)
+        emb = EmbeddingInference(pipelines.load_resnet(resnet_ckpt), seg32.window_size,
+                                 num_speakers=eend_cfg.max_speakers_per_chunk, batch_size=BATCH)
+        ahc = AgglomerativeClustering(threshold=0.70, min_cluster_size=30)
+        with strict_float32():
+            reference = [DiarizationPipeline(seg32, emb, ahc, eend_cfg, max_speakers=8)(
+                read_audio(root / f"{uri}.wav")[0], 16000, uri=uri) for uri in uris]
+        write_rttm(root / "ref.rttm", reference)
+
+        # ---- the recipe CLI, bf16, on the FLAC wav.scp ---------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        hyps = recipe_infer.main([
+            "-C", str(root / "conf.toml"), "--exp_dir", str(root / "exp"),
+            "--wav_scp", str(root / "wav.scp"), "--out_dir", str(root / "out"),
+            "--avg_ckpt_num", str(EVAL_CHECKPOINTS), "--embedding_ckpt", str(resnet_ckpt),
+            "--clustering", "AHC", "--ref_rttm", str(root / "ref.rttm")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        recipe_k1 = k1.launches
+        batches = -(-sum(seg32.num_chunks(waves[0].shape[1])) // BATCH)
+        expected = STREAM_FILES * batches * sum(eend_cfg.wavlm.use_attention)
+        check(recipe_k1 == expected, f"recipe: expected {expected} K1 launches, got {recipe_k1}")
+        segments = [check_rttm((root / "out" / f"{uri}.rttm").read_text(), uri) for uri in uris]
+        summary = json.loads((root / "out" / "der.json").read_text())
+        refs = load_rttm(root / "ref.rttm")
+        check(summary == json.loads(json.dumps(recipe_infer.score(refs, hyps))),
+              "der.json differs from der_report on the same annotations")
+        for uri in uris:
+            r = der_report(refs[uri], hyps[uri])
+            check(summary["files"][uri]["der"] == r.der, f"{uri}: der.json {summary['files'][uri]}")
+        print(f"recipe CLI {card}: {STREAM_FILES} x {AUDIO_SECONDS} s FLAC, {EVAL_CHECKPOINTS} "
+              f"checkpoints averaged, bf16, AHC: {seconds:.3f} s with loading = "
+              f"{seconds / STREAM_FILES:.3f} s a file; K1 launches {recipe_k1}; segments "
+              f"{segments}; DER against the f32 reference {100 * summary['der']:.4f}% (false "
+              f"alarm {100 * summary['false_alarm']:.4f}%, miss "
+              f"{100 * summary['missed_detection']:.4f}%, confusion "
+              f"{100 * summary['confusion']:.4f}%; limit {100 * DER_LIMIT:.1f}%)")
+        check(summary["der"] <= DER_LIMIT, f"recipe DER {summary['der']} above {DER_LIMIT}")
+
+        # ---- frame-level modes on one 120 s file ---------------------------
+        wave = waves[0]
+        seg16 = SlidingInference(model, batch_size=BATCH)
+        with strict_float32():
+            agg32 = seg32.aggregated(wave, 16000)
+        agg16 = seg16.aggregated(wave, 16000)
+        print(f"aggregated soft scores bf16 vs f32 on {agg32.data.shape}: max abs err "
+              f"{float(np.abs(agg16.data - agg32.data).max()):.3e}")
+        for what, a, b in zip(("speech", "overlap"), frame_decisions(agg16),
+                              frame_decisions(agg32)):
+            share = float(np.mean(a != b))
+            print(f"aggregated {what} bf16 vs f32: {int((a != b).sum())} of {a.size} frames "
+                  f"differ ({100 * share:.4f}%, limit 0.5%); {int(b.sum())} frames active in f32")
+            check(share <= 0.005, f"aggregated {what}: bf16 and f32 differ on {share}")
+        vad = VoiceActivityDetection(seg16)(wave, 16000, uri="vad").to_rttm()
+        osd = OverlappedSpeechDetection(seg16)(wave, 16000, uri="osd").to_rttm()
+        multi = MultiLabelSegmentation(seg16, [f"spk{k}" for k in range(4)])(
+            wave, 16000, uri="multi")
+        reseg = Resegmentation(seg16)(wave, 16000, hyps[uris[0]], uri=uris[0])
+        print(f"VAD {check_rttm(vad, 'vad')} segments, OSD {len(osd.splitlines())}, multi-label "
+              f"{check_rttm(multi.to_rttm(), 'multi')} ({multi.labels()}), resegmentation of "
+              f"the recipe's {uris[0]} {check_rttm(reseg.to_rttm(), uris[0])} "
+              f"({reseg.labels()} from {hyps[uris[0]].labels()})")
+        check(set(multi.labels()) <= {f"spk{k}" for k in range(4)}, "multi-label labels")
+
+        # the per-window fbank route against the shared whole-file fbank
+        dev_wave, starts = seg32.prepare_wave(wave)
+        starts = starts[:BATCH]
+        frames = seg32._frames_per_chunk
+        weights = (np.random.default_rng(4).uniform(size=(len(starts), 4, frames)) > 0.5
+                   ).astype(np.float32)
+        with strict_float32():
+            routes = [EmbeddingInference(emb.model, seg32.window_size, 4, batch_size=BATCH,
+                                         shared_fbank=shared)(dev_wave, starts, weights)
+                      for shared in (True, False)]
+        err = float(np.abs(routes[0] - routes[1]).max())
+        print(f"embeddings f32, per-window fbank vs the shared one on {len(starts)} windows: "
+              f"max abs err {err:.3e} (limit 1e-4)")
+        check(np.isfinite(routes[1]).all() and err <= 1e-4, f"per-window route: {err}")
+
+        # ---- `whole` over 30 s: one forward at T 1499 -----------------------
+        # the seeded head, whose log-probabilities are on the scale the
+        # score limit of check_scores is set for
+        model.load_state_dict(seeded)
+        short = make_wave(WHOLE_SECONDS, seed=7)
+        x = torch.from_numpy(short).cuda()
+        with torch.inference_mode():
+            with strict_float32():
+                want = model(x, compute_dtype=torch.float32)
+            got = model(x, compute_dtype=torch.bfloat16)
+        check(tuple(want.shape) == (1, WHOLE_FRAMES, eend_cfg.num_powerset_classes),
+              f"whole: scores {tuple(want.shape)}")
+        check_scores(got.float(), want, 0.1, 0.01,
+                     f"whole over {WHOLE_SECONDS} s (T {WHOLE_FRAMES}), bf16 vs f32 scores")
+        reset_counts()
+        hard = seg16.whole(short, 16000)
+        torch.cuda.synchronize()
+        whole_k1 = k1.launches
+        t0 = time.perf_counter()
+        seg16.whole(short, 16000)
+        torch.cuda.synchronize()
+        print(f"whole {card}: {WHOLE_SECONDS} s in one forward, {hard.shape} {hard.dtype}, "
+              f"K1 launches {whole_k1}, {time.perf_counter() - t0:.4f} s")
+        check(hard.shape == (WHOLE_FRAMES, 4) and whole_k1 == sum(eend_cfg.wavlm.use_attention),
+              f"whole: {hard.shape}, {whole_k1} K1 launches")
+    return {"recipe": recipe_k1, "whole": whole_k1}
+
+
 class StageTimer:
     """Pipeline hook: seconds since the previous stage ended (the per-batch
     progress calls are passed over)."""
@@ -1433,6 +1723,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    # the evaluation phase's FLAC copies are encoded in worker processes
+    # while the kernels build and the earlier phases run
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    with ProcessPoolExecutor(max_workers=STREAM_FILES, mp_context=get_context("spawn")) as pool:
+        flac_jobs = [pool.submit(encode_flac_copy, pcm16(make_wave(AUDIO_SECONDS, seed=i)))
+                     for i in range(STREAM_FILES)]
+        return run_phases(flac_jobs)
+
+
+def run_phases(flac_jobs) -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1523,8 +1823,12 @@ def main() -> int:
     snapshot_launches = phase_snapshots(card, resnet_sd)
     elapsed("snapshot directories to RTTM")
     conv_chain["launches"] = snapshot_launches["k5"]
+    evaluation_launches = phase_evaluation(card, resnet_sd, flac_jobs)
+    elapsed("scoring and the frame-level modes")
 
     kernel["launches"] = launches
+    kernel["whole_t1499"]["launches"] = evaluation_launches["whole"]
+    kernel["recipe_launches"] = evaluation_launches["recipe"]
     trainable[0]["launches"] = train_launches["train"]
     trainable[1]["launches"] = train_launches["bwd"]
     fused_ln[0]["launches"] = stream_launches["k3"]

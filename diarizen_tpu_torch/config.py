@@ -56,17 +56,27 @@ def dump_toml(config: Dict[str, Any], path: str | Path) -> None:
 # A released DiariZen snapshot's config.toml, and the reference's training
 # TOMLs, name the REFERENCE's own classes (e.g. `[model] path =
 # "diarizen.models.eend.model_wavlm_conformer.Model"`) and recipe-local
-# modules ("trainer_dual_opt.Trainer", "dataset.DiarizationDataset"). Mapping
-# them onto the port's factories and classes makes unedited snapshots load.
+# modules ("trainer_dual_opt.Trainer", "dataset.DiarizationDataset"); this
+# repository's recipe TOMLs (recipes/diar_ssl/conf) name the JAX package's
+# factories and `optax.adamw`. Mapping them onto the port's factories and
+# classes makes unedited snapshots and recipe TOMLs load without the JAX
+# package.
 REFERENCE_PATH_ALIASES = {
     "diarizen.models.eend.model_wavlm_conformer.Model":
         "diarizen_tpu_torch.models.build.wavlm_conformer",
     "trainer_dual_opt.Trainer": "diarizen_tpu_torch.train.trainer.Trainer",
     "trainer_single_opt.Trainer": "diarizen_tpu_torch.train.trainer.Trainer",
     "dataset.DiarizationDataset": "diarizen_tpu_torch.train.dataset.DiarizationDataset",
+    "diarizen_tpu.models.build.wavlm_conformer":
+        "diarizen_tpu_torch.models.build.wavlm_conformer",
+    "diarizen_tpu.train.trainer.Trainer": "diarizen_tpu_torch.train.trainer.Trainer",
+    "diarizen_tpu.train.dataset.DiarizationDataset":
+        "diarizen_tpu_torch.train.dataset.DiarizationDataset",
+    "optax.adamw": "diarizen_tpu_torch.train.optim.adamw_with_warmup",
 }
 
-# reference paths whose targets the port does not have yet
+# paths whose targets the port does not have yet; any other path into the
+# JAX package raises as well, instead of importing it
 NOT_PORTED = (
     "diarizen.models.eend.model_wavlm_conformer_mc.Model",
     "diarizen.models.eend.model_fbank_conformer.Model",
@@ -74,18 +84,24 @@ NOT_PORTED = (
     "diarizen.models.pruning.model_distill_prune.Model",
     "diarizen.models.pruning.utils.DistillLoss",
     "torch.optim.AdamW",
+    "diarizen_tpu.models.build.fbank_conformer",
+    "diarizen_tpu.models.build.pyannote_baseline",
+    "diarizen_tpu.models.build.wavlm_conformer_mc",
+    "diarizen_tpu.prune.distill",
 )
 
 
 def resolve(path: str) -> Any:
-    """'pkg.mod.Name' -> attribute. Reference class paths are aliased to the
-    port's factories and classes (REFERENCE_PATH_ALIASES); one whose target is
-    not ported yet raises NotImplementedError naming it."""
-    if path in NOT_PORTED:
-        raise NotImplementedError(
-            f"{path!r} has no counterpart in diarizen_tpu_torch yet: only the "
-            "WavLM + Conformer model, its trainers and its dataset are ported")
+    """'pkg.mod.Name' -> attribute. Reference and JAX-package paths are
+    aliased to the port's factories and classes (REFERENCE_PATH_ALIASES); one
+    whose target is not ported yet raises NotImplementedError naming it."""
     path = REFERENCE_PATH_ALIASES.get(path, path)
+    if path in NOT_PORTED or path.split(".")[0] == "diarizen_tpu":
+        raise NotImplementedError(
+            f"{path!r} has no counterpart in diarizen_tpu_torch yet: the multi-channel, "
+            "fbank, SincNet (pyannote), S-Serious, x-vector and pruned/distilled model "
+            "families, torch.optim.AdamW and the JAX package's other modules are not "
+            "ported; WavLM + Conformer, its trainer, dataset and AdamW are")
     module_name, _, attr = path.rpartition(".")
     module = importlib.import_module(module_name)
     return getattr(module, attr)

@@ -1,10 +1,11 @@
-"""Audio io (port of diarizen_tpu/core/audio.py without FLAC).
+"""Audio io (port of diarizen_tpu/core/audio.py).
 
 WAV files (any PCM width or IEEE float) are read with the standard library's
 byte layout and numpy, with random access by `start_frame` / `num_frames`,
-into float32 in [-1, 1]; `Audio` adds downmix, resampling and padded crops.
-FLAC is not decoded yet: its decoder (core/flac.py of the JAX package) comes
-with a later slice of the port.
+into float32 in [-1, 1]; FLAC files through the native decoder of
+`core/flac.py`. `read_audio` and `get_audio_info` choose by the file name's
+suffix, or, for a file object, by the `fLaC` magic. `Audio` adds downmix,
+resampling and padded crops.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 from scipy.signal import resample_poly
 
+from diarizen_tpu_torch.core.flac import get_flac_info, read_flac
 from diarizen_tpu_torch.core.segments import Segment
 
 
@@ -90,31 +92,26 @@ def _read_wav_stream(fh, name: str, start_frame: int,
     return np.ascontiguousarray(x.reshape(-1, channels).T), sample_rate
 
 
-def _refuse_flac(path) -> None:
-    """FLAC waits for the port of core/flac.py; say so instead of misreading."""
+def _is_flac(path) -> bool:
+    """A file object by its first four bytes, a path by its suffix."""
     if hasattr(path, "read"):
         path.seek(0)
         magic = path.read(4)
         path.seek(0)
-        is_flac = magic == b"fLaC"
-    else:
-        is_flac = Path(path).suffix.lower() == ".flac"
-    if is_flac:
-        raise ValueError(
-            f"{path}: FLAC is not decoded by diarizen_tpu_torch yet (the decoder is "
-            "ported in a later slice, with core/flac.py); convert to WAV "
-            "(e.g. ffmpeg -i in.flac out.wav)")
+        return magic == b"fLaC"
+    return Path(path).suffix.lower() == ".flac"
 
 
 def read_audio(path, start_frame: int = 0,
                num_frames: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """Read an audio file (path or seekable file object) into float32
-    (channels, samples). Only WAV is decoded; FLAC and other formats raise."""
-    _refuse_flac(path)
+    """Read a WAV or FLAC file (path or seekable file object) into float32
+    (channels, samples); other formats raise."""
+    if _is_flac(path):
+        return read_flac(path, start_frame=start_frame, num_frames=num_frames)
     if not hasattr(path, "read") and Path(path).suffix.lower() not in (".wav", ".wave"):
         raise ValueError(
-            f"{path}: only WAV is decoded by diarizen_tpu_torch; convert to WAV "
-            "(e.g. ffmpeg -i in.flac out.wav)")
+            f"{path}: only WAV and FLAC are decoded by diarizen_tpu_torch; convert to WAV "
+            "(e.g. ffmpeg -i in.mp3 out.wav)")
     return read_wav(path, start_frame=start_frame, num_frames=num_frames)
 
 
@@ -129,8 +126,10 @@ def get_wav_info(path) -> Tuple[int, int, int]:
 
 
 def get_audio_info(path) -> Tuple[int, int, int]:
-    """(num_samples, sample_rate, num_channels) of a WAV file, header only."""
-    _refuse_flac(path)
+    """(num_samples, sample_rate, num_channels) of a WAV or FLAC file, from
+    its header."""
+    if _is_flac(path):
+        return get_flac_info(path)
     return get_wav_info(path)
 
 

@@ -4,7 +4,9 @@ diarizen_tpu/core/io_rttm.py)."""
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Iterable, List, Tuple, Union
+
+import numpy as np
 
 from diarizen_tpu_torch.core.segments import Annotation, Segment, Timeline
 
@@ -32,6 +34,13 @@ def load_rttm(path: PathLike) -> Dict[str, Annotation]:
     return annotations
 
 
+def write_rttm(path: PathLike, annotations: Iterable[Annotation]) -> None:
+    """Write Annotations to one RTTM file, in the given order."""
+    with open(path, "w") as f:
+        for ann in annotations:
+            f.write(ann.to_rttm())
+
+
 def load_uem(path: PathLike) -> Dict[str, Timeline]:
     """Parse a UEM file: `<uri> <channel> <start> <end>` per line."""
     uems: Dict[str, Timeline] = {}
@@ -48,3 +57,27 @@ def load_scp(path: PathLike) -> Dict[str, str]:
         uri, wav_path = line.split(maxsplit=1)
         out[uri] = wav_path
     return out
+
+
+def rttm_to_arrays(
+    annotations: Dict[str, Annotation],
+) -> Tuple[np.ndarray, List[str], Dict[str, List[str]]]:
+    """Flatten RTTM annotations into one structured array for fast chunk
+    cropping during training.
+
+    Returns (data, sessions, speakers): `data` has the fields session_idx
+    (int32), start, end (float64) and speaker_idx (int32); `sessions` lists the uris
+    in sorted order (index = session_idx); `speakers[uri]` lists the
+    session's speakers in sorted order (index = speaker_idx)."""
+    sessions = sorted(annotations)
+    speakers: Dict[str, List[str]] = {}
+    rows = []
+    for si, uri in enumerate(sessions):
+        ann = annotations[uri]
+        speakers[uri] = ann.labels()
+        spk_index = {s: i for i, s in enumerate(speakers[uri])}
+        rows += [(si, seg.start, seg.end, spk_index[label])
+                 for seg, _, label in ann.itertracks()]
+    dtype = np.dtype([("session_idx", np.int32), ("start", np.float64),
+                      ("end", np.float64), ("speaker_idx", np.int32)])
+    return np.array(rows, dtype=dtype), sessions, speakers

@@ -1,6 +1,9 @@
-"""Sliding-window inference, the device-side stitch and the diarization pipeline."""
+"""Sliding-window inference, the device-side stitch, the diarization
+pipeline and the frame-level pipelines (VAD, OSD, multi-label,
+resegmentation)."""
 
 from diarizen_tpu_torch.infer.fused import FusedStitch, make_fused_stitch
+from diarizen_tpu_torch.infer.multilabel import MultiLabelSegmentation
 from diarizen_tpu_torch.infer.pipeline import (
     DiarizationPipeline,
     EmbeddingInference,
@@ -8,10 +11,13 @@ from diarizen_tpu_torch.infer.pipeline import (
     speaker_count,
     to_diarization,
 )
+from diarizen_tpu_torch.infer.resegmentation import Resegmentation
 from diarizen_tpu_torch.infer.sliding import SlidingInference, receptive_field_window
+from diarizen_tpu_torch.infer.vad import OverlappedSpeechDetection, VoiceActivityDetection
 
 __all__ = [
     "DiarizationPipeline", "EmbeddingInference", "reconstruct", "speaker_count",
     "to_diarization", "SlidingInference", "receptive_field_window", "FusedStitch",
-    "make_fused_stitch",
+    "make_fused_stitch", "MultiLabelSegmentation", "Resegmentation",
+    "VoiceActivityDetection", "OverlappedSpeechDetection",
 ]

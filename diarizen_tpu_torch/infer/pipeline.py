@@ -141,11 +141,13 @@ def reconstruct(
 class EmbeddingInference:
     """Batched per-chunk masked speaker embeddings.
 
-    The log-mel filterbank is computed ONCE over the whole file and each
-    window gathers its frames from it (windows overlap 90%); this is exact
-    because every fbank frame depends only on its own 400 samples and the
-    window starts land on the 160-sample frame hop. Per-window mean
-    normalisation follows the gather."""
+    With `shared_fbank` (the default) the log-mel filterbank is computed ONCE
+    over the whole file and each window gathers its frames from it (windows
+    overlap 90%); this is exact because every fbank frame depends only on its
+    own 400 samples, and it applies when the window starts land on the
+    160-sample frame hop. Otherwise (`shared_fbank=False`, or a window step
+    off the 10 ms grid) each window's waveform is gathered and its fbank
+    computed on its own. Per-window mean normalisation follows either."""
 
     def __init__(
         self,
@@ -155,6 +157,7 @@ class EmbeddingInference:
         batch_size: int = 16,
         compute_dtype: torch.dtype = torch.float32,
         device: Optional[Union[str, torch.device]] = None,
+        shared_fbank: bool = True,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -162,6 +165,7 @@ class EmbeddingInference:
         self.num_speakers = num_speakers
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
+        self.shared_fbank = shared_fbank
         self.embed_dim = model.cfg.embed_dim
         self._frames_per_window = num_fbank_frames(window_size)
 
@@ -181,18 +185,22 @@ class EmbeddingInference:
         n = len(starts)
         if n == 0:
             return None
-        starts = np.asarray(starts)
-        if (starts % FRAME_SHIFT).any():
-            raise ValueError(f"window starts must be multiples of {FRAME_SHIFT} samples")
-        feats = kaldi_fbank(wave[None] * 32768.0)[0]  # (frames, 80), before CMN
-        frame_starts = to_device_async((starts // FRAME_SHIFT).astype(np.int64), self.device)
+        starts = np.asarray(starts, np.int64)
+        shared = self.shared_fbank and not (starts % FRAME_SHIFT).any()
+        if shared:  # windows of frames of one whole-file fbank
+            source, length = kaldi_fbank(wave[None] * 32768.0)[0], self._frames_per_window
+            starts = starts // FRAME_SHIFT
+        else:  # windows of samples, an fbank each
+            source, length = wave, self.window_size
+        starts_dev = to_device_async(starts, self.device)
         if not isinstance(weights, torch.Tensor):
             weights = to_device_async(np.asarray(weights), self.device)
         out = torch.zeros((n, self.num_speakers, self.embed_dim), device=self.device)
         for off, blen, pad in batch_row_spans(
                 n, self.batch_size, lambda m: tail_size(m, self.batch_size)):
-            windows = gather_rows(feats, frame_starts[off: off + blen],
-                                  self._frames_per_window, pad)
+            windows = gather_rows(source, starts_dev[off: off + blen], length, pad)
+            if not shared:
+                windows = kaldi_fbank(windows * 32768.0)
             windows = windows - windows.mean(dim=1, keepdim=True)
             wb = weights[off: off + blen].float()
             if pad:

@@ -2,10 +2,13 @@
 
 The waveform is cut into windows of `duration` seconds every `step` seconds
 (an orphan last window when the remainder is non-zero), the windows run
-through the EEND model in batches, and the powerset scores become hard
-multilabel activity: a (num_chunks, num_frames, K) SlidingWindowFeature on
-the chunk window, stitched later by `ops/aggregate.py` on the host or by
-`infer/fused.py` on the device.
+through the EEND model in batches, and the powerset scores become multilabel
+activity: a (num_chunks, num_frames, K) SlidingWindowFeature on the chunk
+window, hard (uint8 on the device, the diarization path, stitched later by
+`ops/aggregate.py` on the host or by `infer/fused.py` on the device) or soft
+(float32 probabilities, `soft=True`). `whole` runs one forward over a whole
+file; `aggregated` overlap-adds the soft windows into one frame sequence for
+the frame-level pipelines (VAD, OSD, multi-label).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from diarizen_tpu_torch.core.segments import SlidingWindow, SlidingWindowFeature
 from diarizen_tpu_torch.models.eend import EendModel
+from diarizen_tpu_torch.ops.aggregate import aggregate
 from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
 from diarizen_tpu_torch.utils import halve_batch_or_raise, resolve_device, to_device_async
 
@@ -107,23 +111,24 @@ class SlidingInference:
 
     @torch.inference_mode()
     def dispatch(self, wave: torch.Tensor, starts: np.ndarray,
-                 hook: Optional[Callable] = None) -> Optional[torch.Tensor]:
-        """Enqueue every batch; returns the hard multilabel activity
-        (num_chunks, num_frames, K) as uint8 ON THE DEVICE, without waiting
-        for it (None for no chunks). Fetch it with `collect`; splitting the
-        two lets a caller overlap this file's device work with another
-        file's host stages (`DiarizationPipeline.stream`)."""
+                 hook: Optional[Callable] = None, soft: bool = False) -> Optional[torch.Tensor]:
+        """Enqueue every batch; returns the multilabel activity
+        (num_chunks, num_frames, K) ON THE DEVICE, without waiting for it
+        (None for no chunks): hard as uint8, or with `soft` the float32
+        probabilities exp(scores) @ mapping. Fetch it with `collect`;
+        splitting the two lets a caller overlap this file's device work with
+        another file's host stages (`DiarizationPipeline.stream`)."""
         total = len(starts)
         if total == 0:
             return None
         starts_dev = to_device_async(np.asarray(starts, np.int64), self.device)
         out = torch.zeros((total, self._frames_per_chunk, self.powerset.num_classes),
-                          dtype=torch.uint8, device=self.device)
+                          dtype=torch.float32 if soft else torch.uint8, device=self.device)
         for off, blen, pad in batch_row_spans(
                 total, self.batch_size, lambda n: tail_size(n, self.batch_size)):
             chunks = gather_rows(wave, starts_dev[off: off + blen], self.window_size, pad)
             scores = self.model(chunks, compute_dtype=self.compute_dtype)
-            out[off: off + blen] = self.powerset.to_multilabel(scores)[:blen]
+            out[off: off + blen] = self.powerset.to_multilabel(scores, soft=soft)[:blen]
             if hook is not None:
                 hook("segmentation", None, total=total, completed=min(off + blen + pad, total))
         return out
@@ -136,13 +141,13 @@ class SlidingInference:
         return dispatched.cpu().numpy().astype(np.float32)
 
     def infer(self, wave: torch.Tensor, starts: np.ndarray,
-              hook: Optional[Callable] = None) -> np.ndarray:
-        """Hard multilabel activity (num_chunks, num_frames, K) as float32.
-        A device out-of-memory error halves `batch_size` and runs the file
-        again; anything else is raised unchanged."""
+              hook: Optional[Callable] = None, soft: bool = False) -> np.ndarray:
+        """Multilabel activity (num_chunks, num_frames, K) as float32, hard
+        or soft. A device out-of-memory error halves `batch_size` and runs
+        the file again; anything else is raised unchanged."""
         while True:
             try:
-                data = self.collect(self.dispatch(wave, starts, hook))
+                data = self.collect(self.dispatch(wave, starts, hook, soft))
                 break
             except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
                 self.batch_size = halve_batch_or_raise(e, self.batch_size,
@@ -155,10 +160,15 @@ class SlidingInference:
         return SlidingWindowFeature(
             data, SlidingWindow(start=0.0, duration=self.duration, step=self.step))
 
+    def _check_rate(self, sample_rate: Optional[int]) -> None:
+        if (sample_rate or self.sample_rate) != self.sample_rate:
+            raise ValueError(f"resample to {self.sample_rate} Hz before inference")
+
     def __call__(
         self,
         waveform: np.ndarray,
         sample_rate: Optional[int] = None,
+        soft: bool = False,
         hook: Optional[Callable] = None,
         prepared: Optional[Tuple[torch.Tensor, np.ndarray]] = None,
     ) -> SlidingWindowFeature:
@@ -166,10 +176,38 @@ class SlidingInference:
         each batch. `prepared` is an optional `prepare_wave(waveform)`
         result, so a caller can share one device copy of the waveform across
         stages."""
-        if (sample_rate or self.sample_rate) != self.sample_rate:
-            raise ValueError(f"resample to {self.sample_rate} Hz before inference")
+        self._check_rate(sample_rate)
         wave, starts = prepared if prepared is not None else self.prepare_wave(waveform)
-        return self.to_feature(self.infer(wave, starts, hook))
+        return self.to_feature(self.infer(wave, starts, hook, soft))
+
+    @torch.inference_mode()
+    def whole(self, waveform: np.ndarray, sample_rate: Optional[int] = None,
+              soft: bool = False) -> np.ndarray:
+        """One forward over the whole file, no windows: (num_frames, K)
+        multilabel, uint8 or (soft) float32. Memory grows with the file's
+        length, and WavLM's relative-position buckets saturate at 800
+        frames, so it is meant for short files."""
+        self._check_rate(sample_rate)
+        if waveform.ndim == 2:
+            waveform = waveform[self.cfg.selected_channel]
+        wave = to_device_async(np.asarray(waveform, np.float32)[None], self.device)
+        scores = self.model(wave, compute_dtype=self.compute_dtype)
+        return self.powerset.to_multilabel(scores, soft=soft)[0].cpu().numpy()
+
+    def aggregated(self, waveform: np.ndarray, sample_rate: Optional[int] = None,
+                   soft: bool = True,
+                   warm_up: Tuple[float, float] = (0.0, 0.0)) -> SlidingWindowFeature:
+        """Hamming-weighted overlap-add of the windows' scores into one
+        (num_frames, K) sequence on the model's frame grid, trimmed to the
+        file's frames: what the frame-level pipelines read."""
+        scores = self(waveform, sample_rate, soft=soft)
+        if waveform.ndim == 2:
+            waveform = waveform[0]
+        frames = receptive_field_window(self.cfg)
+        agg = aggregate(scores, frames, warm_up=warm_up, hamming=True, missing=0.0)
+        # drop the frames of the zero padding behind the orphan last window
+        agg.data = agg.data[: frames.closest_frame(waveform.shape[0] / self.sample_rate)]
+        return agg
 
 
 def receptive_field_window(cfg) -> SlidingWindow:

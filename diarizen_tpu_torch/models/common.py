@@ -108,12 +108,16 @@ def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dropout_rate: float = 0.0,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Plain scaled dot-product attention on (B, H, T, D): float32 logits and
-    softmax, dropout on the weights (with a generator), weights cast to q's
-    type for the product with v."""
+              generator: Optional[torch.Generator] = None,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain scaled dot-product attention on (B, H, T, D): float32 logits
+    (plus `bias`, broadcastable to (B, H, T, T)) and softmax, dropout on the
+    weights (with a generator), weights cast to q's type for the product
+    with v."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        logits = logits + bias.float()
     w = torch.softmax(logits - logits.amax(dim=-1, keepdim=True).detach(), dim=-1)
     w = dropout(w, dropout_rate, generator)
     return torch.matmul(w.to(q.dtype), v).to(q.dtype)

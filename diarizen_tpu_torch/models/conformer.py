@@ -3,6 +3,9 @@
 N blocks of macaron FFN (half residual) -> MHSA -> conv module (GLU,
 depthwise conv, BatchNorm, swish) -> FFN -> LayerNorm, with the
 reference's key layout (`conformer_layer.{i}.{ffn1,mha,conv,ffn2,ln_norm}`).
+With `use_posi` the attention logits of every block add relative-position
+key scores q · pe_k[clip(i - j)] / sqrt(d_head), from one shared table
+(`pos_emb.pe_k`).
 
 Train mode: BatchNorm normalises with the batch statistics (biased
 variance) and moves its running statistics in place with momentum 0.1
@@ -13,6 +16,7 @@ weights and output, and after the conv module, from the device generator.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -74,7 +78,8 @@ class _MHA(nn.Module):
         self.ln_norm = nn.LayerNorm(d)
         self.mha = _Projections(d)
 
-    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None,
+                pos_k: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, d = x.shape
         h = layer_norm(self.ln_norm, x)
         nh = self.num_heads
@@ -82,9 +87,12 @@ class _MHA(nn.Module):
         def split(z):
             return z.reshape(b, t, nh, d // nh).transpose(1, 2)
 
-        out = attention(split(linear(self.mha.linearQ, h)),
-                        split(linear(self.mha.linearK, h)),
-                        split(linear(self.mha.linearV, h)), self.rate, gen)
+        q = split(linear(self.mha.linearQ, h))
+        bias = None
+        if pos_k is not None:  # (T, T, d_head) relative-position keys
+            bias = torch.einsum("bhtd,tsd->bhts", q.float(), pos_k.float()) / math.sqrt(d // nh)
+        out = attention(q, split(linear(self.mha.linearK, h)),
+                        split(linear(self.mha.linearV, h)), self.rate, gen, bias=bias)
         out = linear(self.mha.linearO, out.transpose(1, 2).reshape(b, t, d))
         return x + dropout(out, self.rate, gen)
 
@@ -142,8 +150,9 @@ class _ConformerBlock(nn.Module):
         self.ln_norm = nn.LayerNorm(cfg.dim)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.mha(self.ffn1(x, gen), gen)
+                gen: Optional[torch.Generator] = None,
+                pos_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.mha(self.ffn1(x, gen), gen, pos_k)
         x = self.ffn2(self.conv(x, train, gen), gen)
         return layer_norm(self.ln_norm, x)
 
@@ -152,21 +161,36 @@ _ACTIVATIONS = {None: lambda x: x, "relu": torch.relu, "tanh": torch.tanh,
                 "sigmoid": torch.sigmoid}
 
 
+class _RelativePositionKeys(nn.Module):
+    def __init__(self, maxlen: int, head_dim: int):
+        super().__init__()
+        self.maxlen = maxlen
+        self.pe_k = nn.Embedding(2 * maxlen, head_dim)
+
+    def forward(self, t: int) -> torch.Tensor:
+        """(T, T, head_dim) keys of the offsets i - j, clipped to
+        [-maxlen, maxlen - 1]."""
+        pos = torch.arange(t, device=self.pe_k.weight.device)
+        offset = (pos[:, None] - pos[None, :]).clamp(-self.maxlen, self.maxlen - 1)
+        return self.pe_k.weight[offset + self.maxlen]
+
+
 class Conformer(nn.Module):
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        if cfg.use_posi:
-            raise NotImplementedError("relative-position keys (use_posi) are not ported")
         if cfg.output_activation not in _ACTIVATIONS:
             raise ValueError(f"unknown output activation {cfg.output_activation}")
         self.cfg = cfg
         self.conformer_layer = nn.ModuleList(_ConformerBlock(cfg) for _ in range(cfg.num_layers))
+        if cfg.use_posi:
+            self.pos_emb = _RelativePositionKeys(cfg.posi_maxlen, cfg.dim // cfg.num_heads)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: Optional[TrainRandom] = None) -> torch.Tensor:
         """(B, T, dim) -> (B, T, dim). `train` selects BatchNorm's batch
         statistics; dropout needs `rng` as well."""
         gen = rng.device if (train and rng is not None) else None
+        pos_k = self.pos_emb(x.shape[1]) if self.cfg.use_posi else None
         for block in self.conformer_layer:
-            x = block(x, train, gen)
+            x = block(x, train, gen, pos_k)
         return _ACTIVATIONS[self.cfg.output_activation](x)

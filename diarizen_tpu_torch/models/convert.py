@@ -124,6 +124,8 @@ def conformer_state_dict_from_jax(params: dict, state: dict, prefix: str = "") -
                     bstate["bn"]["mean"], bstate["bn"]["var"])
         _conv1d(sd, f"{key}.conv.pointwise_conv2", c["pw2"])
         _norm(sd, f"{key}.ln_norm", block["final_norm"])
+    if "pos_emb" in params:
+        sd[f"{prefix}pos_emb.pe_k.weight"] = _t(params["pos_emb"])
     return sd
 
 
@@ -162,6 +164,11 @@ def resnet_state_dict_from_jax(params: dict, cfg) -> StateDict:
                 conv(f"{key}.shortcut.0", bp["shortcut_conv"])
                 bn(f"{key}.shortcut.1", bp["shortcut_bn"])
     _linear(sd, "seg_1", params["seg1"])
+    if getattr(cfg, "two_emb_layer", False):  # ReLU, affine-free BatchNorm, seg_2
+        sd["seg_bn_1.running_mean"] = _t(params["seg_bn1"]["mean"])
+        sd["seg_bn_1.running_var"] = _t(params["seg_bn1"]["var"])
+        sd["seg_bn_1.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        _linear(sd, "seg_2", params["seg2"])
     return sd
 
 

@@ -3,9 +3,10 @@ inference).
 
 The fbank (B, T, 80) is a one-channel image with H = mel and W = time; four
 stages of basic blocks, masked weighted statistics pooling (mean and
-unbiased std) and a linear head give one embedding per weight row. Keys are
-WeSpeaker's (`conv1`, `bn1`, `layerN.M.*`, `seg_1`); BatchNorm uses its
-running statistics.
+unbiased std) and a linear head give one embedding per weight row; with
+`two_emb_layer` the head goes on through ReLU, an affine-free BatchNorm and a
+second linear layer. Keys are WeSpeaker's (`conv1`, `bn1`, `layerN.M.*`,
+`seg_1`, `seg_bn_1`, `seg_2`); BatchNorm uses its running statistics.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ class ResNetConfig:
     num_blocks: Tuple[int, ...] = (3, 4, 6, 3)
     feat_dim: int = 80
     embed_dim: int = 256
+    two_emb_layer: bool = False
 
     @property
     def stats_dim(self) -> int:
@@ -119,6 +121,9 @@ class ResNet(nn.Module):
                 in_planes = planes
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
         self.seg_1 = nn.Linear(cfg.stats_dim * 2, cfg.embed_dim)
+        if cfg.two_emb_layer:
+            self.seg_bn_1 = nn.BatchNorm1d(cfg.embed_dim, affine=False)
+            self.seg_2 = nn.Linear(cfg.embed_dim, cfg.embed_dim)
 
     def forward(self, fbank: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, 80) fbank [+ (B, T') or (B, S, T') weights] -> float32
@@ -130,4 +135,9 @@ class ResNet(nn.Module):
             x = getattr(self, f"layer{li}")(x)
         b, c, h, w = x.shape
         stats = stats_pool(x.reshape(b, c * h, w), weights)
-        return F.linear(stats, self.seg_1.weight.float(), self.seg_1.bias.float())
+        emb = F.linear(stats, self.seg_1.weight.float(), self.seg_1.bias.float())
+        if not self.cfg.two_emb_layer:
+            return emb
+        bn = self.seg_bn_1
+        out = (torch.relu(emb) - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
+        return F.linear(out, self.seg_2.weight.float(), self.seg_2.bias.float())

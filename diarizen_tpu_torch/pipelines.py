@@ -60,6 +60,21 @@ def resolve_model_dir(model_dir_or_repo: Union[str, Path]) -> Path:
         ) from e
 
 
+def load_resnet(embedding_ckpt: Optional[Union[str, Path]] = None) -> ResNet:
+    """The WeSpeaker ResNet34 from a torch checkpoint (a state dict, or a
+    dict holding one under "state_dict"; keys with or without the "resnet."
+    prefix), or with seeded random weights when none is given."""
+    resnet = ResNet(ResNetConfig())
+    if embedding_ckpt is None:
+        resnet.load_state_dict(random_state_dict(resnet, seed=0))
+        return resnet
+    sd = torch.load(embedding_ckpt, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    resnet.load_state_dict({k.removeprefix("resnet."): v for k, v in sd.items()}, strict=True)
+    return resnet
+
+
 def from_pretrained(
     model_dir: Union[str, Path],
     embedding_ckpt: Optional[Union[str, Path]] = None,
@@ -108,16 +123,8 @@ def from_pretrained(
         batch_size=batch_size, device=device,
     )
 
-    resnet = ResNet(ResNetConfig())
-    if embedding_ckpt is not None:
-        sd = torch.load(embedding_ckpt, map_location="cpu", weights_only=False)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
-        resnet.load_state_dict(sd, strict=True)
-    else:  # no checkpoint: seeded random weights, as the JAX loader draws them
-        resnet.load_state_dict(random_state_dict(resnet, seed=0))
     emb_inf = EmbeddingInference(
-        resnet, window_size=seg_inf.window_size,
+        load_resnet(embedding_ckpt), window_size=seg_inf.window_size,
         num_speakers=cfg.max_speakers_per_chunk, batch_size=batch_size, device=device,
     )
 

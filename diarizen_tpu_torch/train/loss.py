@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from diarizen_tpu_torch.ops.der import der_components
 from diarizen_tpu_torch.ops.losses import nll_loss
 from diarizen_tpu_torch.ops.permutation import permutate_enumerate
 from diarizen_tpu_torch.ops.powerset import Powerset
@@ -32,15 +33,8 @@ def der_metrics(powerset: Powerset, scores: torch.Tensor, target: torch.Tensor,
     """Scalar sums over a batch of chunks: false_alarm, missed_detection,
     confusion, speech_total; DER = (fa + miss + conf) / total, accumulated
     over batches."""
-    pred = powerset.to_multilabel(scores, soft=False).float()
-    target = target.float()
-    aligned, _ = permutate_enumerate(target, pred)
-    hyp = (aligned > threshold).float()  # (B, F, K)
-    detection_error = hyp.sum(-1) - target.sum(-1)  # (B, F)
-    false_alarm_f = detection_error.clamp_min(0.0)
-    return {
-        "false_alarm": false_alarm_f.sum(),
-        "missed_detection": (-detection_error).clamp_min(0.0).sum(),
-        "confusion": (((hyp != target).float() * hyp).sum(-1) - false_alarm_f).sum(),
-        "speech_total": target.sum(),
-    }
+    pred = powerset.to_multilabel(scores, soft=False)
+    fa, miss, conf, total = der_components(pred.transpose(1, 2), target.transpose(1, 2),
+                                           threshold)
+    return {"false_alarm": fa, "missed_detection": miss, "confusion": conf,
+            "speech_total": total}

@@ -68,3 +68,36 @@ def test_resnet_masked_embeddings_match_jax(wave, m_channels, num_blocks):
         got = model.eval()(torch.from_numpy(fbank), torch.from_numpy(weights)).numpy()
     assert got.shape == expected.shape == (2, 3, 32)
     np.testing.assert_allclose(got, expected, **TOL)
+
+
+def test_two_embedding_layers_match_jax(wave):
+    """`two_emb_layer`: ReLU, the affine-free BatchNorm `seg_bn_1` and `seg_2`
+    after `seg_1`; outputs against JAX, and the port's state dict carried
+    back through the JAX package's converter gives the same params."""
+    from diarizen_tpu.models.resnet import resnet_params_from_torch
+
+    jcfg = JaxResNetConfig(m_channels=8, num_blocks=(1, 1, 1, 1), embed_dim=24,
+                           two_emb_layer=True, packed_stem=False)
+    rng = np.random.default_rng(6)
+    params = jax.tree_util.tree_map(np.asarray, init_resnet_params(jax.random.PRNGKey(3), jcfg))
+    params["seg1"]["b"] = (0.1 * rng.standard_normal(24)).astype(np.float32)
+    params["seg_bn1"] = {"mean": (0.1 * rng.standard_normal(24)).astype(np.float32),
+                         "var": rng.uniform(0.5, 1.5, 24).astype(np.float32)}
+    params["seg2"] = {"w": (rng.standard_normal((24, 24)) / 5).astype(np.float32),
+                      "b": (0.1 * rng.standard_normal(24)).astype(np.float32)}
+    fbank = np.array(jax_wespeaker_fbank(jnp.asarray(wave)))
+    weights = (rng.uniform(size=(2, 3, 50)) > 0.3).astype(np.float32)
+    expected = np.asarray(resnet_forward(params, jcfg, jnp.asarray(fbank), jnp.asarray(weights)))
+
+    model = ResNet(ResNetConfig(m_channels=8, num_blocks=(1, 1, 1, 1), embed_dim=24,
+                                two_emb_layer=True))
+    model.load_state_dict(resnet_state_dict_from_jax(params, jcfg))
+    with torch.no_grad():
+        got = model.eval()(torch.from_numpy(fbank), torch.from_numpy(weights)).numpy()
+    assert got.shape == expected.shape == (2, 3, 24)
+    np.testing.assert_allclose(got, expected, **TOL)
+
+    back = resnet_params_from_torch(model.state_dict(), jcfg)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(params)
+    for a, b in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))

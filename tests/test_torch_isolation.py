@@ -34,6 +34,9 @@ print(" ".join(names))
 # the modules of the snapshot-to-RTTM slice must be among those walked
 SNAPSHOT_SLICE = ("config", "pipelines", "cluster.vbx", "core.audio", "models.build",
                   "models.convert", "ops.conv_chain", "utils")
+# and those of the scoring and frame-level slice
+EVALUATION_SLICE = ("ops.der", "cluster.oracle", "core.flac", "infer.vad", "infer.multilabel",
+                    "infer.resegmentation", "logger", "recipes.diar_ssl.infer")
 
 
 def test_every_port_module_imports_without_jax():
@@ -41,8 +44,8 @@ def test_every_port_module_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 43
-    assert all(f"diarizen_tpu_torch.{m}" in names for m in SNAPSHOT_SLICE)
+    assert len(names) >= 53
+    assert all(f"diarizen_tpu_torch.{m}" in names for m in SNAPSHOT_SLICE + EVALUATION_SLICE)
     for path in [*(ROOT / "diarizen_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()

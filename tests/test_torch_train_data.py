@@ -109,8 +109,8 @@ def test_kaldi_io_and_wav_reads(kaldi_dir):
     rttm = load_rttm(kaldi_dir / "rttm")
     assert sorted(rttm["rec2"].labels()) == ["A", "B", "C"] and len(rttm["rec1"]) == 2
     assert load_uem(kaldi_dir / "all.uem")["rec1"].extent().end == 12.0
-    with pytest.raises(ValueError, match="WAV"):
-        read_audio(kaldi_dir / "rec1.flac")
+    with pytest.raises(ValueError, match="WAV"):  # neither WAV nor FLAC
+        read_audio(kaldi_dir / "rec1.mp3")
 
 
 def test_loader_batches_match_jax(kaldi_dir):

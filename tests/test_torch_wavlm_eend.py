@@ -153,3 +153,37 @@ def test_layers_hand_the_kernel_its_padded_bias_rows(models, monkeypatch):
         assert pos.stride() == (t * bias_row_stride(t), bias_row_stride(t), 1)
         assert padded_bias(pos, torch.float32) is pos  # no copy before the kernel
         torch.testing.assert_close(pos, exact[list(h)], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("t", [37, 1100], ids=["T37", "T1100-clipped"])
+def test_conformer_relative_positions_match_jax(t):
+    """`use_posi`: relative-position key scores from one shared table, the
+    offsets clipped to the table beyond posi_maxlen (a short table makes the
+    clipping show at T 1100); outputs against JAX and the converter round
+    trip exact."""
+    from diarizen_tpu.models.conformer import conformer_forward, init_conformer_params
+    from diarizen_tpu.models.convert import conformer_params_from_torch
+    from diarizen_tpu_torch.models.conformer import Conformer
+    from diarizen_tpu_torch.models.convert import conformer_state_dict_from_jax
+
+    jcfg = JaxConformerConfig(dim=32, ffn_hidden=48, num_heads=4, num_layers=2, use_posi=True,
+                              posi_maxlen=500)
+    rng = np.random.default_rng(4)
+    params, state = init_conformer_params(jax.random.PRNGKey(2), jcfg)
+    params = _perturbed(params, rng)
+    params["pos_emb"] = rng.standard_normal(params["pos_emb"].shape).astype(np.float32)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    x = rng.standard_normal((2, t, 32)).astype(np.float32)
+    expected, _ = conformer_forward(params, state, jcfg, jax.numpy.asarray(x))
+
+    model = Conformer(ConformerConfig(**dataclasses.asdict(jcfg))).eval()
+    model.load_state_dict(conformer_state_dict_from_jax(params, state))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), **TOL)
+
+    back_params, back_state = conformer_params_from_torch(model.state_dict(), jcfg)
+    for original, back in ((params, back_params), (state, back_state)):
+        assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(original)
+        for a, b in zip(jax.tree_util.tree_leaves(original), jax.tree_util.tree_leaves(back)):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
