@@ -82,7 +82,22 @@ Phases (any failure exits non-zero, before the last line is printed):
      the embedding stage against the shared one (float32, within 1e-4); and
      `whole` over 30 s (T 1499): bf16 scores against float32 within the
      margin-aware bar, K1's launches;
- 13. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
+ 13. fine-tune, distill-prune and collapse WavLM-Base through the recipe CLIs
+     on synthetic Kaldi directories: `recipes.diar_ssl.run` trains the
+     flagship TOML's model for one epoch of 8 steps (16 x 8 s, bf16) and
+     validates it (`-M validate` must read the epoch's validation again),
+     `get_wavlm_from_finetuned` takes its trunk out; `run_distill_prune` with
+     s80_base.toml's settings distill-prunes a seeded reference-format
+     WavLM-Base teacher file for 8 steps at 16 x 8 s in bf16 (12 launches
+     each of K1 inference, K1 training and K2 a step), one more step profiled;
+     K1's training instance and K2 at dropout rate 0 against their plain
+     versions (2e-2), timed
+     beside their bounds and SDPA; `apply_pruning` on the run's checkpoints;
+     the surgery of seeded log-alphas (about 80% of the units, 1-12 heads a
+     layer, layer 0's attention and one feed-forward pruned): the pruned
+     model against the gated one with compiled masks (f32 within 1e-4), its
+     K1 launches, and K1 at its head counts;
+ 14. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
      last JSON line {"ok": true, "device": {...}}.
 """
 
@@ -122,17 +137,40 @@ from diarizen_tpu_torch.infer import (
 )
 from diarizen_tpu_torch.models import build
 from diarizen_tpu_torch.models.conformer import ConformerConfig
-from diarizen_tpu_torch.models.convert import random_state_dict
+from diarizen_tpu_torch.models.convert import (
+    load_pytree,
+    random_state_dict,
+    wavlm_state_dict_from_jax,
+)
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank import wespeaker_fbank
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
-from diarizen_tpu_torch.models.wavlm import WavLMConfig, set_conv_chain, set_fused_ln
+from diarizen_tpu_torch.models.wavlm import (
+    WavLM,
+    WavLMConfig,
+    count_params,
+    set_conv_chain,
+    set_fused_ln,
+)
 from diarizen_tpu_torch.ops import conv_chain as k5
 from diarizen_tpu_torch.ops import flash_attention as k1
 from diarizen_tpu_torch.ops import fused_ln as k3
 from diarizen_tpu_torch.ops.binarize import binarize_hysteresis
 from diarizen_tpu_torch.ops.der import der_report
+from diarizen_tpu_torch.prune import (
+    DistillConfig,
+    PruneConfig,
+    apply_pruning,
+    compile_gates,
+    compiled_mask,
+    create_distill_prune_state,
+    init_gates,
+    make_distill_prune_step,
+)
 from diarizen_tpu_torch.recipes.diar_ssl import infer as recipe_infer
+from diarizen_tpu_torch.recipes.diar_ssl import run as recipe_run
+from diarizen_tpu_torch.recipes.diar_ssl_pruning import apply_pruning as apply_pruning_cli
+from diarizen_tpu_torch.recipes.diar_ssl_pruning import get_wavlm_from_finetuned, run_distill_prune
 from diarizen_tpu_torch.train import Trainer, TrainerConfig, dual_lr_optimizer, train_step
 from diarizen_tpu_torch.train.checkpoint import (
     append_metrics,
@@ -1687,6 +1725,320 @@ def phase_evaluation(card: str, resnet_sd, flac_jobs) -> dict:
     return {"recipe": recipe_k1, "whole": whole_k1}
 
 
+PRUNE_DURATIONS = [136] * 4  # 8 s / 8 s: 17 chunks each, 4 batches of 16 an epoch
+PRUNE_EPOCHS = 2  # 8 distill steps
+# kept heads of each layer in the collapse surgery: 1 to 12, layer 0's attention pruned
+PRUNED_HEADS = (12, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12)
+PRUNED_FF_LAYER = 9  # its feed-forward goes
+
+
+def recipe_toml(path: Path, root: Path, changes: dict) -> Path:
+    """A repository recipe TOML with `changes` ({"section.key": value}) and
+    its experiments under `root/exp`, written to `root`."""
+    config = port_config.apply_overrides(port_config.load_toml(path),
+                                         {"meta.save_dir": str(root / "exp"), **changes})
+    out = root / path.name
+    port_config.dump_toml(config, out)
+    return out
+
+
+def data_changes(section: str, data: Path) -> dict:
+    return {f"{section}.args.{key}": str(data / name) for key, name in
+            (("scp_file", "wav.scp"), ("rttm_file", "rttm"), ("uem_file", "all.uem"))}
+
+
+class LaunchRecorder:
+    """Recipe step hook: each step's metrics, wall ms since the previous
+    step ended (a step reads its metrics, so the device has finished it) and
+    K1's and K2's launches during the step."""
+
+    def __init__(self):
+        self.steps = []
+        self.reset()
+
+    def reset(self) -> None:
+        k1.launches = k1.train_launches = k1.bwd_launches = 0
+        self.counts = (0, 0, 0)
+        self.last = time.perf_counter()
+
+    def __call__(self, metrics) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = (k1.launches, k1.train_launches, k1.bwd_launches)
+        self.steps.append({**metrics, "ms": 1e3 * (now - self.last),
+                           **dict(zip(("k1", "k1_train", "k2"),
+                                      (a - b for a, b in zip(counts, self.counts))))})
+        self.last, self.counts = now, counts
+
+
+def rate0_trainable_kernels(gen) -> list:
+    """K1's training instance and K2 at dropout rate 0 (the distill step's
+    student) at (B 16, H 12, T 399) bf16 against the plain version's forward
+    and autograd, within 2e-2 of each tensor's largest magnitude; timed
+    beside their bounds and SDPA."""
+    (q, k, v, pos, gate), do = trainable_inputs(TRAIN_BATCH, TRAIN_HEADS, FRAMES,
+                                                torch.bfloat16, gen)
+    results = []
+    for fn in (k1.flash_attention_gated_bias_trainable, k1.flash_attention_gated_bias_reference):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+        out = fn(*leaves, dropout_rate=0.0)
+        out.backward(do)
+        results.append([out.detach()] + [x.grad for x in leaves])
+    torch.cuda.synchronize()
+    errs = []
+    for name, got, want in zip(("o", "dq", "dk", "dv", "dpos_bias", "dgate"), *results):
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        errs.append(err)
+        check(np.isfinite(err) and err <= 2e-2 * scale,
+              f"{name} of K1/K2 at rate 0 disagrees with the plain version: {err} of {scale}")
+        print(f"K1+K2 rate 0 vs plain bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} T={FRAMES} {name}: "
+              f"{err / scale:.2e} of max magnitude (tolerance 2e-2)")
+    bias = k1.padded_bias(pos, torch.bfloat16)
+    mask = (gate[..., None] * pos).to(torch.bfloat16)
+    out, lse = k1._forward_train(q, k, v, bias, gate, 0.0, 0)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+    plain = k1.flash_attention_gated_bias_reference(*leaves, 0.0)
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v, mask)]
+    lib = F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3])
+    rows = {
+        "fwd": {"ms": median_ms(lambda: k1._forward_train(q, k, v, bias, gate, 0.0, 0)),
+                "plain_ms": median_ms(
+                    lambda: k1.flash_attention_gated_bias_reference(q, k, v, pos, gate, 0.0)),
+                "library_ms": median_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+                "max_abs_err": errs[0]},
+        "bwd": {"ms": median_ms(lambda: k1._backward(q, k, v, bias, gate, out, lse, do, 0.0, 0)),
+                "plain_ms": median_ms(lambda: torch.autograd.grad(plain, leaves, do,
+                                                                  retain_graph=True)),
+                "library_ms": median_ms(lambda: torch.autograd.grad(lib, lib_leaves, do,
+                                                                    retain_graph=True)),
+                "max_abs_err": max(errs[1:])},
+    }
+    bounds = trainable_bound_s(TRAIN_BATCH, TRAIN_HEADS, FRAMES, HEAD_DIM, 2)
+    for key, row in rows.items():
+        mem_s, op_s = bounds[key]
+        row["bound_ms"] = 1e3 * max(mem_s, op_s)
+        row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
+        print(f"{'K1 training' if key == 'fwd' else 'K2'} bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} "
+              f"T={FRAMES} rate=0: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"(by {row['bound_by']})")
+    return [rows["fwd"], rows["bwd"]]
+
+
+def collapse_log_alphas(cfg: WavLMConfig, seed: int) -> dict:
+    """Seeded log-alphas whose compiled masks prune about 80% of the units:
+    PRUNED_HEADS heads kept per layer (scattered, layer 0's attention gone),
+    200-699 of 3072 intermediates (soft values 0.97-1 on the kept ones), one
+    feed-forward gone, half to two thirds of the channels of conv layers
+    0-5 (the last one keeps all its channels: its mask becomes dummy_weight)."""
+    rng = np.random.default_rng(seed)
+
+    def units(n: int, keep: int, soft: bool = False) -> torch.Tensor:
+        la = np.full(n, -20.0, np.float32)
+        kept = rng.choice(n, keep, replace=False)
+        la[kept] = rng.uniform(3.0, 20.0, keep) if soft else 20.0
+        return torch.from_numpy(la)
+
+    conv = [units(c, c if i == len(cfg.conv_layers) - 1 else int(rng.integers(c // 2, 2 * c // 3)),
+                  soft=True) for i, (c, _, _) in enumerate(cfg.conv_layers)]
+    layers = [{"heads": units(12, h),
+               "attn_layer": torch.tensor([-20.0 if i == 0 else 5.0]),
+               "ff_interm": units(3072, int(rng.integers(200, 700)), soft=True),
+               "ff_layer": torch.tensor([-20.0 if i == PRUNED_FF_LAYER else 5.0])}
+              for i, h in enumerate(PRUNED_HEADS)]
+    return {"conv": conv, "layers": layers}
+
+
+def hidden_errors(got, want) -> float:
+    """Largest |got - want| of the hidden states, each over max(1, its
+    largest magnitude)."""
+    return max((g.float() - w.float()).abs().max().item() / max(1.0, w.float().abs().max().item())
+               for g, w in zip(got, want))
+
+
+def phase_pruning(card: str) -> dict:
+    """Fine-tune, distill-prune and collapse WavLM-Base through the recipe
+    CLIs, on synthetic Kaldi directories in a temporary directory:
+    `recipes.diar_ssl.run` trains the flagship TOML's model (WavLM-Base +
+    Conformer, 16 x 8 s, bf16) for one epoch and validates it, and
+    `get_wavlm_from_finetuned` takes its trunk out; `run_distill_prune`
+    distill-prunes a seeded reference-format WavLM-Base teacher file with
+    s80_base.toml's settings for 8 steps at 16 x 8 s in bf16 (12 launches
+    each of K1 inference, K1 training and K2 a step); one more distill step
+    under the profiler; K1 training and K2 at rate 0 against their plain
+    versions, timed; `apply_pruning` on the run's
+    checkpoints; then the surgery of seeded log-alphas (about 80% of the
+    units, 1-12 heads a layer, layer 0's attention pruned): the pruned
+    model's forward against the gated one with compiled masks (float32
+    within 1e-4; bf16 within 1e-1, its rounding compounding over 12
+    layers), its K1 launches, and K1 at its head counts. Returns the rate-0
+    rows and the launches."""
+    repo = Path(__file__).resolve().parent
+    base = WavLMConfig.base()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # ---- fine-tune the flagship recipe's model for one epoch ----------------
+        t0 = time.perf_counter()
+        train = write_kaldi_dir(root, "train", [200] * 4, seed=0)
+        dev = write_kaldi_dir(root, "dev", [70], seed=1)
+        finetune = recipe_toml(repo / "recipes/diar_ssl/conf/wavlm_updated_conformer.toml", root, {
+            "trainer.args.max_epochs": 1, "trainer.args.max_num_checkpoints": 1,
+            **data_changes("train_dataset", train), **data_changes("validate_dataset", dev)})
+        recorder = LaunchRecorder()
+        trained = recipe_run.main(["-C", str(finetune), "-M", "train"], step_hook=recorder)
+        validated = recipe_run.main(["-C", str(finetune), "-M", "validate"])
+        steps = recorder.steps
+        check(len(steps) == TRAIN_STEPS and all(np.isfinite(s["loss"]) and not s["skipped"]
+                                                for s in steps), "a fine-tune step failed")
+        check(all(np.isfinite(validated[k]) and abs(validated[k] - trained[k])
+                  <= 1e-3 * max(1.0, abs(trained[k])) for k in ("loss", "der")),
+              f"-M validate {validated} disagrees with the epoch's validation {trained}")
+        exp = root / "exp" / finetune.stem
+        get_wavlm_from_finetuned.main(["--exp_dir", str(exp), "--wavlm_src", "wavlm_base",
+                                       "--out_dir", str(root / "trunk"), "--avg_ckpt_num", "1"])
+        # the trunk's params.npz carries back into WavLM-Base whole
+        WavLM(base).load_state_dict(wavlm_state_dict_from_jax(
+            load_pytree(root / "trunk/params.npz"), base), strict=True)
+        print(f"fine-tune recipe {card}: {len(steps)} steps, median "
+              f"{np.median([s['ms'] for s in steps[2:]]):.2f} ms/step after 2 warm-up steps; "
+              f"validation loss {trained['loss']:.5f} DER {trained['der']:.5f}, -M validate "
+              f"{validated['loss']:.5f} / {validated['der']:.5f}; trunk taken out "
+              f"({time.perf_counter() - t0:.1f} s in all)")
+
+        # ---- distill-prune a seeded WavLM-Base teacher --------------------------
+        t0 = time.perf_counter()
+        teacher_path = root / "wavlm_base_teacher.pt"
+        teacher = WavLM(base)
+        teacher_sd = random_state_dict(teacher, seed=11)
+        torch.save({"config": base.to_reference_dict(), "state_dict": teacher_sd}, teacher_path)
+        data = write_kaldi_dir(root, "prune", PRUNE_DURATIONS, seed=2)
+        prune_toml = recipe_toml(repo / "recipes/diar_ssl_pruning/conf/s80_base.toml", root, {
+            "trainer.args.max_epochs": PRUNE_EPOCHS, "model.args.wavlm_src": str(teacher_path),
+            **data_changes("train_dataset", data)})
+        torch.cuda.reset_peak_memory_stats()
+        recorder = LaunchRecorder()
+        run_distill_prune.main(["-C", str(prune_toml)], step_hook=recorder)
+        peak = torch.cuda.max_memory_allocated()
+        steps = recorder.steps
+        for i, s in enumerate(steps):
+            print(f"  distill step {i}: loss {s['loss']:.5f} (distill {s['loss_distill']:.5f}), "
+                  f"sparsity expected {s['sparsity_expected']:.5f} target "
+                  f"{s['sparsity_target']:.5f}, lambda1 {s['lambda1']:.3e}; {s['ms']:.2f} ms; "
+                  f"K1 inference {s['k1']}, K1 training {s['k1_train']}, K2 {s['k2']}")
+        step_ms = float(np.median([s["ms"] for s in steps[2:]]))
+        print(f"distill-prune {card}: {len(steps)} steps of {TRAIN_BATCH} x 8 s (WavLM-Base teacher "
+              f"and student, bf16), median {step_ms:.2f} ms/step after 2 warm-up steps, peak "
+              f"device memory {peak / 2**30:.3f} GiB ({time.perf_counter() - t0:.1f} s in all)")
+        check(len(steps) == PRUNE_EPOCHS * 4 and all(np.isfinite(s["loss"]) and not s["skipped"]
+                                                     for s in steps), "a distill step failed")
+        check(all(s["k1"] == s["k1_train"] == s["k2"] == base.num_layers for s in steps),
+              "K1 inference, K1 training and K2 must each launch 12 times a distill step")
+        # the student, whose sampled masks make it differ from the teacher,
+        # moves towards it; the lambdas and the target move
+        check(steps[-1]["loss_distill"] < steps[0]["loss_distill"] and steps[-1]["lambda1"] != 0.0
+              and steps[-1]["sparsity_target"] > steps[0]["sparsity_target"],
+              "the distill-prune dynamics")
+
+        # one more distill step of the library's, under the profiler
+        teacher.load_state_dict(teacher_sd)
+        teacher.cuda()
+        student = WavLM(base)
+        student.load_state_dict(teacher_sd)
+        dcfg = DistillConfig()
+        state = create_distill_prune_state(
+            student, init_gates(base, PruneConfig(), torch.Generator().manual_seed(1)), dcfg)
+        step = make_distill_prune_step(base, dcfg, teacher)
+        wave = torch.from_numpy(make_wave(8)[:, :128000].repeat(TRAIN_BATCH, 0)).cuda()
+        wave = wave + 0.01 * torch.randn(wave.shape, device="cuda",
+                                         generator=torch.Generator(device="cuda").manual_seed(5))
+        for _ in range(2):
+            step(state, wave)
+        phase_profile(f"one distill step {card}", lambda: step(state, wave))
+        del state, step, student
+
+        rate0 = rate0_trainable_kernels(torch.Generator(device="cuda").manual_seed(3))
+
+        # ---- collapse: the run's checkpoints, then seeded log-alphas ------------
+        report = apply_pruning_cli.main(["-C", str(prune_toml), "--out_dir",
+                                         str(root / "pruned"), "--avg_ckpt_num", "2"])
+        check(0 <= report["sparsity"] < 1 and report["pruned_params_M"] > 0, "apply_pruning")
+        la = collapse_log_alphas(base, seed=4)
+        sd, cfg = apply_pruning(teacher_sd, base, la)
+        leaves = [*la["conv"], *(v for layer in la["layers"] for v in layer.values())]
+        kept = sum(int(np.count_nonzero(compiled_mask(x.numpy()))) for x in leaves)
+        total = sum(x.numel() for x in leaves)
+        print(f"collapse: {kept} of {total} units kept; "
+              f"{count_params(sd) / 1e6:.3f} M of {count_params(teacher_sd) / 1e6:.3f} M "
+              f"parameters; heads {[len(h) for h in cfg.remaining_heads]}, feed-forward "
+              f"{list(cfg.ff_interm_features)}, conv {[c for c, _, _ in cfg.conv_layers]}")
+        check(0.7 <= 1 - kept / total <= 0.9 and not cfg.use_attention[0]
+              and not cfg.use_feed_forward[PRUNED_FF_LAYER]
+              and [len(h) for h in cfg.remaining_heads][1:] == list(PRUNED_HEADS[1:]),
+              "the collapse surgery's config")
+        pruned = WavLM(cfg)
+        pruned.load_state_dict(sd, strict=True)
+        pruned.cuda()
+        masks = compile_gates({"conv": [x.cuda() for x in la["conv"]],
+                               "layers": [{k: v.cuda() for k, v in layer.items()}
+                                          for layer in la["layers"]]})
+        errors = {}
+        with torch.no_grad():
+            with strict_float32():
+                errors["f32"] = hidden_errors(pruned.hidden_states(wave),
+                                              teacher.hidden_states(wave, gates=masks))
+            gated = teacher.hidden_states(wave, torch.bfloat16, gates=masks)
+            k1.launches = 0
+            got = pruned.hidden_states(wave, torch.bfloat16)
+            torch.cuda.synchronize()
+            pruned_launches = k1.launches
+            errors["bf16"] = hidden_errors(got, gated)
+        attention_layers = sum(cfg.use_attention)
+        print(f"pruned model against the gated one with compiled masks, {TRAIN_BATCH} x 8 s: "
+              f"f32 {errors['f32']:.3e} (tolerance 1e-4), bf16 {errors['bf16']:.3e} (tolerance "
+              f"1e-1) of max(1, |hidden state|); K1 launches in the bf16 forward "
+              f"{pruned_launches} for {attention_layers} layers with attention")
+        check(errors["f32"] <= 1e-4 and errors["bf16"] <= 1e-1,
+              "the pruned model disagrees with the gated one")
+        check(pruned_launches == attention_layers,
+              f"expected {attention_layers} K1 launches in the pruned forward")
+        heads = [len(h) for h, a in zip(cfg.remaining_heads, cfg.use_attention) if a]
+        pruned_row = pruned_k1_layers(heads)
+        pruned_row["launches"] = pruned_launches
+    return {"rate0": rate0, "pruned": pruned_row,
+            "distill_step": {k: steps[-1][k] for k in ("k1", "k1_train", "k2")}}
+
+
+def pruned_k1_layers(heads: list) -> dict:
+    """K1 (inference, bf16) at each attention layer's head count of the
+    pruned model, B 16, T 399: checked against the plain version (2e-2 of
+    unit-scale inputs) and timed, one launch a layer, summed."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    by_bytes = by_flops = err_max = 0.0
+    for h in heads:
+        args = attention_inputs(TRAIN_BATCH, h, FRAMES, HEAD_DIM, torch.bfloat16, gen)
+        padded = (*args[:3], k1.padded_bias(args[3], torch.bfloat16), args[4])
+        err = (k1.flash_attention_gated_bias(*padded).float()
+               - k1.flash_attention_gated_bias_reference(*args).float()).abs().max().item()
+        check(np.isfinite(err) and err <= 2e-2, f"K1 at H={h} disagrees: {err}")
+        err_max = max(err_max, err)
+        totals["ms"] += median_ms(lambda: k1.flash_attention_gated_bias(*padded))
+        totals["plain_ms"] += median_ms(lambda: k1.flash_attention_gated_bias_reference(*args))
+        totals["library_ms"] += median_ms(lambda: library_attention(*args))
+        mem_s, op_s = attention_bound_s(TRAIN_BATCH, h, FRAMES, HEAD_DIM, 2)
+        by_bytes += mem_s
+        by_flops += op_s
+    row = {**totals, "bound_ms": 1e3 * max(by_bytes, by_flops),
+           "bound_by": "bytes" if by_bytes >= by_flops else "operations", "max_abs_err": err_max}
+    print(f"K1 bf16 at the pruned model's head counts {heads}, B={TRAIN_BATCH} T={FRAMES} "
+          f"({len(heads)} launches): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"(by {row['bound_by']}); max abs err {err_max:.3e}")
+    return row
+
+
 class StageTimer:
     """Pipeline hook: seconds since the previous stage ended (the per-batch
     progress calls are passed over)."""
@@ -1825,12 +2177,18 @@ def run_phases(flac_jobs) -> int:
     conv_chain["launches"] = snapshot_launches["k5"]
     evaluation_launches = phase_evaluation(card, resnet_sd, flac_jobs)
     elapsed("scoring and the frame-level modes")
+    pruning = phase_pruning(card)
+    elapsed("fine-tune, distill-prune and collapse")
 
     kernel["launches"] = launches
     kernel["whole_t1499"]["launches"] = evaluation_launches["whole"]
     kernel["recipe_launches"] = evaluation_launches["recipe"]
+    kernel["pruned"] = pruning["pruned"]  # the collapsed model's forward, B 16
+    kernel["distill_launches_per_step"] = pruning["distill_step"]["k1"]
     trainable[0]["launches"] = train_launches["train"]
     trainable[1]["launches"] = train_launches["bwd"]
+    for entry, row, key in zip(trainable, pruning["rate0"], ("k1_train", "k2")):
+        entry["rate0"] = {**row, "launches_per_distill_step": pruning["distill_step"][key]}
     fused_ln[0]["launches"] = stream_launches["k3"]
     fused_ln[1]["launches"] = stream_launches["k4"]
     print(json.dumps({"kernels": [kernel, *trainable, *fused_ln, conv_chain]}))

@@ -73,6 +73,14 @@ REFERENCE_PATH_ALIASES = {
     "diarizen_tpu.train.dataset.DiarizationDataset":
         "diarizen_tpu_torch.train.dataset.DiarizationDataset",
     "optax.adamw": "diarizen_tpu_torch.train.optim.adamw_with_warmup",
+    "diarizen.models.pruning.model_distill_prune.Model":
+        "diarizen_tpu_torch.models.build.distill_prune",
+    "diarizen.models.pruning.utils.DistillLoss":
+        "diarizen_tpu_torch.prune.distill.distill_loss_fn",
+    "diarizen_tpu.models.build.distill_prune": "diarizen_tpu_torch.models.build.distill_prune",
+    "diarizen_tpu.prune.distill": "diarizen_tpu_torch.prune.distill",
+    "diarizen_tpu.prune.distill.distill_loss_fn":
+        "diarizen_tpu_torch.prune.distill.distill_loss_fn",
 }
 
 # paths whose targets the port does not have yet; any other path into the
@@ -81,13 +89,10 @@ NOT_PORTED = (
     "diarizen.models.eend.model_wavlm_conformer_mc.Model",
     "diarizen.models.eend.model_fbank_conformer.Model",
     "diarizen.models.eend.model_pyannote.Model",
-    "diarizen.models.pruning.model_distill_prune.Model",
-    "diarizen.models.pruning.utils.DistillLoss",
     "torch.optim.AdamW",
     "diarizen_tpu.models.build.fbank_conformer",
     "diarizen_tpu.models.build.pyannote_baseline",
     "diarizen_tpu.models.build.wavlm_conformer_mc",
-    "diarizen_tpu.prune.distill",
 )
 
 
@@ -99,9 +104,10 @@ def resolve(path: str) -> Any:
     if path in NOT_PORTED or path.split(".")[0] == "diarizen_tpu":
         raise NotImplementedError(
             f"{path!r} has no counterpart in diarizen_tpu_torch yet: the multi-channel, "
-            "fbank, SincNet (pyannote), S-Serious, x-vector and pruned/distilled model "
-            "families, torch.optim.AdamW and the JAX package's other modules are not "
-            "ported; WavLM + Conformer, its trainer, dataset and AdamW are")
+            "fbank, SincNet (pyannote), S-Serious and x-vector model families, "
+            "torch.optim.AdamW and the JAX package's other modules are not ported; "
+            "WavLM + Conformer, its trainer, dataset and AdamW, and WavLM's "
+            "distill-prune are")
     module_name, _, attr = path.rpartition(".")
     module = importlib.import_module(module_name)
     return getattr(module, attr)

@@ -3,8 +3,9 @@ diarizen_tpu/models/build.py).
 
 A factory mirrors a reference model class's constructor (`[model] path = ...`,
 `[model.args]`) and returns `(config, model)`, the model with seeded random
-weights or, where `wavlm_src` names a checkpoint file, that WavLM. Only the
-WavLM + Conformer model is built here; the other families are not ported yet.
+weights or, where `wavlm_src` names a checkpoint file, that WavLM. The
+WavLM + Conformer model and WavLM's distill-prune pair are built here; the
+other families are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import os
 import warnings
 from typing import Optional, Tuple
 
+import torch
+
 from diarizen_tpu_torch.models.conformer import ConformerConfig
 from diarizen_tpu_torch.models.convert import (
     StateDict,
@@ -20,7 +23,9 @@ from diarizen_tpu_torch.models.convert import (
     random_state_dict,
 )
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
-from diarizen_tpu_torch.models.wavlm import WavLMConfig
+from diarizen_tpu_torch.models.wavlm import WavLM, WavLMConfig
+from diarizen_tpu_torch.prune.distill import DistillPruneModel
+from diarizen_tpu_torch.prune.gates import PruneConfig, init_gates
 
 
 def _load_wavlm(wavlm_src: str,
@@ -115,3 +120,38 @@ def wavlm_conformer(
     if wavlm_sd is not None:
         model.wavlm_model.load_state_dict(wavlm_sd, strict=True)
     return cfg, model
+
+
+def _wavlm(wavlm_src: str, seed: int) -> Tuple[WavLMConfig, WavLM]:
+    """The WavLM of `wavlm_src`, with seeded random weights for a preset."""
+    cfg, sd = _load_wavlm(wavlm_src)
+    model = WavLM(cfg)
+    model.load_state_dict(sd if sd is not None else random_state_dict(model, seed))
+    return cfg, model
+
+
+def distill_prune(teacher_ckpt: str, student_ckpt: Optional[str] = None,
+                  pruning_units: str = "conv,head,interm", distill_layers: str = "0,4,8,12",
+                  seed: int = 0):
+    """The distill-prune "model": a frozen teacher and a gated student WavLM,
+    the reference constructor's arguments one for one; `student_ckpt`
+    defaults to the teacher's. Returns (WavLMConfig, DistillPruneModel)
+    holding the teacher, the student, the student's log-alphas (seeded from
+    seed + 1), the PruneConfig and the distill layers."""
+    units = [u.strip() for u in str(pruning_units).split(",") if u.strip()]
+    pcfg = PruneConfig(
+        prune_conv_channels="conv" in units,
+        prune_attention_heads="head" in units,
+        prune_attention_layer="attlayer" in units,
+        prune_feed_forward_intermediate="interm" in units,
+        prune_feed_forward_layer="ffnlayer" in units,
+    )
+    cfg, teacher = _wavlm(teacher_ckpt, seed)
+    student_sd = None
+    if student_ckpt not in (None, teacher_ckpt):
+        student_sd = _load_wavlm(student_ckpt)[1]
+    student = WavLM(cfg)
+    student.load_state_dict(student_sd if student_sd is not None else teacher.state_dict())
+    gates = init_gates(cfg, pcfg, torch.Generator().manual_seed(seed + 1))
+    layers = tuple(int(x) for x in str(distill_layers).split(","))
+    return cfg, DistillPruneModel(teacher, student, gates, pcfg, layers)

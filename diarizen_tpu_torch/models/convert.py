@@ -20,6 +20,13 @@ so what they return loads with `load_state_dict(strict=True)`.
 trainer's `params.npz`) with numpy alone, and `eend_state_dict_from_params`
 carries such EEND params into a model, keeping the model's own BatchNorm
 statistics as the JAX loader keeps its initial state.
+
+The other way, `wavlm_params_to_jax` is the inverse of
+`wavlm_state_dict_from_jax` (a port WavLM state dict as the JAX package's
+numpy pytree) and `save_pytree` writes a pytree as the JAX package's
+`save_pytree` does, so the port writes a (pruned) WavLM as `params.npz` that
+the JAX package's `load_pytree` reads. `gates_from_jax` carries a JAX
+log-alpha tree into the port's gate tree.
 """
 
 from __future__ import annotations
@@ -102,7 +109,86 @@ def wavlm_state_dict_from_jax(params: dict, cfg, prefix: str = "") -> StateDict:
         if "ff" in layer:
             _linear(sd, f"{key}.feed_forward.intermediate_dense", layer["ff"]["in"])
             _linear(sd, f"{key}.feed_forward.output_dense", layer["ff"]["out"])
+    if "attn" not in params["layers"][0]:  # layer 0's attention pruned: the table stays
+        sd[f"{enc}.transformer.rel_attn_embed.weight"] = _t(params["rel_attn_embed"])
     return sd
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().float().numpy()
+
+
+def wavlm_params_to_jax(sd: StateDict, cfg: WavLMConfig, prefix: str = "") -> dict:
+    """The port's WavLM state dict -> the JAX package's WavLM pytree (numpy
+    float32), the inverse of `wavlm_state_dict_from_jax`: `dummy_weight`
+    becomes `output_scale` only where it is not the identity, as the JAX
+    package's own converter keeps it."""
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    def linear(key):
+        p = {"w": _np(sd[f"{key}.weight"]).T.copy()}
+        if f"{key}.bias" in sd:
+            p["b"] = _np(sd[f"{key}.bias"])
+        return p
+
+    def norm(key):
+        return {"scale": _np(sd[f"{key}.weight"]), "bias": _np(sd[f"{key}.bias"])}
+
+    blocks = []
+    for i in range(len(cfg.conv_layers)):
+        key = f"feature_extractor.conv_layers.{i}"
+        conv = {"w": _np(sd[f"{key}.conv.weight"]).transpose(2, 1, 0).copy()}
+        if f"{key}.conv.bias" in sd:
+            conv["b"] = _np(sd[f"{key}.conv.bias"])
+        block = {"conv": conv}
+        if f"{key}.layer_norm.weight" in sd:
+            block["norm"] = norm(f"{key}.layer_norm")
+        blocks.append(block)
+    feature_extractor: dict = {"conv_layers": blocks}
+    dummy = _np(sd["feature_extractor.dummy_weight"])
+    if not np.allclose(dummy, 1.0):
+        feature_extractor["output_scale"] = dummy
+
+    enc = "encoder.transformer"
+    pos = f"{enc}.pos_conv_embed.conv"
+    table = (f"{enc}.layers.0.attention.rel_attn_embed.weight" if cfg.use_attention[0]
+             else f"{enc}.rel_attn_embed.weight")
+    params = {
+        "feature_extractor": feature_extractor,
+        "feature_projection": {"norm": norm("encoder.feature_projection.layer_norm"),
+                               "proj": linear("encoder.feature_projection.projection")},
+        "pos_conv": {"v": _np(sd[f"{pos}.weight_v"]).transpose(2, 1, 0).copy(),
+                     "g": _np(sd[f"{pos}.weight_g"]).reshape(-1),
+                     "b": _np(sd[f"{pos}.bias"])},
+        "encoder_norm": norm(f"{enc}.layer_norm"),
+        "rel_attn_embed": _np(sd[table]),
+        "layers": [],
+    }
+    for i in range(cfg.num_layers):
+        key = f"{enc}.layers.{i}"
+        layer = {"attn_norm": norm(f"{key}.layer_norm"),
+                 "final_norm": norm(f"{key}.final_layer_norm")}
+        if cfg.use_attention[i]:
+            a = f"{key}.attention"
+            layer["attn"] = {jname: linear(f"{a}.{name}") for name, jname in (
+                ("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("out_proj", "out"),
+                ("gru_rel_pos_linear", "gru_linear"))}
+            layer["attn"]["gru_const"] = _np(sd[f"{a}.gru_rel_pos_const"])
+        if cfg.use_feed_forward[i]:
+            layer["ff"] = {"in": linear(f"{key}.feed_forward.intermediate_dense"),
+                           "out": linear(f"{key}.feed_forward.output_dense")}
+        params["layers"].append(layer)
+    return params
+
+
+def gates_from_jax(log_alphas: dict) -> dict:
+    """A JAX log-alpha (or mask) tree -> the port's gate tree of float32
+    tensors, same shape (`prune.gates`)."""
+    out: dict = {}
+    if "conv" in log_alphas:
+        out["conv"] = [_t(g) for g in log_alphas["conv"]]
+    out["layers"] = [{k: _t(v) for k, v in layer.items()} for layer in log_alphas["layers"]]
+    return out
 
 
 def conformer_state_dict_from_jax(params: dict, state: dict, prefix: str = "") -> StateDict:
@@ -230,6 +316,28 @@ def load_eend_checkpoint(path: str) -> StateDict:
 # the JAX package's npz pytrees (diarizen_tpu/train/checkpoint.py), numpy only
 
 SEP = "::"  # joins the path of a leaf: kind and key pairs, kinds d (dict), l (list), t (tuple)
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{joined path: leaf} of a pytree of dicts, lists and tuples, the JAX
+    package's `_flatten` (a lone leaf is "leaf")."""
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{SEP}d{SEP}{k}" if prefix else f"d{SEP}{k}"))
+    elif isinstance(tree, (list, tuple)):
+        tag = "t" if isinstance(tree, tuple) else "l"
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{SEP}{tag}{SEP}{i}" if prefix else f"{tag}{SEP}{i}"))
+    else:
+        out[prefix or "leaf"] = np.asarray(tree)
+    return out
+
+
+def save_pytree(path: Union[str, Path], tree: Any) -> None:
+    """Write a pytree of numpy arrays as the JAX package's `save_pytree`
+    does (`.npz`, one entry per leaf under its joined path)."""
+    np.savez(path, **_flatten(tree))
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Any:

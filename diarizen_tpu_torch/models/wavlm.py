@@ -15,6 +15,14 @@ extractor whose layers 1-6 are the unpruned 512-channel stack without norms
 (`ops/conv_chain.py`), with layer 0 computed straight into the channels-last
 layout K5 takes.
 
+`gates=` applies HardConcrete masks where the JAX package applies them
+(pruning, `prune/`): conv channels after each extractor block's GELU, a
+per-head mask on the attention output before `out_proj`, the `attn_layer`
+scale after it, `ff_interm` after the feed-forward GELU and `ff_layer` on the
+feed-forward output; with gates the fused-LN and conv-chain routes are off.
+`hidden_states` returns the num_layers + 1 hidden states that the distill
+loss reads, where `forward` returns their weighted sum.
+
 Train mode follows the JAX package's `wavlm_extract_features(train=True)`:
 GradMultiply 0.1 on the extractor output; dropout after the projection,
 after the pos-conv (and its LayerNorm), on the attention output and in the
@@ -28,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import lru_cache
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -260,6 +268,33 @@ class WavLMConfig:
             d[k] = tuple(d[k])
         return WavLMConfig(**d)
 
+    def to_reference_dict(self) -> dict:
+        """The reference's factory-kwargs dict (the `config` payload of a
+        `{config, state_dict}` checkpoint); `from_reference_dict` inverts it."""
+        return {
+            "extractor_mode": self.extractor_mode,
+            "extractor_conv_layer_config": [list(l) for l in self.conv_layers],
+            "extractor_conv_bias": self.conv_bias,
+            "encoder_embed_dim": self.embed_dim,
+            "encoder_projection_dropout": self.projection_dropout,
+            "encoder_pos_conv_kernel": self.pos_conv_kernel,
+            "encoder_pos_conv_groups": self.pos_conv_groups,
+            "encoder_num_layers": self.num_layers,
+            "encoder_use_attention": list(self.use_attention),
+            "encoder_use_feed_forward": list(self.use_feed_forward),
+            "encoder_total_num_heads": list(self.total_num_heads),
+            "encoder_remaining_heads": [list(h) for h in self.remaining_heads],
+            "encoder_num_buckets": self.num_buckets,
+            "encoder_max_distance": self.max_distance,
+            "encoder_attention_dropout": self.attention_dropout,
+            "encoder_ff_interm_features": list(self.ff_interm_features),
+            "encoder_ff_interm_dropout": self.ff_interm_dropout,
+            "encoder_dropout": self.dropout,
+            "encoder_layer_norm_first": self.layer_norm_first,
+            "encoder_layer_drop": self.layer_drop,
+            "normalize_waveform": self.normalize_waveform,
+        }
+
     @staticmethod
     def from_reference_dict(cfg: dict) -> "WavLMConfig":
         """Build from the reference's factory-kwargs dict (its presets and the
@@ -418,6 +453,10 @@ class _Transformer(nn.Module):
         self.pos_conv_embed = _PosConvEmbed(cfg)
         self.layer_norm = nn.LayerNorm(cfg.embed_dim)
         self.layers = nn.ModuleList(_EncoderLayer(cfg, i) for i in range(cfg.num_layers))
+        if not cfg.use_attention[0]:
+            # layer 0's attention, which holds the bias table of every layer,
+            # was pruned away: the table stays, here
+            self.rel_attn_embed = nn.Embedding(cfg.num_buckets, cfg.total_num_heads[0])
 
 
 class _Encoder(nn.Module):
@@ -434,8 +473,6 @@ class _Encoder(nn.Module):
 class WavLM(nn.Module):
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
-        if not cfg.use_attention[0]:
-            raise ValueError("layer 0 holds the relative-position table and needs attention")
         self.cfg = cfg
         self.feature_extractor = _FeatureExtractor(cfg)
         self.encoder = _Encoder(cfg)
@@ -444,11 +481,23 @@ class WavLM(nn.Module):
 
     def forward(self, waveforms: torch.Tensor, layer_weights: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32, train: bool = False,
-                rng: Optional[TrainRandom] = None) -> torch.Tensor:
+                rng: Optional[TrainRandom] = None, gates: Optional[dict] = None) -> torch.Tensor:
         """(B, num_samples) -> float32 (B, F, D) sum of the num_layers + 1
         hidden states weighted by `layer_weights`, accumulated in float32.
         `train` selects the differentiable attention and GradMultiply;
-        dropout and layer drop need `rng` as well."""
+        dropout and layer drop need `rng` as well. `gates`: HardConcrete
+        masks in the tree of `prune.gates`."""
+        return self._encode(waveforms, compute_dtype, train, rng, gates, layer_weights)
+
+    def hidden_states(self, waveforms: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+                      train: bool = False, rng: Optional[TrainRandom] = None,
+                      gates: Optional[dict] = None) -> List[torch.Tensor]:
+        """(B, num_samples) -> the num_layers + 1 hidden states (B, F, D) in
+        the compute type: the extractor's projection after the pos-conv, then
+        each layer's output (a layer dropped in training repeats its input)."""
+        return self._encode(waveforms, compute_dtype, train, rng, gates, None)
+
+    def _encode(self, waveforms, compute_dtype, train, rng, gates, layer_weights):
         cfg = self.cfg
         if cfg.num_frames(waveforms.shape[-1]) < 1:
             raise ValueError(
@@ -459,7 +508,9 @@ class WavLM(nn.Module):
             waveforms = F.layer_norm(waveforms.float(), waveforms.shape[-1:], eps=1e-5)
 
         gen = rng.device if (train and rng is not None) else None
-        x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype), train)
+        gates = gates or {}
+        x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype), train,
+                                    gates.get("conv"))
         if train:
             x = grad_multiply(x, FEATURE_GRAD_MULT)
         fp = self.encoder.feature_projection
@@ -473,28 +524,38 @@ class WavLM(nn.Module):
         x = dropout(x, cfg.dropout, gen)
         position_bias = self._position_bias(x.shape[1], x.dtype, x.device, train)
 
-        w = layer_weights.float()
-        acc = w[0] * x.float()
+        hidden = [x]
+        if layer_weights is not None:
+            w = layer_weights.float()
+            acc = w[0] * x.float()
+        layer_gates = gates.get("layers")
         self.layers_run = []
         for i, layer in enumerate(transformer.layers):
             folded = None  # acc after a K4 that took the update into its pass
             if gen is None or cfg.layer_drop == 0.0 or rng.uniform() >= cfg.layer_drop:
-                x, folded = self._layer(i, layer, x, position_bias, train, rng,
-                                        ws_acc=(w[i + 1], acc))
+                x, folded = self._layer(
+                    i, layer, x, position_bias, train, rng,
+                    ws_acc=None if layer_weights is None else (w[i + 1], acc),
+                    gate=None if layer_gates is None else layer_gates[i])
                 self.layers_run.append(i)
-            acc = folded if folded is not None else acc + w[i + 1] * x.float()
-        return acc
+            if layer_weights is None:
+                hidden.append(x)
+            else:
+                acc = folded if folded is not None else acc + w[i + 1] * x.float()
+        return hidden if layer_weights is None else acc
 
-    def _feature_extractor(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(B, 1, num_samples) -> (B, F, C): conv stack, norm, GELU."""
+    def _feature_extractor(self, x: torch.Tensor, train: bool = False,
+                           conv_gates: Optional[list] = None) -> torch.Tensor:
+        """(B, 1, num_samples) -> (B, F, C): conv stack, norm, GELU, and the
+        channel gates after each block's GELU."""
         fe = self.feature_extractor
-        if self._conv_chain_applies(train):
+        if conv_gates is None and self._conv_chain_applies(train):
             # layers 1-6 through K5, which takes and gives channels last
             x = self._layer0_channels_last(x)
             x = fused_conv_chain(x, self._conv_chain_weights(x.dtype, x.device),
                                  num_output_frames(x.shape[1]))
             return x * fe.dummy_weight.to(x.dtype)
-        for block in fe.conv_layers:
+        for i, block in enumerate(fe.conv_layers):
             conv = block.conv
             bias = None if conv.bias is None else conv.bias.to(x.dtype)
             x = F.conv1d(x, conv.weight.to(x.dtype), bias, stride=block.stride)
@@ -503,6 +564,8 @@ class WavLM(nn.Module):
             elif block.layer_norm is not None:
                 x = layer_norm(block.layer_norm, x.transpose(1, 2)).transpose(1, 2)
             x = gelu(x)
+            if conv_gates is not None and conv_gates[i] is not None:
+                x = x * conv_gates[i].to(x.dtype)[:, None]
         return x.transpose(1, 2) * fe.dummy_weight.to(x.dtype)
 
     def _layer0_channels_last(self, x: torch.Tensor) -> torch.Tensor:
@@ -562,7 +625,9 @@ class WavLM(nn.Module):
         buckets = device_constant(
             ("wavlm.buckets", t, cfg.num_buckets, cfg.max_distance),
             lambda: _rel_pos_buckets(t, cfg.num_buckets, cfg.max_distance), device)
-        table = self.encoder.transformer.layers[0].attention.rel_attn_embed.weight
+        transformer = self.encoder.transformer
+        holder = transformer.layers[0].attention or transformer
+        table = holder.rel_attn_embed.weight
         bias = table[buckets].permute(2, 0, 1)
         if train:
             return bias.float()
@@ -574,20 +639,22 @@ class WavLM(nn.Module):
                position_bias: torch.Tensor, train: bool = False,
                rng: Optional[TrainRandom] = None,
                ws_acc: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               gate: Optional[dict] = None,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One encoder layer. `ws_acc` is (w, acc) of the weighted sum: on the
         fused route the final norm's kernel K4 also adds `w * x` to the
         float32 `acc` in place. Returns (x, acc where that happened, else
-        None: the caller then adds the layer's term itself)."""
+        None: the caller then adds the layer's term itself). `gate`: the
+        layer's HardConcrete masks."""
         cfg = self.cfg
         pre_ln = cfg.layer_norm_first
         gen = rng.device if (train and rng is not None) else None
         # the fused residual + LayerNorm kernels: inference only, post-norm stacks
-        fused = use_fused_ln() and not train and not pre_ln
+        fused = use_fused_ln() and not train and not pre_ln and gate is None
         has_attn = layer.attention is not None
         if has_attn:
             h = layer_norm(layer.layer_norm, x) if pre_ln else x
-            h = self._self_attention(i, layer.attention, h, position_bias, train, rng)
+            h = self._self_attention(i, layer.attention, h, position_bias, train, rng, gate)
             h = dropout(h, cfg.dropout, gen)
             if fused:  # the residual add rides in the post-norm attention LayerNorm
                 norm = layer.layer_norm
@@ -597,13 +664,13 @@ class WavLM(nn.Module):
         if pre_ln:
             if layer.feed_forward is not None:
                 x = x + self._feed_forward(
-                    layer.feed_forward, layer_norm(layer.final_layer_norm, x), gen)
+                    layer.feed_forward, layer_norm(layer.final_layer_norm, x), gen, gate)
             return x, None
         # post-LN: both norms apply even where a sublayer was pruned away
         if not (has_attn and fused):
             x = layer_norm(layer.layer_norm, x)
         if layer.feed_forward is not None:
-            ff_out = self._feed_forward(layer.feed_forward, x, gen)
+            ff_out = self._feed_forward(layer.feed_forward, x, gen, gate)
             if fused:
                 norm = layer.final_layer_norm
                 if ws_acc is not None:
@@ -614,10 +681,13 @@ class WavLM(nn.Module):
 
     def _self_attention(self, i: int, attn: _SelfAttention, x: torch.Tensor,
                         position_bias: torch.Tensor, train: bool = False,
-                        rng: Optional[TrainRandom] = None) -> torch.Tensor:
+                        rng: Optional[TrainRandom] = None,
+                        hc_gate: Optional[dict] = None) -> torch.Tensor:
         """Gated relative-position self-attention over the layer's remaining
         heads. The GRU gate reads the raw input of ALL total_num_heads heads;
-        the remaining heads are selected after it."""
+        the remaining heads are selected after it. `hc_gate`: the layer's
+        HardConcrete masks, "heads" on the kernel's output, "attn_layer"
+        after `out_proj`."""
         cfg = self.cfg
         b, t, _ = x.shape
         total_heads = cfg.total_num_heads[i]
@@ -648,9 +718,56 @@ class WavLM(nn.Module):
             out = flash_attention_gated_bias_trainable(q, k, v, pos, gate, rate, seed)
         else:
             out = flash_attention_gated_bias(q, k, v, pos.to(q.dtype), gate)
-        return linear(attn.out_proj, out.transpose(1, 2).reshape(b, t, nh * hd))
+        hc_gate = hc_gate or {}
+        if hc_gate.get("heads") is not None:
+            out = out * hc_gate["heads"].to(out.dtype)[None, :, None, None]
+        out = linear(attn.out_proj, out.transpose(1, 2).reshape(b, t, nh * hd))
+        if hc_gate.get("attn_layer") is not None:
+            out = out * hc_gate["attn_layer"].to(out.dtype)
+        return out
 
     def _feed_forward(self, ff: _FeedForward, x: torch.Tensor,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      gate: Optional[dict] = None) -> torch.Tensor:
+        gate = gate or {}
         h = dropout(gelu(linear(ff.intermediate_dense, x)), self.cfg.ff_interm_dropout, generator)
-        return dropout(linear(ff.output_dense, h), self.cfg.dropout, generator)
+        if gate.get("ff_interm") is not None:
+            h = h * gate["ff_interm"].to(h.dtype)
+        y = dropout(linear(ff.output_dense, h), self.cfg.dropout, generator)
+        if gate.get("ff_layer") is not None:
+            y = y * gate["ff_layer"].to(y.dtype)
+        return y
+
+
+def count_params(state_dict: Dict[str, torch.Tensor]) -> int:
+    """Parameters of a WavLM state dict as the JAX package counts its
+    pytree's leaves: `dummy_weight` counts only where it is not the identity,
+    as the JAX package keeps it (`output_scale`) only then."""
+    total = 0
+    for name, value in state_dict.items():
+        if name.endswith("dummy_weight") and np.allclose(value.detach().cpu().numpy(), 1.0):
+            continue
+        total += value.numel()
+    return total
+
+
+def count_macs(cfg: WavLMConfig, num_samples: int = 16000) -> int:
+    """Analytic MAC count for `num_samples` of audio (1 s by default)."""
+    macs = 0
+    t = num_samples
+    in_ch = 1
+    for out_ch, kernel, stride in cfg.conv_layers:
+        t = (t - kernel) // stride + 1
+        macs += t * kernel * in_ch * out_ch
+        in_ch = out_ch
+    d = cfg.embed_dim
+    macs += t * in_ch * d  # projection
+    macs += t * cfg.pos_conv_kernel * d * d // cfg.pos_conv_groups  # pos conv
+    hd = cfg.head_dim
+    for i in range(cfg.num_layers):
+        if cfg.use_attention[i]:
+            nh = len(cfg.remaining_heads[i])
+            macs += 4 * t * nh * d * hd + 2 * t * t * nh * hd
+        if cfg.use_feed_forward[i]:
+            macs += 2 * t * d * cfg.ff_interm_features[i]
+    return macs

@@ -1,1 +1,2 @@
-"""The DiariZen SSL recipe: checkpoint-averaged inference and DER scoring."""
+"""The DiariZen SSL recipe: training and validation, and checkpoint-averaged
+inference and DER scoring."""

@@ -1,0 +1,127 @@
+"""Train or validate a diarization segmentation model from a recipe TOML
+(port of recipes/diar_ssl/run.py).
+
+Builds the `[model]` section's model, loads the average of the `[finetune]`
+checkpoints where asked, builds the dual-LR optimizer (`[optimizer_small]`
+on WavLM, `[optimizer_big]` on the rest, or `freeze_wavlm`) or a single-LR
+one (`[optimizer]`), with warmup, percentile AutoClip and gradient
+accumulation from `[trainer.args]`, then resumes from the experiment's
+latest checkpoint and trains or validates. The experiment directory is
+`<meta.save_dir>/<the TOML's stem>`.
+
+    python -m diarizen_tpu_torch.recipes.diar_ssl.run \\
+        -C recipes/diar_ssl/conf/wavlm_updated_conformer.toml -M train|validate
+
+It runs on the CUDA device; `main(argv, device="cpu")` runs it on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+from diarizen_tpu_torch.config import dump_toml, instantiate, load_toml
+from diarizen_tpu_torch.logger import init_logging, log_config
+from diarizen_tpu_torch.models.eend import EendConfig
+from diarizen_tpu_torch.train.checkpoint import average_checkpoints
+from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
+from diarizen_tpu_torch.train.optim import (
+    adamw_with_warmup,
+    dual_lr_optimizer,
+    with_gradient_accumulation,
+)
+from diarizen_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+
+def build_dataset(section: dict, cfg: EendConfig) -> DiarizationDataset:
+    args = section["args"]
+    step, duration = cfg.rf_info()
+    chunk_size = args.get("chunk_size", cfg.chunk_size)
+    return DiarizationDataset(
+        scp_file=args["scp_file"], rttm_file=args["rttm_file"], uem_file=args["uem_file"],
+        model_num_frames=cfg.num_frames(int(chunk_size * cfg.sample_rate)),
+        model_rf_duration=duration, model_rf_step=step,
+        chunk_size=chunk_size, chunk_shift=args.get("chunk_shift", 6),
+        sample_rate=args.get("sample_rate", 16000), num_channels=args.get("num_channels", 1),
+        channel_mode=args.get("channel_mode", "sdm"))
+
+
+def build_optimizer(config: dict, model):
+    trainer_args = config.get("trainer", {}).get("args", {})
+    freeze_wavlm = trainer_args.get("freeze_wavlm", False)
+    warmup = trainer_args.get("warmup_steps", 0)
+    clip = trainer_args.get("gradient_percentile", 90)
+    if "optimizer_small" in config or freeze_wavlm:
+        # freeze_wavlm with a single [optimizer] (the frozen recipe) still
+        # needs the split: the trunk stays, the rest moves at lr
+        big = config.get("optimizer_big") or config.get("optimizer", {})
+        small = config.get("optimizer_small", {}).get("args", {})
+        optimizer = dual_lr_optimizer(
+            model.param_groups(), lr_small=small.get("lr", 2e-5),
+            lr_big=big.get("args", {}).get("lr", 1e-3), warmup_steps=warmup,
+            clip_percentile=clip, freeze_wavlm=freeze_wavlm)
+    else:
+        optimizer = adamw_with_warmup(dict(model.named_parameters()),
+                                      config["optimizer"]["args"].get("lr", 1e-3),
+                                      warmup_steps=warmup, clip_percentile=clip)
+    return with_gradient_accumulation(optimizer,
+                                      trainer_args.get("gradient_accumulation_steps", 1))
+
+
+def run(config: dict, mode: str, exp_dir: Path, device=None, step_hook=None) -> Dict[str, float]:
+    """Train or validate; returns the last validation metrics."""
+    logger = init_logging(exp_dir)
+    log_config(logger, config)
+    dump_toml(config, exp_dir / "config.toml")
+    seed = config.get("meta", {}).get("seed", 3407)
+
+    cfg, model = instantiate(config["model"]["path"], config["model"].get("args", {}), seed=seed)
+    finetune = config.get("finetune", {})
+    if finetune.get("finetune") and finetune.get("checkpoints"):
+        model.load_state_dict(average_checkpoints(finetune["checkpoints"]))
+        logger.info("finetuning from %d averaged checkpoints", len(finetune["checkpoints"]))
+
+    trainer_args = config.get("trainer", {}).get("args", {})
+    tc = TrainerConfig(
+        exp_dir=str(exp_dir),
+        max_epochs=trainer_args.get("max_epochs", 100),
+        patience=trainer_args.get("max_patience", 10),
+        max_num_checkpoints=trainer_args.get("max_num_checkpoints", 100),
+        validation_interval=trainer_args.get("validation_interval", 1),
+        monitor_mode="max" if trainer_args.get("save_max_score") else "min",
+        seed=seed,
+    )
+    trainer = Trainer(model, tc, build_optimizer(config, model), device=device,
+                      step_hook=step_hook)
+    trainer.resume()
+
+    val_loader = DataLoader(
+        build_dataset(config["validate_dataset"], cfg),
+        batch_size=config["validate_dataset"]["dataloader"]["batch_size"], shuffle=False,
+        max_speakers_per_chunk=cfg.max_speakers_per_chunk)
+    if mode == "train":
+        train_loader = DataLoader(
+            build_dataset(config["train_dataset"], cfg),
+            batch_size=config["train_dataset"]["dataloader"]["batch_size"], shuffle=True,
+            seed=seed, max_speakers_per_chunk=cfg.max_speakers_per_chunk)
+        final = trainer.train(train_loader, val_loader)
+    else:
+        final = trainer.validate(val_loader)
+    logger.info("%s done: %s", mode, final)
+    return final
+
+
+def main(argv: Optional[Sequence[str]] = None, device=None, step_hook=None) -> Dict[str, float]:
+    parser = argparse.ArgumentParser("python -m diarizen_tpu_torch.recipes.diar_ssl.run")
+    parser.add_argument("-C", "--configuration", required=True)
+    parser.add_argument("-M", "--mode", default="train", choices=["train", "validate"])
+    args = parser.parse_args(argv)
+    config_path = Path(args.configuration).resolve()
+    config = load_toml(config_path)
+    exp_dir = Path(config.get("meta", {}).get("save_dir", "exp")) / config_path.stem
+    return run(config, args.mode, exp_dir, device, step_hook)
+
+
+if __name__ == "__main__":
+    main()

@@ -54,10 +54,10 @@ def to_device(batch: Batch, device: torch.device):
     return xs, target
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The host generator of one train step (the JAX package folds the step
-    into its key)."""
-    return torch.Generator().manual_seed(seed * 1_000_003 + step)
+def step_generator(seed: int, step: int, device="cpu") -> torch.Generator:
+    """The generator of one train step, on the host unless `device` says
+    otherwise (the JAX package folds the step into its key)."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
 
 
 def _batch_norm_buffers(model: torch.nn.Module) -> List[torch.Tensor]:

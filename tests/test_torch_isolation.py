@@ -37,6 +37,11 @@ SNAPSHOT_SLICE = ("config", "pipelines", "cluster.vbx", "core.audio", "models.bu
 # and those of the scoring and frame-level slice
 EVALUATION_SLICE = ("ops.der", "cluster.oracle", "core.flac", "infer.vad", "infer.multilabel",
                     "infer.resegmentation", "logger", "recipes.diar_ssl.infer")
+# and those of the fine-tune, distill-prune and collapse slice
+PRUNING_SLICE = ("prune", "prune.hardconcrete", "prune.gates", "prune.distill", "prune.surgery",
+                 "recipes.diar_ssl.run", "recipes.diar_ssl_pruning.run_distill_prune",
+                 "recipes.diar_ssl_pruning.apply_pruning",
+                 "recipes.diar_ssl_pruning.get_wavlm_from_finetuned")
 
 
 def test_every_port_module_imports_without_jax():
@@ -44,8 +49,9 @@ def test_every_port_module_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 53
-    assert all(f"diarizen_tpu_torch.{m}" in names for m in SNAPSHOT_SLICE + EVALUATION_SLICE)
+    assert len(names) >= 63
+    assert all(f"diarizen_tpu_torch.{m}" in names
+               for m in SNAPSHOT_SLICE + EVALUATION_SLICE + PRUNING_SLICE)
     for path in [*(ROOT / "diarizen_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -6,6 +6,7 @@ Also VBx, the audio helpers, the config system and the out-of-memory batch
 backoff against the JAX package's."""
 
 import importlib
+import inspect
 import io
 
 import numpy as np
@@ -399,13 +400,18 @@ def test_config_system_equals_jax(tmp_path):
     assert config.apply_overrides(nested, overrides) == jax_config.apply_overrides(
         nested, overrides)
     assert nested["model"]["args"]["dropout"] == 0.1  # a copy was changed
-    # every alias of the port points into the port and resolves; its key is a
-    # reference path of the JAX package's table or a path that the JAX
-    # package resolves itself (the repo's recipe TOMLs name those)
+    # every alias of the port points into the port and resolves (to a
+    # factory, or to a module: the pruning TOMLs' `[trainer] path` names
+    # `diarizen_tpu.prune.distill`); its key is a reference path of the JAX
+    # package's table or a path that the JAX package resolves itself (the
+    # repo's recipe TOMLs name those)
+    def resolved(target):
+        return callable(target) or inspect.ismodule(target)
+
     for ref_path, target in config.REFERENCE_PATH_ALIASES.items():
-        assert ref_path in jax_config.REFERENCE_PATH_ALIASES or callable(
+        assert ref_path in jax_config.REFERENCE_PATH_ALIASES or resolved(
             jax_config.resolve(ref_path))
-        assert target.startswith("diarizen_tpu_torch.") and callable(config.resolve(ref_path))
+        assert target.startswith("diarizen_tpu_torch.") and resolved(config.resolve(ref_path))
     # the rest of the JAX package's table, and the JAX package's own paths
     # to the families not ported yet, raise
     rest = set(jax_config.REFERENCE_PATH_ALIASES) - set(config.REFERENCE_PATH_ALIASES)
