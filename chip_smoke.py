@@ -97,7 +97,21 @@ Phases (any failure exits non-zero, before the last line is printed):
      layer, layer 0's attention and one feed-forward pruned): the pruned
      model against the gated one with compiled masks (f32 within 1e-4), its
      K1 launches, and K1 at its head counts;
- 14. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
+ 14. the multi-channel recipe at full width (Base-s80-md, 4 cross-channel
+     fusions of hidden 256 and 8 heads, 8 microphones, Conformer 4 x 256),
+     seeded: an 8-channel 120 s WAV, three checkpoints, a seeded PLDA
+     directory; the f32 pipeline's RTTM as the reference, the card's f32
+     scores and spatial attention against the CPU's (1e-3), the infer CLI in
+     bf16 with VBx (seconds a file with loading, audio-s/s, K1 launches, DER
+     against the reference at most 0.5%), its stage seconds and a profiled
+     call; K1 at layers 0-3's heads at B 128 (16 windows x 8 channels) and
+     at B 16 against its plain version, timed; the run CLI for one epoch of
+     8 steps at 8 x 8 s
+     (k drawn by the recipe's sampler) and `-M validate`; ms/step, peak
+     memory and launches at each drawn k and k = 8, one profiled step at
+     k = 8; K1's training instance and K2 at B = 8 k against their plain
+     versions, timed beside SDPA and the bound;
+ 15. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
      last JSON line {"ok": true, "device": {...}}.
 """
 
@@ -129,6 +143,8 @@ from diarizen_tpu_torch.core.io_rttm import load_rttm, write_rttm
 from diarizen_tpu_torch.infer import (
     DiarizationPipeline,
     EmbeddingInference,
+    McDiarizationPipeline,
+    McSlidingInference,
     MultiLabelSegmentation,
     OverlappedSpeechDetection,
     Resegmentation,
@@ -144,6 +160,7 @@ from diarizen_tpu_torch.models.convert import (
 )
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank import wespeaker_fbank
+from diarizen_tpu_torch.models.mc import McEendModel
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
 from diarizen_tpu_torch.models.wavlm import (
     WavLM,
@@ -169,6 +186,8 @@ from diarizen_tpu_torch.prune import (
 )
 from diarizen_tpu_torch.recipes.diar_ssl import infer as recipe_infer
 from diarizen_tpu_torch.recipes.diar_ssl import run as recipe_run
+from diarizen_tpu_torch.recipes.diar_ssl_mc import infer as mc_infer
+from diarizen_tpu_torch.recipes.diar_ssl_mc import run as mc_run
 from diarizen_tpu_torch.recipes.diar_ssl_pruning import apply_pruning as apply_pruning_cli
 from diarizen_tpu_torch.recipes.diar_ssl_pruning import get_wavlm_from_finetuned, run_distill_prune
 from diarizen_tpu_torch.train import Trainer, TrainerConfig, dual_lr_optimizer, train_step
@@ -180,7 +199,7 @@ from diarizen_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
-from diarizen_tpu_torch.train.step import create_train_state
+from diarizen_tpu_torch.train.step import create_train_state, mc_train_step
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor-core rate, and
 # the float32 rate outside the tensor cores
@@ -411,7 +430,7 @@ def pass_a_by_chunks(run, planned: int) -> None:
     """K2's pass A (with the sum of its slices) timed at other numbers of
     batch chunks than the plan's, to show where the plan stands: two rounds
     in opposite orders, so that a drift of the card's clock favours none."""
-    counts = (1, 2, 3, 4, 5, 6, 7, 8, 12, 16)
+    counts = tuple(sorted({1, 2, 3, 4, 5, 6, 7, 8, 12, 16, planned}))
     times = {s: [] for s in counts}
     plan = k1.pass_a_chunks
     try:
@@ -531,10 +550,11 @@ def phase_trainable_kernels() -> list:
     return entries
 
 
-def write_kaldi_dir(root: Path, name: str, durations, seed: int) -> Path:
+def write_kaldi_dir(root: Path, name: str, durations, seed: int, channels: int = 1) -> Path:
     """A synthetic Kaldi directory: per recording two to four speakers
     (tones with noise) in turns of 1-5 s that overlap, PCM16 WAVs, RTTM and
-    UEM."""
+    UEM; with `channels` > 1 each recording is heard by that many
+    microphones (`microphones`)."""
     rng = np.random.default_rng(seed)
     out = root / name
     out.mkdir(parents=True)
@@ -554,12 +574,24 @@ def write_kaldi_dir(root: Path, name: str, durations, seed: int) -> Path:
             rttm.append(f"SPEAKER {rec} 1 {pos:.2f} {end - pos:.2f} <NA> <NA> spk{spk} <NA> <NA>")
             pos += seg * float(rng.uniform(0.6, 1.1))  # overlaps where < 1
         path = out / f"{rec}.wav"
-        write_wav(path, wave[None].astype(np.float32), 16000)
+        write_wav(path, microphones(wave.astype(np.float32), channels, seed + r), 16000)
         scp.append(f"{rec} {path}")
         uem.append(f"{rec} 1 0.00 {dur:.2f}")
     for fname, lines in (("wav.scp", scp), ("rttm", rttm), ("all.uem", uem)):
         (out / fname).write_text("\n".join(lines) + "\n")
     return out
+
+
+def microphones(wave: np.ndarray, channels: int, seed: int) -> np.ndarray:
+    """(channels, N) recordings of one source: per microphone a delay of
+    0-31 samples, a gain of 0.5-1 and noise of its own; one channel is the
+    wave itself."""
+    if channels == 1:
+        return wave[None]
+    rng = np.random.default_rng(seed)
+    delays, gains = rng.integers(0, 32, channels), rng.uniform(0.5, 1.0, channels)
+    mics = np.stack([g * np.roll(wave, d) for d, g in zip(delays, gains)])
+    return (mics + 0.003 * rng.standard_normal(mics.shape)).astype(np.float32)
 
 
 def kaldi_dataset(path: Path, cfg: EendConfig, shift: float) -> DiarizationDataset:
@@ -647,16 +679,17 @@ class StepRecorder:
         self.last, self.counts = now, counts
 
 
-def profile_train_step(trainer, batch, card: str, top: int = 12) -> None:
-    """One more train step under torch.profiler: device time by kernel, the
-    share of K1 and K2, and the operators (with their input shapes) whose
-    kernels take the most device time."""
+def profile_train_step(step, card: str, top: int = 12) -> float:
+    """One more train step (`step()`) under torch.profiler: device time by
+    kernel, the share of K1 and K2, and the operators (with their input
+    shapes) whose kernels take the most device time. Returns the step's
+    device milliseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        train_step(trainer.state, batch, trainer.tc.seed, trainer.compute_dtype)
+        step()
         torch.cuda.synchronize()
     ops = sorted((a for a in prof.key_averages(group_by_input_shape=True)
                   if a.device_type == DeviceType.CPU and a.key.startswith("aten::")
@@ -676,6 +709,7 @@ def profile_train_step(trainer, batch, card: str, top: int = 12) -> None:
           f"({100 * k1_ms / total:.1f}%), K2 {k2_ms:.3f} ms ({100 * k2_ms / total:.1f}%)")
     for a in rows[:top]:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:100]}")
+    return total
 
 
 def phase_training(card: str) -> dict:
@@ -744,7 +778,9 @@ def phase_training(card: str) -> dict:
               and bool(torch.isfinite(scores).all()), "the reloaded model's scores")
         print(f"checkpoint {ckpt.name} (step {meta['step']}) reloaded into EendModel: scores "
               f"{tuple(scores.shape)} finite")
-        profile_train_step(trainer, next(iter(train_loader)), card)
+        batch = next(iter(train_loader))
+        profile_train_step(lambda: train_step(trainer.state, batch, trainer.tc.seed,
+                                              trainer.compute_dtype), card)
     return launches
 
 
@@ -1221,13 +1257,18 @@ def write_snapshot(root: Path, name: str) -> Path:
     cfg = EendConfig(wavlm=WavLMConfig.from_preset(wavlm_src), conformer=ConformerConfig(),
                      wavlm_layer_num=layer_num, wavlm_feat_dim=feat_dim)
     torch.save(random_state_dict(EendModel(cfg), seed=10 + len(name)), snap / "pytorch_model.bin")
+    write_plda(snap / "plda")
+    return snap
+
+
+def write_plda(plda: Path) -> None:
+    """A seeded PLDA directory at the ResNet34's 256 -> 128 dimensions."""
     rng = np.random.default_rng(3)
-    np.savez(snap / "plda" / "xvec_transform.npz", mean1=0.1 * rng.standard_normal(256),
+    np.savez(plda / "xvec_transform.npz", mean1=0.1 * rng.standard_normal(256),
              mean2=0.1 * rng.standard_normal(128), lda=rng.standard_normal((256, 128)) / 16.0)
     tr = rng.standard_normal((128, 128)) / 12.0 + np.eye(128)
     psi = np.sort(rng.uniform(0.5, 5.0, size=128))[::-1]
-    np.savez(snap / "plda" / "plda.npz", mu=0.1 * rng.standard_normal(128), tr=tr, psi=psi)
-    return snap
+    np.savez(plda / "plda.npz", mu=0.1 * rng.standard_normal(128), tr=tr, psi=psi)
 
 
 def check_rttm(text: str, uri: str) -> int:
@@ -2039,6 +2080,322 @@ def pruned_k1_layers(heads: list) -> dict:
     return row
 
 
+MC_CHANNELS, MC_BATCH, MC_TRAIN_BATCH = 8, 16, 8  # the MC recipe's microphones and batches
+MC_CHECKPOINTS = 3
+MC_STREAM_LAYERS = 4  # WavLM layers 0-3 run on every channel's stream (4 fusions)
+
+
+def make_mc_wave(dur_s: int, seed: int) -> np.ndarray:
+    """`make_wave`'s meeting heard by MC_CHANNELS microphones (delays, gains,
+    noise of their own), quantised like PCM16."""
+    mics = microphones(make_wave(dur_s, seed=seed)[0], MC_CHANNELS, seed + 50)
+    return (np.clip(np.rint(mics * 32767.0), -32768, 32767) / 32768.0).astype(np.float32)
+
+
+def mc_k1_layers(heads: list, b: int, gen) -> dict:
+    """K1 (inference) at the multi-channel streams' shape: each of `heads`
+    at (b, h, 399, 64) checked against the plain version (bf16 within 2e-2,
+    f32 within 1e-4 of the largest magnitude), then the bf16 launches timed,
+    one a layer, summed, beside the bound and SDPA with the mask."""
+    tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    err_max = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for h in sorted(set(heads)):
+            args = attention_inputs(b, h, FRAMES, HEAD_DIM, dtype, gen)
+            want = k1.flash_attention_gated_bias_reference(*args).float()
+            err = (k1.flash_attention_gated_bias(*args).float() - want).abs().max().item()
+            scale = want.abs().max().item()
+            print(f"K1 vs plain {str(dtype)[6:]} B={b} H={h} T={FRAMES}: max abs err {err:.3e} "
+                  f"of {scale:.3e} (tolerance {tolerance[dtype]:.0e} of it)")
+            check(np.isfinite(err) and err <= tolerance[dtype] * scale,
+                  f"K1 at B={b} H={h} {dtype} disagrees with its plain version: {err}")
+            if dtype == torch.bfloat16:
+                err_max = max(err_max, err)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    by_bytes = by_flops = 0.0
+    for h in heads:
+        args = attention_inputs(b, h, FRAMES, HEAD_DIM, torch.bfloat16, gen)
+        padded = (*args[:3], k1.padded_bias(args[3], torch.bfloat16), args[4])
+        totals["ms"] += median_ms(lambda: k1.flash_attention_gated_bias(*padded))
+        totals["plain_ms"] += median_ms(lambda: k1.flash_attention_gated_bias_reference(*args))
+        totals["library_ms"] += median_ms(lambda: library_attention(*args))
+        mem_s, op_s = attention_bound_s(b, h, FRAMES, HEAD_DIM, 2)
+        by_bytes += mem_s
+        by_flops += op_s
+    row = {**totals, "bound_ms": 1e3 * max(by_bytes, by_flops),
+           "bound_by": "bytes" if by_bytes >= by_flops else "operations", "max_abs_err": err_max}
+    print(f"K1 bf16 at heads {heads}, B={b} T={FRAMES} ({len(heads)} launches): kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms (by {row['bound_by']}); max abs err {err_max:.3e}")
+    return row
+
+
+def mc_trainable(b: int, heads: list, gen) -> tuple:
+    """K1's training instance and K2 at (b, h, 399, 64) bf16, rate 0.1, for
+    each of `heads`: the output and five gradients against the plain
+    version's forward and autograd (2e-2 of each tensor's largest
+    magnitude), each timed beside the plain version, SDPA (forward with the
+    mask and dropout_p, its backward) and the bound, one call a layer,
+    summed; S, the chunks of K2's pass A the plan picks, for each head
+    count. Returns (K1 training row, K2 row)."""
+    rows = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0} for key in ("fwd", "bwd")}
+    by_bytes = {"fwd": 0.0, "bwd": 0.0}
+    by_flops, err_max = dict(by_bytes), dict(by_bytes)
+    chunks = {}
+    for h in heads:
+        (q, k, v, pos, gate), do = trainable_inputs(b, h, FRAMES, torch.bfloat16, gen)
+        results = []
+        for fn in (k1.flash_attention_gated_bias_trainable,
+                   k1.flash_attention_gated_bias_reference):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+            out = fn(*leaves, dropout_rate=DROPOUT_RATE, seed=DROPOUT_SEED)
+            out.backward(do)
+            results.append([out.detach()] + [x.grad for x in leaves])
+        for name, got, want in zip(("o", "dq", "dk", "dv", "dpos_bias", "dgate"), *results):
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            check(np.isfinite(err) and err <= 2e-2 * scale,
+                  f"{name} of K1/K2 at B={b} H={h} disagrees with the plain version: {err} of "
+                  f"{scale}")
+            key = "fwd" if name == "o" else "bwd"
+            err_max[key] = max(err_max[key], err / scale)
+        bias = k1.padded_bias(pos, torch.bfloat16)
+        mask = (gate[..., None] * pos).to(torch.bfloat16)
+        out, lse = k1._forward_train(q, k, v, bias, gate, DROPOUT_RATE, DROPOUT_SEED)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+        plain = k1.flash_attention_gated_bias_reference(*leaves, DROPOUT_RATE, DROPOUT_SEED)
+        lib_leaves = [x.clone().requires_grad_() for x in (q, k, v, mask)]
+        lib = F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
+                                             dropout_p=DROPOUT_RATE)
+        timings = {
+            "fwd": (lambda: k1._forward_train(q, k, v, bias, gate, DROPOUT_RATE, DROPOUT_SEED),
+                    lambda: k1.flash_attention_gated_bias_reference(q, k, v, pos, gate,
+                                                                    DROPOUT_RATE, DROPOUT_SEED),
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                           dropout_p=DROPOUT_RATE)),
+            "bwd": (lambda: k1._backward(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE,
+                                         DROPOUT_SEED),
+                    lambda: torch.autograd.grad(plain, leaves, do, retain_graph=True),
+                    lambda: torch.autograd.grad(lib, lib_leaves, do, retain_graph=True)),
+        }
+        bounds = trainable_bound_s(b, h, FRAMES, HEAD_DIM, 2)
+        for key, fns in timings.items():
+            for field, fn in zip(("ms", "plain_ms", "library_ms"), fns):
+                rows[key][field] += median_ms(fn)
+            by_bytes[key] += bounds[key][0]
+            by_flops[key] += bounds[key][1]
+        chunks[h] = k1._pass_a_plan(q)
+        if b == MC_TRAIN_BATCH * MC_CHANNELS and h in (min(heads), max(heads)):
+            print(f"K2 pass A at B={b} H={h}:")
+            pass_a_by_chunks(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do,
+                                                    DROPOUT_RATE, DROPOUT_SEED), chunks[h])
+        del plain, lib
+    for key, what in (("fwd", "K1 training"), ("bwd", "K2")):
+        row = rows[key]
+        row.update(bound_ms=1e3 * max(by_bytes[key], by_flops[key]),
+                   bound_by="bytes" if by_bytes[key] >= by_flops[key] else "operations",
+                   max_rel_err=err_max[key])
+        print(f"{what} bf16 rate {DROPOUT_RATE} B={b} heads {heads} ({len(heads)} calls): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+              f"{'forward' if key == 'fwd' else 'backward'} {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms (by {row['bound_by']}); max error "
+              f"{err_max[key]:.2e} of the largest magnitude")
+    rows["bwd"]["pass_a_chunks"] = chunks
+    print(f"K2 at B={b}: pass A chunks S {chunks}")
+    return rows["fwd"], rows["bwd"]
+
+
+def phase_multichannel(card: str, resnet_sd) -> dict:
+    """The multi-channel recipe at its full width (Base-s80-md + 4 cross-
+    channel fusions, hidden 256, 8 heads; 8 microphones; Conformer 4 x 256),
+    seeded weights, in a temporary directory: an 8-channel 120 s WAV, an
+    experiment directory of three checkpoints, a seeded PLDA directory.
+    Serving: the float32 pipeline's RTTM as the reference; the card's f32
+    scores and spatial attention against the CPU's; the infer CLI in bf16 with
+    VBx (warm-up, then timed: seconds with loading, audio-s/s, K1 launches,
+    DER against the reference), the stage seconds of one more call and a
+    profiled call. K1 at
+    the shape of layers 0-3 (B 16 x 8 streams). Training: the run CLI for one
+    epoch of 8 steps at 8 x 8 s, bf16, k drawn by the recipe's sampler, and
+    `-M validate`; one profiled step at k = 8; K1's training instance and K2
+    at B = 8 k for every k.
+    Returns the rows and launches for the kernels line."""
+    repo = Path(__file__).resolve().parent
+    uri = "mc0"
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        wave = make_mc_wave(AUDIO_SECONDS, seed=8)
+        write_pcm16(root / f"{uri}.wav", pcm16(wave))
+        (root / "wav.scp").write_text(f"{uri} {root / uri}.wav\n")
+        (root / "plda").mkdir()
+        write_plda(root / "plda")
+        train = write_kaldi_dir(root, "train", [200] * 2, seed=20, channels=MC_CHANNELS)
+        dev = write_kaldi_dir(root, "dev", [70], seed=21, channels=MC_CHANNELS)
+        conf = recipe_toml(repo / "recipes/diar_ssl_mc/conf/wavlm_mc_chatt.toml", root, {
+            "trainer.args.max_epochs": 1, "trainer.args.max_num_checkpoints": 1,
+            "clustering.args.plda_dir": str(root / "plda"),
+            **data_changes("train_dataset", train), **data_changes("validate_dataset", dev)})
+        config = port_config.load_toml(conf)
+        cfg, model = port_config.instantiate_section(config, "model")
+        check(isinstance(model, McEendModel) and cfg.num_channels == MC_CHANNELS
+              and cfg.fusion.num_fusion_layers == MC_STREAM_LAYERS, "the MC recipe's model")
+        # nearby checkpoints, the head x10 for confident scores (as in the
+        # evaluation phase)
+        seeded = random_state_dict(model, seed=40)
+        base = {**seeded, "classifier.weight": seeded["classifier.weight"] * 10.0}
+        rng = np.random.default_rng(41)
+        exp = root / "exp" / "infer"
+        for epoch in range(MC_CHECKPOINTS):
+            sd = {k: v + 0.01 * v.abs().mean() * torch.from_numpy(
+                      rng.standard_normal(tuple(v.shape)).astype(np.float32))
+                  if v.is_floating_point() and v.dim() > 1 else v for k, v in base.items()}
+            save_checkpoint(exp / "checkpoints", epoch, sd)
+            append_metrics(exp, {"epoch": epoch, "loss": 1.0 - 0.1 * epoch})
+        resnet_ckpt = root / "resnet34.bin"
+        torch.save({"state_dict": resnet_sd}, resnet_ckpt)
+        print(f"multichannel inputs: {MC_CHANNELS} x {AUDIO_SECONDS} s WAV, {MC_CHECKPOINTS} "
+              f"checkpoints, Kaldi directories ({time.perf_counter() - t0:.1f} s)")
+
+        # ---- the float32 reference and the card against the CPU ---------------
+        model.load_state_dict(average_checkpoints(sorted((exp / "checkpoints").iterdir())))
+        cl = config["clustering"]["args"]
+        seg32 = McSlidingInference(model, MC_CHANNELS, batch_size=MC_BATCH,
+                                   compute_dtype=torch.float32)
+        emb = EmbeddingInference(pipelines.load_resnet(resnet_ckpt), seg32.window_size,
+                                 num_speakers=cfg.max_speakers_per_chunk, batch_size=MC_BATCH)
+        vbx = recipe_infer.build_clustering(cl, "VBxClustering", fa=0.06, fb=0.9)
+        n_windows = len(seg32.prepare_wave(wave)[1])
+        t0 = time.perf_counter()
+        with strict_float32():
+            reference = McDiarizationPipeline(seg32, emb, vbx, cfg, max_speakers=8)(
+                wave, 16000, uri=uri)
+        write_rttm(root / "ref.rttm", [reference])
+        print(f"multichannel f32 reference: {check_rttm(reference.to_rttm(), uri)} segments, "
+              f"speakers {reference.labels()} ({time.perf_counter() - t0:.1f} s)")
+        windows = torch.from_numpy(np.stack([wave[:, :128000], wave[:, 12800:140800]]))
+        outs = {}
+        for device in ("cpu", "cuda"):
+            m = McEendModel(cfg)
+            m.load_state_dict(model.state_dict())
+            with torch.inference_mode(), strict_float32():
+                outs[device] = [o.cpu() for o in m.to(device).eval()(windows.to(device))]
+        errs = [(g - w).abs().max().item() for g, w in zip(outs["cuda"], outs["cpu"])]
+        print(f"MC EEND f32 card vs CPU on 2 windows x {MC_CHANNELS} channels: scores "
+              f"{tuple(outs['cuda'][0].shape)} max abs err {errs[0]:.3e}, spatial attention "
+              f"{tuple(outs['cuda'][1].shape)} max abs err {errs[1]:.3e} (limit 1e-3)")
+        check(tuple(outs["cuda"][1].shape) == (2, MC_STREAM_LAYERS, FRAMES, MC_CHANNELS,
+                                               MC_CHANNELS)
+              and all(bool(torch.isfinite(o).all()) for o in outs["cuda"]) and max(errs) <= 1e-3,
+              f"MC EEND on the card disagrees with the CPU: {errs}")
+        del seg32, emb, m
+
+        # ---- serving: the recipe's infer CLI, bf16, VBx -------------------------
+        argv = ["-C", str(conf), "--exp_dir", str(exp), "--wav_scp", str(root / "wav.scp"),
+                "--embedding_ckpt", str(resnet_ckpt), "--num_channels", str(MC_CHANNELS),
+                "--avg_ckpt_num", str(MC_CHECKPOINTS), "--ref_rttm", str(root / "ref.rttm")]
+        mc_infer.main(argv + ["--out_dir", str(root / "warmup")])
+        reset_counts()
+        t0 = time.perf_counter()
+        hyps = mc_infer.main(argv + ["--out_dir", str(root / "out")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        serving_k1 = k1.launches
+        attention_layers = sum(cfg.wavlm.use_attention)
+        batches = -(-n_windows // MC_BATCH)
+        summary = json.loads((root / "out" / "der.json").read_text())
+        print(f"MC recipe CLI {card}: {MC_CHANNELS} x {AUDIO_SECONDS} s, {MC_CHECKPOINTS} "
+              f"checkpoints averaged, bf16, VBx: {seconds:.3f} s a file with loading = "
+              f"{AUDIO_SECONDS / seconds:.2f} audio-s/s; K1 launches {serving_k1}; segments "
+              f"{check_rttm(hyps[uri].to_rttm(), uri)}, speakers {hyps[uri].labels()}; DER "
+              f"against the f32 reference {100 * summary['der']:.4f}% (limit "
+              f"{100 * DER_LIMIT:.1f}%)")
+        check(serving_k1 == batches * attention_layers,
+              f"expected {batches * attention_layers} K1 launches, got {serving_k1}")
+        check(summary["der"] <= DER_LIMIT, f"MC recipe DER {summary['der']} above {DER_LIMIT}")
+        timer = StageTimer()
+        pipe = mc_infer.build_pipeline(mc_infer.parse_args(argv + ["--out_dir", str(root)]),
+                                       config)
+        timer.last = time.perf_counter()
+        pipe(wave, 16000, uri=uri, hook=timer)
+        for step, sec in timer.seconds.items():
+            print(f"  MC stage {step} {card}: {sec:.4f} s")
+        phase_profile(f"one MC pipeline call {card}", lambda: pipe(wave, 16000, uri=uri))
+        del pipe, hyps
+
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        heads = [len(h) for h, a in zip(cfg.wavlm.remaining_heads[:MC_STREAM_LAYERS],
+                                        cfg.wavlm.use_attention) if a]
+        with strict_float32():
+            k1_row = mc_k1_layers(heads, MC_BATCH * MC_CHANNELS, gen)
+            k1_row["per_stream_b16"] = mc_k1_layers(heads, MC_BATCH, gen)
+        k1_row["launches_per_file"] = serving_k1
+        elapsed("multichannel serving")
+
+        # ---- training: the recipe's run CLI, then -M validate -------------------
+        recorder = LaunchRecorder()
+        t0 = time.perf_counter()
+        trained = mc_run.main(["-C", str(conf), "-M", "train"], step_hook=recorder)
+        validated = mc_run.main(["-C", str(conf), "-M", "validate"])
+        seconds = time.perf_counter() - t0
+        steps = recorder.steps
+        for i, st in enumerate(steps):  # step 0's wall time includes the recipe's set-up
+            print(f"  MC train step {i}: k {st['num_channels']}, loss {st['loss']:.5f}, "
+                  f"{st['ms']:.2f} ms; K1 training {st['k1_train']}, K2 {st['k2']}")
+        print(f"MC train recipe {card}: {len(steps)} steps of {MC_TRAIN_BATCH} x 8 s (bf16), k "
+              f"{[st['num_channels'] for st in steps]}, and validation in {seconds:.1f} s; "
+              f"validation loss {trained['loss']:.5f} DER {trained['der']:.5f}, -M validate "
+              f"{validated['loss']:.5f} / {validated['der']:.5f}")
+        check(len(steps) == TRAIN_STEPS and all(np.isfinite(st["loss"]) and not st["skipped"]
+                                                for st in steps), "an MC train step failed")
+        check(all(st["k1_train"] == st["k2"] == attention_layers for st in steps),
+              f"K1 training and K2 must each launch {attention_layers} times an MC step")
+        check(all(np.isfinite(validated[k]) and abs(validated[k] - trained[k])
+                  <= 1e-3 * max(1.0, abs(trained[k])) for k in ("loss", "der")),
+              f"-M validate {validated} disagrees with the epoch's validation {trained}")
+
+        # every k the sampler drew, and k = 8: a warm-up step and 3 timed
+        # steps each from the run's checkpoint, then one profiled step at k = 8
+        run_exp = root / "exp" / conf.stem
+        model.load_state_dict(load_checkpoint(latest_checkpoint(run_exp / "checkpoints"))[0])
+        state = create_train_state(model, recipe_run.build_optimizer(config, model))
+        batch = next(iter(DataLoader(recipe_run.build_dataset(
+            config["train_dataset"], cfg, num_channels=MC_CHANNELS, channel_mode="multichannel"),
+            batch_size=MC_TRAIN_BATCH, shuffle=False)))
+        per_k = {}
+        for k in sorted({st["num_channels"] for st in steps} | {MC_CHANNELS}):
+            mc_train_step(state, batch, 0, torch.bfloat16, k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                mc_train_step(state, batch, 0, torch.bfloat16, k)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            per_k[k] = {"ms": float(np.median(times)),
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "k1_train": k1.train_launches // 3, "k2": k1.bwd_launches // 3}
+            print(f"MC train step {card} at k {k} ({MC_TRAIN_BATCH * k} streams in layers 0-3): "
+                  f"{per_k[k]['ms']:.2f} ms/step (median of 3), peak "
+                  f"{per_k[k]['peak_gib']:.3f} GiB, K1 training {per_k[k]['k1_train']} and K2 "
+                  f"{per_k[k]['k2']} launches a step")
+        profiled_ms = profile_train_step(
+            lambda: mc_train_step(state, batch, 0, torch.bfloat16, MC_CHANNELS),
+            f"at k {MC_CHANNELS} {card}")
+        del state, model
+        torch.cuda.empty_cache()
+
+        trainable = {k: mc_trainable(MC_TRAIN_BATCH * k, heads, gen) for k in per_k}
+        elapsed("multichannel training")
+    rows = {"k1_train": {}, "k2": {}}
+    for k, pair in trainable.items():
+        for key, row in zip(rows, pair):
+            rows[key][k] = {**row, "launches_per_step": per_k[k][key]}
+    return {"k1": k1_row, "per_k": per_k, **rows, "profiled_ms_k8": profiled_ms}
+
+
 class StageTimer:
     """Pipeline hook: seconds since the previous stage ended (the per-batch
     progress calls are passed over)."""
@@ -2179,6 +2536,7 @@ def run_phases(flac_jobs) -> int:
     elapsed("scoring and the frame-level modes")
     pruning = phase_pruning(card)
     elapsed("fine-tune, distill-prune and collapse")
+    multichannel = phase_multichannel(card, resnet_sd)
 
     kernel["launches"] = launches
     kernel["whole_t1499"]["launches"] = evaluation_launches["whole"]
@@ -2189,6 +2547,11 @@ def run_phases(flac_jobs) -> int:
     trainable[1]["launches"] = train_launches["bwd"]
     for entry, row, key in zip(trainable, pruning["rate0"], ("k1_train", "k2")):
         entry["rate0"] = {**row, "launches_per_distill_step": pruning["distill_step"][key]}
+    # the multi-channel recipe: K1 at B 16 x 8 streams (layers 0-3) with its
+    # launches a file; K1 training and K2 launches a step at each k, K2 at 8 k
+    kernel["multichannel"] = multichannel["k1"]
+    trainable[0]["multichannel"] = multichannel["k1_train"]
+    trainable[1]["multichannel"] = multichannel["k2"]
     fused_ln[0]["launches"] = stream_launches["k3"]
     fused_ln[1]["launches"] = stream_launches["k4"]
     print(json.dumps({"kernels": [kernel, *trainable, *fused_ln, conv_chain]}))

@@ -69,6 +69,10 @@ REFERENCE_PATH_ALIASES = {
     "dataset.DiarizationDataset": "diarizen_tpu_torch.train.dataset.DiarizationDataset",
     "diarizen_tpu.models.build.wavlm_conformer":
         "diarizen_tpu_torch.models.build.wavlm_conformer",
+    "diarizen.models.eend.model_wavlm_conformer_mc.Model":
+        "diarizen_tpu_torch.models.build.wavlm_conformer_mc",
+    "diarizen_tpu.models.build.wavlm_conformer_mc":
+        "diarizen_tpu_torch.models.build.wavlm_conformer_mc",
     "diarizen_tpu.train.trainer.Trainer": "diarizen_tpu_torch.train.trainer.Trainer",
     "diarizen_tpu.train.dataset.DiarizationDataset":
         "diarizen_tpu_torch.train.dataset.DiarizationDataset",
@@ -86,13 +90,11 @@ REFERENCE_PATH_ALIASES = {
 # paths whose targets the port does not have yet; any other path into the
 # JAX package raises as well, instead of importing it
 NOT_PORTED = (
-    "diarizen.models.eend.model_wavlm_conformer_mc.Model",
     "diarizen.models.eend.model_fbank_conformer.Model",
     "diarizen.models.eend.model_pyannote.Model",
     "torch.optim.AdamW",
     "diarizen_tpu.models.build.fbank_conformer",
     "diarizen_tpu.models.build.pyannote_baseline",
-    "diarizen_tpu.models.build.wavlm_conformer_mc",
 )
 
 
@@ -103,10 +105,10 @@ def resolve(path: str) -> Any:
     path = REFERENCE_PATH_ALIASES.get(path, path)
     if path in NOT_PORTED or path.split(".")[0] == "diarizen_tpu":
         raise NotImplementedError(
-            f"{path!r} has no counterpart in diarizen_tpu_torch yet: the multi-channel, "
-            "fbank, SincNet (pyannote), S-Serious and x-vector model families, "
-            "torch.optim.AdamW and the JAX package's other modules are not ported; "
-            "WavLM + Conformer, its trainer, dataset and AdamW, and WavLM's "
+            f"{path!r} has no counterpart in diarizen_tpu_torch yet: the fbank, SincNet "
+            "(pyannote), S-Serious and x-vector model families, torch.optim.AdamW and the "
+            "JAX package's other modules are not ported; WavLM + Conformer and its "
+            "multi-channel model, their trainer, dataset and AdamW, and WavLM's "
             "distill-prune are")
     module_name, _, attr = path.rpartition(".")
     module = importlib.import_module(module_name)

@@ -1,8 +1,9 @@
 """Sliding-window inference, the device-side stitch, the diarization
-pipeline and the frame-level pipelines (VAD, OSD, multi-label,
-resegmentation)."""
+pipeline, its multi-channel counterpart and the frame-level pipelines (VAD,
+OSD, multi-label, resegmentation)."""
 
 from diarizen_tpu_torch.infer.fused import FusedStitch, make_fused_stitch
+from diarizen_tpu_torch.infer.mc_pipeline import McDiarizationPipeline, McSlidingInference
 from diarizen_tpu_torch.infer.multilabel import MultiLabelSegmentation
 from diarizen_tpu_torch.infer.pipeline import (
     DiarizationPipeline,
@@ -19,5 +20,6 @@ __all__ = [
     "DiarizationPipeline", "EmbeddingInference", "reconstruct", "speaker_count",
     "to_diarization", "SlidingInference", "receptive_field_window", "FusedStitch",
     "make_fused_stitch", "MultiLabelSegmentation", "Resegmentation",
-    "VoiceActivityDetection", "OverlappedSpeechDetection",
+    "VoiceActivityDetection", "OverlappedSpeechDetection", "McSlidingInference",
+    "McDiarizationPipeline",
 ]

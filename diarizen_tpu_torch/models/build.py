@@ -4,12 +4,13 @@ diarizen_tpu/models/build.py).
 A factory mirrors a reference model class's constructor (`[model] path = ...`,
 `[model.args]`) and returns `(config, model)`, the model with seeded random
 weights or, where `wavlm_src` names a checkpoint file, that WavLM. The
-WavLM + Conformer model and WavLM's distill-prune pair are built here; the
-other families are not ported yet.
+WavLM + Conformer model, its multi-channel model and WavLM's distill-prune
+pair are built here; the other families are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 from typing import Optional, Tuple
@@ -23,6 +24,7 @@ from diarizen_tpu_torch.models.convert import (
     random_state_dict,
 )
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
+from diarizen_tpu_torch.models.mc import FusionConfig, McEendConfig, McEendModel
 from diarizen_tpu_torch.models.wavlm import WavLM, WavLMConfig
 from diarizen_tpu_torch.prune.distill import DistillPruneModel
 from diarizen_tpu_torch.prune.gates import PruneConfig, init_gates
@@ -120,6 +122,33 @@ def wavlm_conformer(
     if wavlm_sd is not None:
         model.wavlm_model.load_state_dict(wavlm_sd, strict=True)
     return cfg, model
+
+
+def wavlm_conformer_mc(
+    wavlm_src: str = "wavlm_base",
+    fusion_kind: str = "cross_attention",
+    num_fusion_layers: int = 4,
+    fusion_hidden: int = 256,
+    fusion_heads: int = 8,
+    num_channels: int = 8,
+    seed: int = 0,
+    **kwargs,
+) -> Tuple[McEendConfig, McEendModel]:
+    """The multi-channel WavLM + Conformer EEND: `wavlm_conformer`'s model
+    (the same weights for the same seed and `kwargs`) with
+    `num_fusion_layers` channel fusions seeded from seed + 1."""
+    cfg, base = wavlm_conformer(wavlm_src=wavlm_src, num_channels=num_channels, seed=seed,
+                                **kwargs)
+    fcfg = FusionConfig(kind=fusion_kind, num_fusion_layers=num_fusion_layers,
+                        hidden=fusion_hidden, num_heads=fusion_heads)
+    # a shallow field copy: asdict would turn the nested configs into dicts
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    mc_cfg = McEendConfig(**fields, fusion=fcfg, num_channels=num_channels)
+    model = McEendModel(mc_cfg)
+    fusions = random_state_dict(model.channel_fusions, seed + 1)
+    model.load_state_dict({**base.state_dict(),
+                           **{f"channel_fusions.{k}": v for k, v in fusions.items()}})
+    return mc_cfg, model
 
 
 def _wavlm(wavlm_src: str, seed: int) -> Tuple[WavLMConfig, WavLM]:

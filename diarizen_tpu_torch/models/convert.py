@@ -1,9 +1,11 @@
 """Weights into the port's modules.
 
-`eend_state_dict_from_jax` and `resnet_state_dict_from_jax` take the JAX
+`eend_state_dict_from_jax`, `eend_mc_state_dict_from_jax` (with
+`fusion_state_dict_from_jax`) and `resnet_state_dict_from_jax` take the JAX
 package's parameter pytrees (nested dicts of numpy arrays) and return the
 port's `state_dict`, in the reference's torch key layout. They are the exact
-inverses of the JAX package's `eend_params_from_torch` and
+inverses of the JAX package's `eend_params_from_torch`,
+`eend_mc_params_from_torch` (`fusion_params_from_torch`) and
 `resnet_params_from_torch`: linear weights transpose, conv weights go from
 (k, in/g, out) to (out, in/g, k), ResNet kernels from HWIO to OIHW, the
 pos-conv weight norm to `weight_g` (1, 1, K) / `weight_v`, and `weight_sum`
@@ -224,6 +226,32 @@ def eend_state_dict_from_jax(params: dict, state: dict, cfg) -> StateDict:
     sd.update(conformer_state_dict_from_jax(
         params["conformer"], state["conformer"], prefix="conformer."))
     _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def fusion_state_dict_from_jax(params: dict, kind: str = "cross_attention",
+                               prefix: str = "") -> StateDict:
+    """JAX `CrossChannelAttention` / `TACFusion` params -> the port's fusion
+    state dict (the reference's keys)."""
+    sd: StateDict = {}
+    if kind == "cross_attention":
+        for name in ("q", "k", "v", "o"):
+            _linear(sd, f"{prefix}linear{name.upper()}", params[name])
+        _norm(sd, f"{prefix}ln_norm", params["norm"])
+        return sd
+    for name in ("input", "avg", "concat"):
+        _linear(sd, f"{prefix}{name}_tf.0", params[f"{name}_tf"])
+        sd[f"{prefix}{name}_tf.1.weight"] = _t(params[f"{name}_prelu"])
+    _norm(sd, f"{prefix}norm", params["norm"])
+    return sd
+
+
+def eend_mc_state_dict_from_jax(params: dict, state: dict, cfg) -> StateDict:
+    """JAX multi-channel EEND (params, state) -> the port's `McEendModel`
+    state dict; `cfg` is the McEendConfig."""
+    sd = eend_state_dict_from_jax(params, state, cfg)
+    for i, fusion in enumerate(params["channel_fusions"]):
+        sd.update(fusion_state_dict_from_jax(fusion, cfg.fusion.kind, f"channel_fusions.{i}."))
     return sd
 
 

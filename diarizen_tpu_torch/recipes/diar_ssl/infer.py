@@ -42,9 +42,9 @@ from diarizen_tpu_torch.utils import resolve_device
 Device = Optional[Union[str, torch.device]]
 
 
-def build_pipeline(args: argparse.Namespace, config: dict,
-                   device: Device = None) -> DiarizationPipeline:
-    device = resolve_device(device)
+def load_averaged_model(args: argparse.Namespace, config: dict):
+    """(config, model) of the `[model]` section with the average of the
+    experiment's selected checkpoints loaded (strict), on the host."""
     # the averaged checkpoints overwrite every weight, so a training-time
     # wavlm_src path that does not resolve here may fall back to the preset
     cfg, model = instantiate_model_for_inference(
@@ -63,7 +63,29 @@ def build_pipeline(args: argparse.Namespace, config: dict,
             "--exp_dir and that metrics.jsonl exists")
     model.load_state_dict(average_checkpoints(ckpts), strict=True)
     print(f"averaged {len(ckpts)} checkpoints: {[c.name for c in ckpts]}")
+    return cfg, model
 
+
+def build_clustering(cl: dict, method: str, fa: float = 0.07, fb: float = 0.8):
+    """The `[clustering.args]` table's AHC or VBx; `fa` and `fb` are the
+    defaults of VBx's Fa and Fb."""
+    if method in ("AHC", "AgglomerativeClustering"):
+        return AgglomerativeClustering(threshold=cl.get("ahc_threshold", 0.70),
+                                       min_cluster_size=cl.get("min_cluster_size", 30),
+                                       method=cl.get("linkage", "centroid"))
+    if method in ("VBx", "VBxClustering"):
+        return VBxClustering(
+            plda_dir=cl["plda_dir"], ahc_criterion=cl.get("ahc_criterion", "distance"),
+            ahc_threshold=cl.get("ahc_threshold", 0.6), fa=cl.get("Fa", fa),
+            fb=cl.get("Fb", fb), lda_dim=cl.get("lda_dim", 128),
+            max_iters=cl.get("max_iters", 20))
+    raise ValueError(f"unknown clustering {method}")
+
+
+def build_pipeline(args: argparse.Namespace, config: dict,
+                   device: Device = None) -> DiarizationPipeline:
+    device = resolve_device(device)
+    cfg, model = load_averaged_model(args, config)
     inference_args = config.get("inference", {}).get("args", {})
     seg_duration = float(inference_args.get("seg_duration", 8))
     batch_size = inference_args.get("batch_size", 32)
@@ -78,20 +100,8 @@ def build_pipeline(args: argparse.Namespace, config: dict,
                                  batch_size=batch_size, device=device)
 
     cl = config.get("clustering", {}).get("args", {})
-    method = args.clustering or cl.get("method", "AgglomerativeClustering")
-    if method in ("AHC", "AgglomerativeClustering"):
-        clustering = AgglomerativeClustering(threshold=cl.get("ahc_threshold", 0.70),
-                                             min_cluster_size=cl.get("min_cluster_size", 30),
-                                             method=cl.get("linkage", "centroid"))
-    elif method in ("VBx", "VBxClustering"):
-        clustering = VBxClustering(
-            plda_dir=cl["plda_dir"], ahc_criterion=cl.get("ahc_criterion", "distance"),
-            ahc_threshold=cl.get("ahc_threshold", 0.6), fa=cl.get("Fa", 0.07),
-            fb=cl.get("Fb", 0.8), lda_dim=cl.get("lda_dim", 128),
-            max_iters=cl.get("max_iters", 20))
-    else:
-        raise ValueError(f"unknown clustering {method}")
-
+    clustering = build_clustering(
+        cl, args.clustering or cl.get("method", "AgglomerativeClustering"))
     return DiarizationPipeline(
         seg_inference=seg_inf, emb_inference=emb_inf, clustering=clustering, eend_cfg=cfg,
         min_speakers=cl.get("min_speakers", 1), max_speakers=cl.get("max_speakers", 8),

@@ -18,8 +18,9 @@ It runs on the CUDA device; `main(argv, device="cpu")` runs it on the CPU.
 from __future__ import annotations
 
 import argparse
+import logging
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 from diarizen_tpu_torch.config import dump_toml, instantiate, load_toml
 from diarizen_tpu_torch.logger import init_logging, log_config
@@ -34,7 +35,10 @@ from diarizen_tpu_torch.train.optim import (
 from diarizen_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
-def build_dataset(section: dict, cfg: EendConfig) -> DiarizationDataset:
+def build_dataset(section: dict, cfg: EendConfig, num_channels: int = 1,
+                  channel_mode: str = "sdm") -> DiarizationDataset:
+    """The dataset of a `[*_dataset]` section; `num_channels` and
+    `channel_mode` are the defaults of the section's own keys."""
     args = section["args"]
     step, duration = cfg.rf_info()
     chunk_size = args.get("chunk_size", cfg.chunk_size)
@@ -43,8 +47,9 @@ def build_dataset(section: dict, cfg: EendConfig) -> DiarizationDataset:
         model_num_frames=cfg.num_frames(int(chunk_size * cfg.sample_rate)),
         model_rf_duration=duration, model_rf_step=step,
         chunk_size=chunk_size, chunk_shift=args.get("chunk_shift", 6),
-        sample_rate=args.get("sample_rate", 16000), num_channels=args.get("num_channels", 1),
-        channel_mode=args.get("channel_mode", "sdm"))
+        sample_rate=args.get("sample_rate", 16000),
+        num_channels=args.get("num_channels", num_channels),
+        channel_mode=args.get("channel_mode", channel_mode))
 
 
 def build_optimizer(config: dict, model):
@@ -69,58 +74,78 @@ def build_optimizer(config: dict, model):
                                       trainer_args.get("gradient_accumulation_steps", 1))
 
 
-def run(config: dict, mode: str, exp_dir: Path, device=None, step_hook=None) -> Dict[str, float]:
-    """Train or validate; returns the last validation metrics."""
+def start(config: dict, exp_dir: Path) -> logging.Logger:
+    """The experiment's log, and the config snapshot in its directory."""
     logger = init_logging(exp_dir)
     log_config(logger, config)
     dump_toml(config, exp_dir / "config.toml")
-    seed = config.get("meta", {}).get("seed", 3407)
+    return logger
 
-    cfg, model = instantiate(config["model"]["path"], config["model"].get("args", {}), seed=seed)
-    finetune = config.get("finetune", {})
-    if finetune.get("finetune") and finetune.get("checkpoints"):
-        model.load_state_dict(average_checkpoints(finetune["checkpoints"]))
-        logger.info("finetuning from %d averaged checkpoints", len(finetune["checkpoints"]))
 
+def trainer_config(config: dict, exp_dir: Path, seed: int) -> TrainerConfig:
     trainer_args = config.get("trainer", {}).get("args", {})
-    tc = TrainerConfig(
+    return TrainerConfig(
         exp_dir=str(exp_dir),
         max_epochs=trainer_args.get("max_epochs", 100),
         patience=trainer_args.get("max_patience", 10),
         max_num_checkpoints=trainer_args.get("max_num_checkpoints", 100),
         validation_interval=trainer_args.get("validation_interval", 1),
         monitor_mode="max" if trainer_args.get("save_max_score") else "min",
+        compute_dtype=trainer_args.get("compute_dtype", "bfloat16"),
         seed=seed,
     )
-    trainer = Trainer(model, tc, build_optimizer(config, model), device=device,
-                      step_hook=step_hook)
-    trainer.resume()
 
+
+def fit(trainer: Trainer, config: dict, cfg: EendConfig, mode: str, seed: int,
+        **dataset_defaults) -> Dict[str, float]:
+    """Resume from the experiment's latest checkpoint, then train and
+    validate, or validate; returns the last validation metrics.
+    `dataset_defaults`: `build_dataset`'s."""
+    trainer.resume()
     val_loader = DataLoader(
-        build_dataset(config["validate_dataset"], cfg),
+        build_dataset(config["validate_dataset"], cfg, **dataset_defaults),
         batch_size=config["validate_dataset"]["dataloader"]["batch_size"], shuffle=False,
         max_speakers_per_chunk=cfg.max_speakers_per_chunk)
-    if mode == "train":
-        train_loader = DataLoader(
-            build_dataset(config["train_dataset"], cfg),
-            batch_size=config["train_dataset"]["dataloader"]["batch_size"], shuffle=True,
-            seed=seed, max_speakers_per_chunk=cfg.max_speakers_per_chunk)
-        final = trainer.train(train_loader, val_loader)
-    else:
-        final = trainer.validate(val_loader)
+    if mode != "train":
+        return trainer.validate(val_loader)
+    train_loader = DataLoader(
+        build_dataset(config["train_dataset"], cfg, **dataset_defaults),
+        batch_size=config["train_dataset"]["dataloader"]["batch_size"], shuffle=True,
+        seed=seed, max_speakers_per_chunk=cfg.max_speakers_per_chunk)
+    return trainer.train(train_loader, val_loader)
+
+
+def run(config: dict, mode: str, exp_dir: Path, device=None, step_hook=None) -> Dict[str, float]:
+    """Train or validate; returns the last validation metrics."""
+    logger = start(config, exp_dir)
+    seed = config.get("meta", {}).get("seed", 3407)
+    cfg, model = instantiate(config["model"]["path"], config["model"].get("args", {}), seed=seed)
+    finetune = config.get("finetune", {})
+    if finetune.get("finetune") and finetune.get("checkpoints"):
+        model.load_state_dict(average_checkpoints(finetune["checkpoints"]))
+        logger.info("finetuning from %d averaged checkpoints", len(finetune["checkpoints"]))
+
+    trainer = Trainer(model, trainer_config(config, exp_dir, seed), build_optimizer(config, model),
+                      device=device, step_hook=step_hook)
+    final = fit(trainer, config, cfg, mode, seed)
     logger.info("%s done: %s", mode, final)
     return final
 
 
-def main(argv: Optional[Sequence[str]] = None, device=None, step_hook=None) -> Dict[str, float]:
-    parser = argparse.ArgumentParser("python -m diarizen_tpu_torch.recipes.diar_ssl.run")
+def parse_args(prog: str, argv: Optional[Sequence[str]] = None) -> Tuple[dict, str, Path]:
+    """(config, mode, experiment directory) of `-C` / `-M`."""
+    parser = argparse.ArgumentParser(prog)
     parser.add_argument("-C", "--configuration", required=True)
     parser.add_argument("-M", "--mode", default="train", choices=["train", "validate"])
     args = parser.parse_args(argv)
     config_path = Path(args.configuration).resolve()
     config = load_toml(config_path)
-    exp_dir = Path(config.get("meta", {}).get("save_dir", "exp")) / config_path.stem
-    return run(config, args.mode, exp_dir, device, step_hook)
+    return config, args.mode, Path(config.get("meta", {}).get("save_dir", "exp")) / config_path.stem
+
+
+def main(argv: Optional[Sequence[str]] = None, device=None, step_hook=None) -> Dict[str, float]:
+    config, mode, exp_dir = parse_args("python -m diarizen_tpu_torch.recipes.diar_ssl.run", argv)
+    return run(config, mode, exp_dir, device, step_hook)
 
 
 if __name__ == "__main__":

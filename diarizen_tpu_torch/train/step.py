@@ -10,18 +10,26 @@ counts and the AutoClip history included) and the BatchNorm running
 statistics, which the forward has already moved, keep their old values;
 the step counter still advances. Reading the loss is the step's one host
 sync.
+
+Both steps run the model through `segmentation_forward`, so `eval_step`
+evaluates a multi-channel model on all its channels (the JAX package's
+`make_mc_eval_step`); `mc_train_step` is its `make_mc_train_step`: it keeps
+the first `num_channels` channels of the batch, k drawn by the caller each
+step.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from diarizen_tpu_torch.models.eend import EendModel
+from diarizen_tpu_torch.models.forward import segmentation_forward
+from diarizen_tpu_torch.models.mc import McEendModel
 from diarizen_tpu_torch.train.loss import der_metrics, segmentation_loss
 from diarizen_tpu_torch.train.optim import GradientAccumulation, Optimizer, global_norm
 from diarizen_tpu_torch.utils import resolve_device
@@ -71,12 +79,31 @@ def train_step(state: TrainState, batch: Batch, seed: int = 0,
     clipping, 0 on a skipped batch), skipped, and attention_layers (the
     WavLM attention layers the forward computed: fewer than the model has
     where layer drop skipped some)."""
+    xs, target = to_device(batch, _device(state.model))
+    return _step(state, xs, target, seed, compute_dtype)
+
+
+def mc_train_step(state: TrainState, batch: Batch, seed: int = 0,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  num_channels: Optional[int] = None) -> Dict[str, float]:
+    """`train_step` of a multi-channel model on the first `num_channels`
+    channels of the batch's (B, C, N) waveforms (all with None); the metrics
+    also give num_channels, the channels the step ran on."""
+    if not isinstance(state.model, McEendModel):
+        raise TypeError(f"mc_train_step takes an McEendModel, got {type(state.model).__name__}")
+    xs, target = to_device(batch, _device(state.model))
+    xs = xs[:, :num_channels]
+    return {**_step(state, xs, target, seed, compute_dtype), "num_channels": xs.shape[1]}
+
+
+def _step(state: TrainState, xs: torch.Tensor, target: torch.Tensor, seed: int,
+          compute_dtype: torch.dtype) -> Dict[str, float]:
     model = state.model
-    xs, target = to_device(batch, _device(model))
     bn_before = [buf.clone() for buf in _batch_norm_buffers(model)]
     for p in model.parameters():
         p.grad = None
-    scores = model(xs, compute_dtype, train=True, generator=step_generator(seed, state.step))
+    scores = segmentation_forward(model)(xs, compute_dtype, train=True,
+                                         generator=step_generator(seed, state.step))
     loss = segmentation_loss(model.cfg.powerset, scores, target)
     loss.backward()
     loss_value = float(loss.detach())
@@ -107,7 +134,7 @@ def eval_step(model: EendModel, batch: Batch,
     (accumulate across batches, then divide). The forward is the inference
     forward: no dropout, BatchNorm running statistics, K1's rate-0 instance."""
     xs, target = to_device(batch, _device(model))
-    scores = model(xs, compute_dtype)
+    scores = segmentation_forward(model)(xs, compute_dtype)
     powerset = model.cfg.powerset
     m = der_metrics(powerset, scores, target)
     m["loss_sum"] = segmentation_loss(powerset, scores, target) * xs.shape[0]

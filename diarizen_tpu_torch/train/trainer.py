@@ -10,6 +10,10 @@ to the newest `max_num_checkpoints` with the best epoch protected; metrics
 as JSON lines; resume from the latest checkpoint; TensorBoard scalars when
 TensorBoard is installed. Runs on the CUDA device unless `device="cpu"` is
 passed. `step_hook`, when given, is called with each train step's metrics.
+`train_step_fn` replaces the train step (`mc_train_step` for the
+multi-channel model); with `channel_sampler` (a callable returning an int) it
+is also given `num_channels=` a value drawn before each step, the random
+channel truncation of multi-channel training.
 """
 
 from __future__ import annotations
@@ -53,9 +57,13 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, model: EendModel, trainer_cfg: TrainerConfig, optimizer, device=None,
-                 step_hook: Optional[Callable[[Dict], None]] = None):
+                 step_hook: Optional[Callable[[Dict], None]] = None,
+                 train_step_fn: Callable = train_step,
+                 channel_sampler: Optional[Callable[[], int]] = None):
         self.tc = trainer_cfg
         self.step_hook = step_hook
+        self.train_step_fn = train_step_fn
+        self.channel_sampler = channel_sampler
         self.state = create_train_state(model, optimizer, device)
         self.compute_dtype = (torch.bfloat16 if trainer_cfg.compute_dtype == "bfloat16"
                               else torch.float32)
@@ -113,7 +121,9 @@ class Trainer:
         good = skipped = n = 0
         t0 = time.time()
         for i, batch in enumerate(loader):
-            m = train_step(self.state, batch, self.tc.seed, self.compute_dtype)
+            extra = {} if self.channel_sampler is None else {
+                "num_channels": int(self.channel_sampler())}
+            m = self.train_step_fn(self.state, batch, self.tc.seed, self.compute_dtype, **extra)
             if self.step_hook is not None:
                 self.step_hook(m)
             n += 1
