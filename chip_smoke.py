@@ -111,7 +111,24 @@ Phases (any failure exits non-zero, before the last line is printed):
      memory and launches at each drawn k and k = 8, one profiled step at
      k = 8; K1's training instance and K2 at B = 8 k against their plain
      versions, timed beside SDPA and the bound;
- 15. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
+ 15. the remaining model families at full width, seeded: the repository's
+     `fbank_conformer.toml` (Conformer 4 x 256, 80 mels) and
+     `pyannote_baseline.toml` (SincNet + 4 BiLSTM(128)), unedited but for
+     their data and epochs, each through `recipes.diar_ssl.run` for one epoch
+     of 8 steps at the TOML's batch (16 and 32 x 8 s; bf16 requested, the
+     SincNet family runs float32) and `-M validate`, then three seeded
+     checkpoints, the card's f32 scores against the CPU's, the float32
+     pipeline's RTTMs as the reference and `recipes.diar_ssl.infer` on the
+     four 120 s FLAC files (bf16, AHC; warm-up, then timed) with its DER (at
+     most 0.5%); SSeRiouSS on WavLM-Base with 4 BiLSTM(128) layers at 32 x
+     8 s: the bf16 eval with the fused-LN and conv-chain routes on (K1 12 a
+     batch, K3, K4 and K5 counted), its f32 scores with the routes on
+     against off (1e-4) and against the CPU (1e-3), a training forward and
+     backward that leaves WavLM without gradients, timed bf16 train steps
+     (K1's training instance 12 a step, K2 never) and K1's training instance
+     alone at B 32; the x-vector with MFCC and SincNet front ends on 32 x
+     8 s, with and without pooling weights, against the CPU (1e-3), timed;
+ 16. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
      last JSON line {"ok": true, "device": {...}}.
 """
 
@@ -160,8 +177,11 @@ from diarizen_tpu_torch.models.convert import (
 )
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank import wespeaker_fbank
+from diarizen_tpu_torch.models.fbank_eend import FbankEendModel
 from diarizen_tpu_torch.models.mc import McEendModel
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
+from diarizen_tpu_torch.models.sincnet_eend import SincNetEendModel
+from diarizen_tpu_torch.models.sserious import SSeRiouSSConfig, SSeRiouSSModel
 from diarizen_tpu_torch.models.wavlm import (
     WavLM,
     WavLMConfig,
@@ -190,7 +210,15 @@ from diarizen_tpu_torch.recipes.diar_ssl_mc import infer as mc_infer
 from diarizen_tpu_torch.recipes.diar_ssl_mc import run as mc_run
 from diarizen_tpu_torch.recipes.diar_ssl_pruning import apply_pruning as apply_pruning_cli
 from diarizen_tpu_torch.recipes.diar_ssl_pruning import get_wavlm_from_finetuned, run_distill_prune
-from diarizen_tpu_torch.train import Trainer, TrainerConfig, dual_lr_optimizer, train_step
+from diarizen_tpu_torch.models.xvector import XVectorConfig, XVectorModel
+from diarizen_tpu_torch.train import (
+    Trainer,
+    TrainerConfig,
+    adamw_with_warmup,
+    dual_lr_optimizer,
+    segmentation_loss,
+    train_step,
+)
 from diarizen_tpu_torch.train.checkpoint import (
     append_metrics,
     average_checkpoints,
@@ -679,36 +707,70 @@ class StepRecorder:
         self.last, self.counts = now, counts
 
 
+def profiled_events(run, record_shapes: bool = False) -> list:
+    """The profiler's events of one `run()`. It runs twice under the
+    profiler, a synchronisation between, and only the events of the second
+    call are kept: late in this long process the profiler missed about the
+    first 30 kernels of a session (in a fresh process it does not), which
+    on a short call is a whole stage (a SSeRiouSS eval batch lost its
+    extractor)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
+        run()
+        torch.cuda.synchronize()
+        with record_function("measured call"):
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    begin = min(e.time_range.start for e in events
+                if e.name == "measured call" and e.device_type == DeviceType.CPU)
+    kept = [e for e in events if e.time_range.start >= begin and e.name != "measured call"]
+    check(any(e.device_type == DeviceType.CUDA for e in kept),
+          "the profiler recorded no device activity")
+    return kept
+
+
+def kernel_rows(events) -> list:
+    """(device ms, launches, name) of each kernel name, largest first."""
+    from torch.autograd import DeviceType
+
+    rows = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            ms, n = rows.get(e.name, (0.0, 0))
+            rows[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    return sorted(((ms, n, name) for name, (ms, n) in rows.items()), reverse=True)
+
+
 def profile_train_step(step, card: str, top: int = 12) -> float:
     """One more train step (`step()`) under torch.profiler: device time by
     kernel, the share of K1 and K2, and the operators (with their input
     shapes) whose kernels take the most device time. Returns the step's
     device milliseconds."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        step()
-        torch.cuda.synchronize()
-    ops = sorted((a for a in prof.key_averages(group_by_input_shape=True)
-                  if a.device_type == DeviceType.CPU and a.key.startswith("aten::")
-                  and a.key not in ("aten::to", "aten::_to_copy")),
-                 key=lambda a: -a.device_time_total)
-    for a in ops[:5]:
-        print(f"  operator {a.device_time_total / 1e3:9.3f} ms device time x{a.count:<4d} "
-              f"{a.key} {str(a.input_shapes)[:120]}")
-    rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
-                  key=lambda a: -a.self_device_time_total)
-    check(len(rows) > 0, "the profiler recorded no device activity")
-    total = sum(a.self_device_time_total for a in rows) / 1e3
-    k1_ms = sum(a.self_device_time_total for a in rows
-                if "gated_bias_attention_bf16_kernel" in a.key) / 1e3
-    k2_ms = sum(a.self_device_time_total for a in rows if "attention_bwd_" in a.key) / 1e3
+    events = profiled_events(step, record_shapes=True)
+    ops = {}
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.name.startswith("aten::")
+                and e.name not in ("aten::to", "aten::_to_copy")):
+            key = (e.name, str(e.input_shapes)[:120])
+            ms, n = ops.get(key, (0.0, 0))
+            ops[key] = (ms + e.device_time_total / 1e3, n + 1)
+    for (name, shapes), (ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"  operator {ms:9.3f} ms device time x{n:<4d} {name} {shapes}")
+    rows = kernel_rows(events)
+    total = sum(ms for ms, _, _ in rows)
+    k1_ms = sum(ms for ms, _, name in rows if "gated_bias_attention_bf16_kernel" in name)
+    k2_ms = sum(ms for ms, _, name in rows if "attention_bwd_" in name)
     print(f"profiled train step {card}: {total:.3f} ms of device time; K1 {k1_ms:.3f} ms "
           f"({100 * k1_ms / total:.1f}%), K2 {k2_ms:.3f} ms ({100 * k2_ms / total:.1f}%)")
-    for a in rows[:top]:
-        print(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:100]}")
+    for ms, n, name in rows[:top]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
     return total
 
 
@@ -822,15 +884,10 @@ def phase_profile(what: str, run, top: int = 15) -> float:
     span in which any kernel ran. Returns the milliseconds in which any
     kernel ran."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.events()
+    events = profiled_events(run)
     kernels = sorted((e.time_range.start, e.time_range.end) for e in events
                      if e.device_type == DeviceType.CUDA)
-    check(len(kernels) > 0, "the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
     for a, b in kernels:  # union of kernel intervals
         busy += max(0.0, b - max(a, end))
@@ -839,13 +896,11 @@ def phase_profile(what: str, run, top: int = 15) -> float:
     device_ms = sum(b - a for a, b in kernels) / 1e3
     print(f"profile of {what}: {len(kernels)} kernels, {device_ms:.3f} ms of device time in a "
           f"{span / 1e3:.3f} ms span; device busy {100 * busy / span:.1f}% of the span")
-    rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
-                  key=lambda a: -a.self_device_time_total)
     ours = ("gated_bias_attention", "attention_bwd", "dbias_sum", "residual_layer_norm",
             "conv_stage", "conv_chain")
-    for i, a in enumerate(rows):  # the top rows, and the port's own kernels wherever they rank
-        if i < top or any(name in a.key for name in ours):
-            print(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:100]}")
+    for i, (ms, n, name) in enumerate(kernel_rows(events)):
+        if i < top or any(k in name for k in ours):  # and the port's own wherever they rank
+            print(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
     return busy / 1e3
 
 
@@ -1605,6 +1660,24 @@ def frame_decisions(agg) -> tuple:
     return tuple(binarize_hysteresis(top2[:, i][None], 0.5, 0.5)[0] for i in (1, 0))
 
 
+def seeded_checkpoints(model, exp: Path, seed: int, count: int) -> dict:
+    """`count` nearby checkpoints of `model`'s shapes with their metrics in
+    `exp`, as successive epochs of one run are; returns the seeded state
+    dict they vary. Seeded weights spread the powerset probability over many
+    classes: the checkpoints' head is 10x sharper, for the confident scores
+    of a trained model."""
+    seeded = random_state_dict(model, seed=seed)
+    base = {**seeded, "classifier.weight": seeded["classifier.weight"] * 10.0}
+    rng = np.random.default_rng(seed + 1)
+    for epoch in range(count):
+        sd = {k: v + 0.01 * v.abs().mean() * torch.from_numpy(
+                  rng.standard_normal(tuple(v.shape)).astype(np.float32))
+              if v.is_floating_point() and v.dim() > 1 else v for k, v in base.items()}
+        save_checkpoint(exp / "checkpoints", epoch, sd)
+        append_metrics(exp, {"epoch": epoch, "loss": 1.0 - 0.1 * epoch})
+    return seeded
+
+
 def phase_evaluation(card: str, resnet_sd, flac_jobs) -> dict:
     """Scoring and the frame-level modes at the full width of Base-s80-md:
     an experiment directory of seeded checkpoints, FLAC and WAV copies of
@@ -1638,20 +1711,9 @@ def phase_evaluation(card: str, resnet_sd, flac_jobs) -> dict:
         (root / "conf.toml").write_text(EVAL_TOML)
         model_section = port_config.load_toml(root / "conf.toml")["model"]
         eend_cfg, model = build.wavlm_conformer(**model_section["args"])
-        # nearby checkpoints, as successive epochs of one run are. Seeded
-        # weights spread the powerset probability over many classes, so that
-        # no speaker's soft score reaches the resegmentation onset (0.81); a
-        # sharper head gives the confident scores of a trained model
-        seeded = random_state_dict(model, seed=30)
-        base = {**seeded, "classifier.weight": seeded["classifier.weight"] * 10.0}
-        rng = np.random.default_rng(31)
-        for epoch in range(EVAL_CHECKPOINTS):
-            sd = {k: v + 0.01 * v.abs().mean() * torch.from_numpy(
-                      rng.standard_normal(tuple(v.shape)).astype(np.float32))
-                  if v.is_floating_point() and v.dim() > 1 else v
-                  for k, v in base.items()}
-            save_checkpoint(root / "exp" / "checkpoints", epoch, sd)
-            append_metrics(root / "exp", {"epoch": epoch, "loss": 1.0 - 0.1 * epoch})
+        # with the seeded head, no speaker's soft score would reach the
+        # resegmentation onset (0.81)
+        seeded = seeded_checkpoints(model, root / "exp", seed=30, count=EVAL_CHECKPOINTS)
         resnet_ckpt = root / "resnet34.bin"
         torch.save({"state_dict": resnet_sd}, resnet_ckpt)
 
@@ -2240,18 +2302,8 @@ def phase_multichannel(card: str, resnet_sd) -> dict:
         cfg, model = port_config.instantiate_section(config, "model")
         check(isinstance(model, McEendModel) and cfg.num_channels == MC_CHANNELS
               and cfg.fusion.num_fusion_layers == MC_STREAM_LAYERS, "the MC recipe's model")
-        # nearby checkpoints, the head x10 for confident scores (as in the
-        # evaluation phase)
-        seeded = random_state_dict(model, seed=40)
-        base = {**seeded, "classifier.weight": seeded["classifier.weight"] * 10.0}
-        rng = np.random.default_rng(41)
         exp = root / "exp" / "infer"
-        for epoch in range(MC_CHECKPOINTS):
-            sd = {k: v + 0.01 * v.abs().mean() * torch.from_numpy(
-                      rng.standard_normal(tuple(v.shape)).astype(np.float32))
-                  if v.is_floating_point() and v.dim() > 1 else v for k, v in base.items()}
-            save_checkpoint(exp / "checkpoints", epoch, sd)
-            append_metrics(exp, {"epoch": epoch, "loss": 1.0 - 0.1 * epoch})
+        seeded_checkpoints(model, exp, seed=40, count=MC_CHECKPOINTS)
         resnet_ckpt = root / "resnet34.bin"
         torch.save({"state_dict": resnet_sd}, resnet_ckpt)
         print(f"multichannel inputs: {MC_CHANNELS} x {AUDIO_SECONDS} s WAV, {MC_CHECKPOINTS} "
@@ -2396,6 +2448,344 @@ def phase_multichannel(card: str, resnet_sd) -> dict:
     return {"k1": k1_row, "per_k": per_k, **rows, "profiled_ms_k8": profiled_ms}
 
 
+FAMILY_TOMLS = {  # the baselines' recipe TOMLs: model class, train durations (s)
+    "fbank_conformer": (FbankEendModel, [200] * 4),  # 16 x 8 s: 132 chunks, 8 steps
+    "pyannote_baseline": (SincNetEendModel, [200] * 8),  # 32 x 8 s: 264 chunks, 8 steps
+}
+FAMILY_DEV = [136]  # 17 chunks of 8 s at shift 8: one validation batch of 16
+
+
+def card_against_cpu(make, state_dict, inputs, what: str, limit: float = 1e-3) -> list:
+    """A model's float32 outputs on the card (kernel path, no TF32) against
+    the CPU's (plain path) on the same inputs: `make()` builds it, `inputs`
+    is a list of argument tuples. Returns the card's outputs."""
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = make()
+        model.load_state_dict(state_dict)
+        model.to(device).eval()
+        with torch.inference_mode(), strict_float32():
+            outs[device] = [model(*(a.to(device) for a in args)).cpu() for args in inputs]
+    errs = [(g - w).abs().max().item() for g, w in zip(outs["cuda"], outs["cpu"])]
+    print(f"{what} f32 card vs CPU: outputs {[tuple(o.shape) for o in outs['cuda']]}, max abs "
+          f"err {max(errs):.3e} (limit {limit:.0e}), largest magnitude "
+          f"{max(o.abs().max().item() for o in outs['cpu']):.3e}")
+    check(all(bool(torch.isfinite(o).all()) for o in outs["cuda"]) and max(errs) <= limit,
+          f"{what} on the card disagrees with the CPU: {errs}")
+    return outs["cuda"]
+
+
+def family_recipe(card: str, root: Path, stem: str, waves, flac_jobs, resnet_ckpt: Path) -> dict:
+    """One baseline's recipe TOML, unedited but for its data, epochs and
+    experiment directory: `recipes.diar_ssl.run` for one epoch of 8 steps
+    (bf16 requested) and `-M validate`; then an experiment of three seeded
+    checkpoints, the float32 pipeline's RTTMs of the four WAV files as the
+    reference, the card's f32 scores against the CPU's, and
+    `recipes.diar_ssl.infer` on the FLAC copies in bf16 with the TOML's AHC
+    (warm-up, then timed) with its DER. Returns its numbers."""
+    repo = Path(__file__).resolve().parent
+    model_class, durations = FAMILY_TOMLS[stem]
+    t0 = time.perf_counter()
+    train = write_kaldi_dir(root, f"{stem}_train", durations, seed=50)
+    dev = write_kaldi_dir(root, f"{stem}_dev", FAMILY_DEV, seed=51)
+    conf = recipe_toml(repo / f"recipes/diar_ssl/conf/{stem}.toml", root, {
+        "trainer.args.max_epochs": 1, "trainer.args.max_num_checkpoints": 1,
+        **data_changes("train_dataset", train), **data_changes("validate_dataset", dev)})
+    config = port_config.load_toml(conf)
+    batch = config["train_dataset"]["dataloader"]["batch_size"]
+    print(f"{stem} inputs: Kaldi directories of {sum(durations)} s and {sum(FAMILY_DEV)} s "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- training: the recipe's run CLI, then -M validate -----------------------
+    torch.cuda.reset_peak_memory_stats()
+    recorder = LaunchRecorder()
+    t0 = time.perf_counter()
+    trained = recipe_run.main(["-C", str(conf), "-M", "train"], step_hook=recorder)
+    validated = recipe_run.main(["-C", str(conf), "-M", "validate"])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = recorder.steps
+    step_ms = float(np.median([st["ms"] for st in steps[2:]]))
+    print(f"{stem} train recipe {card}: {len(steps)} steps of {batch} x 8 s (bf16 requested), "
+          f"median {step_ms:.2f} ms/step after 2 warm-up steps "
+          f"({', '.join(f'{ms:.1f}' for ms in (st['ms'] for st in steps))} ms), peak device "
+          f"memory {peak:.3f} "
+          f"GiB; validation loss {trained['loss']:.5f} DER {trained['der']:.5f}, -M validate "
+          f"{validated['loss']:.5f} / {validated['der']:.5f} ({seconds:.1f} s in all)")
+    check(len(steps) == TRAIN_STEPS and all(np.isfinite(st["loss"]) and not st["skipped"]
+                                            and st["attention_layers"] == 0 for st in steps),
+          f"a {stem} train step failed")
+    check(all(st["k1"] == st["k1_train"] == st["k2"] == 0 for st in steps),
+          f"{stem} launched an attention kernel")
+    check(all(np.isfinite(validated[k]) and abs(validated[k] - trained[k])
+              <= 1e-3 * max(1.0, abs(trained[k])) for k in ("loss", "der")),
+          f"{stem}: -M validate {validated} disagrees with the epoch's validation {trained}")
+
+    # one more train step from the run's checkpoint, under the profiler
+    cfg, model = port_config.instantiate_section(config, "model")
+    check(isinstance(model, model_class), f"{stem} builds {type(model).__name__}")
+    model.load_state_dict(load_checkpoint(latest_checkpoint(root / "exp" / conf.stem
+                                                            / "checkpoints"))[0])
+    state = create_train_state(model, recipe_run.build_optimizer(config, model))
+    data = next(iter(DataLoader(recipe_run.build_dataset(config["train_dataset"], cfg),
+                                batch_size=batch, shuffle=False)))
+    train_step(state, data, 0, torch.bfloat16)  # the optimizer's state
+    profile_train_step(lambda: train_step(state, data, 1, torch.bfloat16), f"{stem} {card}")
+    del state, model
+    cfg, model = port_config.instantiate_section(config, "model")  # fresh, on the host
+
+    # ---- serving: three checkpoints, the f32 reference, the infer CLI -----------
+    exp = root / "exp" / f"{stem}_infer"
+    seeded_checkpoints(model, exp, seed=52, count=EVAL_CHECKPOINTS)
+    model.load_state_dict(average_checkpoints(sorted((exp / "checkpoints").iterdir())))
+    uris = [f"{stem}{i}" for i in range(STREAM_FILES)]
+    for uri, wave, job in zip(uris, waves, flac_jobs):
+        write_pcm16(root / f"{uri}.wav", pcm16(wave))
+        (root / f"{uri}.flac").write_bytes(job.result())
+    (root / f"{stem}.scp").write_text("".join(f"{u} {root / u}.flac\n" for u in uris))
+    frames = cfg.num_frames(128000)
+    windows = torch.from_numpy(np.stack([waves[0][0, :128000], waves[0][0, 12800:140800]]))
+    card_against_cpu(lambda: model_class(cfg), model.state_dict(), [(windows,)],
+                     f"{stem} scores ({frames} frames a window)")
+    seg32 = SlidingInference(model, batch_size=BATCH, compute_dtype=torch.float32)
+    emb = EmbeddingInference(pipelines.load_resnet(resnet_ckpt), seg32.window_size,
+                             num_speakers=cfg.max_speakers_per_chunk, batch_size=BATCH)
+    cl = config["clustering"]["args"]
+    ahc = AgglomerativeClustering(threshold=cl["ahc_threshold"],
+                                  min_cluster_size=cl["min_cluster_size"])
+    t0 = time.perf_counter()
+    with strict_float32():
+        reference = [DiarizationPipeline(seg32, emb, ahc, cfg, max_speakers=cl["max_speakers"])(
+            read_audio(root / f"{uri}.wav")[0], 16000, uri=uri) for uri in uris]
+    write_rttm(root / f"{stem}_ref.rttm", reference)
+    print(f"{stem} f32 reference: {[check_rttm(r.to_rttm(), u) for r, u in zip(reference, uris)]}"
+          f" segments ({time.perf_counter() - t0:.1f} s)")
+    del seg32, emb
+
+    argv = ["-C", str(conf), "--exp_dir", str(exp), "--wav_scp", str(root / f"{stem}.scp"),
+            "--avg_ckpt_num", str(EVAL_CHECKPOINTS), "--embedding_ckpt", str(resnet_ckpt),
+            "--ref_rttm", str(root / f"{stem}_ref.rttm")]
+    recipe_infer.main(argv + ["--out_dir", str(root / f"{stem}_warmup")])
+    reset_counts()
+    t0 = time.perf_counter()
+    hyps = recipe_infer.main(argv + ["--out_dir", str(root / f"{stem}_out")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    summary = json.loads((root / f"{stem}_out" / "der.json").read_text())
+    segments = [check_rttm(hyps[u].to_rttm(), u) for u in uris]
+    print(f"{stem} recipe CLI {card}: {STREAM_FILES} x {AUDIO_SECONDS} s FLAC, "
+          f"{EVAL_CHECKPOINTS} checkpoints averaged, bf16 requested, AHC: {seconds:.3f} s with "
+          f"loading = {seconds / STREAM_FILES:.3f} s a file; {frames} frames a window; segments "
+          f"{segments}; DER against the f32 reference {100 * summary['der']:.4f}% (false alarm "
+          f"{100 * summary['false_alarm']:.4f}%, miss {100 * summary['missed_detection']:.4f}%, "
+          f"confusion {100 * summary['confusion']:.4f}%; limit {100 * DER_LIMIT:.1f}%)")
+    check(k1.launches == k3.launches == k3.acc_launches == k5.launches == 0,
+          f"{stem} serving launched a WavLM kernel")
+    check(summary["der"] <= DER_LIMIT, f"{stem} recipe DER {summary['der']} above {DER_LIMIT}")
+    timer = StageTimer()
+    pipe = recipe_infer.build_pipeline(recipe_infer.parse_args(argv + ["--out_dir", str(root)]),
+                                       config)
+    wave = read_audio(root / f"{uris[0]}.flac")[0]
+    timer.last = time.perf_counter()
+    pipe(wave, 16000, uri=uris[0], hook=timer)
+    for step, sec in timer.seconds.items():
+        print(f"  {stem} stage {step} {card}: {sec:.4f} s")
+    phase_profile(f"one {stem} pipeline call {card}", lambda: pipe(wave, 16000, uri=uris[0]))
+    del pipe
+    return {"step_ms": step_ms, "peak_gib": peak, "seconds_a_file": seconds / STREAM_FILES,
+            "der": summary["der"], "frames": frames}
+
+
+def sserious_k1_train_row(gen) -> dict:
+    """K1's training instance forward alone (no K2 follows it in SSeRiouSS)
+    at the trunk's training shape (B 32, H 12, T 399) bf16, rate 0.1: against
+    the plain version (2e-2 of the largest magnitude), timed beside it, SDPA
+    with dropout and the bound."""
+    (q, k, v, pos, gate), _ = trainable_inputs(BATCH, TRAIN_HEADS, FRAMES, torch.bfloat16, gen)
+    bias = k1.padded_bias(pos, torch.bfloat16)
+    mask = (gate[..., None] * pos).to(torch.bfloat16)
+    args = (q, k, v, pos, gate, DROPOUT_RATE, DROPOUT_SEED)
+    with torch.no_grad():
+        got = k1.flash_attention_gated_bias_trainable(*args)
+        want = k1.flash_attention_gated_bias_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        check(err <= 2e-2 * scale, f"K1 training instance at B {BATCH}: {err} of {scale}")
+        row = {
+            "ms": median_ms(lambda: k1._forward_train(q, k, v, bias, gate, DROPOUT_RATE,
+                                                      DROPOUT_SEED)),
+            "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(*args)),
+            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=DROPOUT_RATE)),
+        }
+    mem_s, op_s = trainable_bound_s(BATCH, TRAIN_HEADS, FRAMES, HEAD_DIM, 2)["fwd"]
+    row.update(max_abs_err=err, bound_ms=1e3 * max(mem_s, op_s),
+               bound_by="bytes" if mem_s >= op_s else "operations")
+    print(f"gated_bias_attention_train forward only bf16 B={BATCH} H={TRAIN_HEADS} T={FRAMES} "
+          f"rate={DROPOUT_RATE} (the SSeRiouSS trunk's training forward): kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms; max abs err {err:.3e} of {scale:.3e}")
+    return row
+
+
+def phase_sserious(card: str) -> dict:
+    """SSeRiouSS on WavLM-Base with 4 BiLSTM(128) layers, seeded, 32 windows
+    of 8 s: the bf16 eval with the fused-LN and conv-chain routes on (K1, K3,
+    K4 and K5 counted; K1 12 a batch), its f32 scores with the routes on
+    against off (1e-4) and on the card against the CPU (1e-3, two windows);
+    one bf16 training forward and backward (no WavLM gradient), then timed
+    train steps (K1's training instance 12 a step, K2 never), and K1's
+    training instance alone at that shape."""
+    scfg = SSeRiouSSConfig(wavlm=WavLMConfig.base())
+    model = SSeRiouSSModel(scfg)
+    sd = random_state_dict(model, seed=55)
+    sd["wav2vec_weights"] = torch.from_numpy(
+        np.random.default_rng(56).standard_normal(scfg.wavlm.num_layers).astype(np.float32))
+    model.load_state_dict(sd)
+    wave = make_wave(AUDIO_SECONDS, seed=9)[0]
+    hop = 12800  # the pipeline's 0.8 s step
+    windows = np.stack([wave[i * hop: i * hop + 128000] for i in range(BATCH)])
+    card_against_cpu(lambda: SSeRiouSSModel(scfg), sd, [(torch.from_numpy(windows[:2]),)],
+                     "SSeRiouSS scores")
+    model.cuda()
+    x = torch.from_numpy(windows).cuda()
+
+    set_fused_ln(True)
+    set_conv_chain(True)
+    try:
+        with torch.inference_mode():
+            model(x, torch.bfloat16)
+            torch.cuda.synchronize()
+            reset_counts()
+            scores16 = model(x, torch.bfloat16)
+            torch.cuda.synchronize()
+            counts = {"k1": k1.launches, "k3": k3.launches, "k4": k3.acc_launches,
+                      "k5": k5.launches}
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                model(x, torch.bfloat16)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            with strict_float32():
+                on32 = model(x, torch.float32)
+            phase_profile(f"one SSeRiouSS eval batch {card}", lambda: model(x, torch.bfloat16))
+    finally:
+        set_fused_ln(None)
+        set_conv_chain(None)
+    with torch.inference_mode(), strict_float32():
+        off32 = model(x, torch.float32)
+    eval_ms = float(np.median(times))
+    err = (on32 - off32).abs().max().item()
+    print(f"SSeRiouSS eval {card}: {BATCH} x 8 s in bf16 with fused-LN and conv-chain on, "
+          f"{eval_ms:.2f} ms a batch (median of 5); launches a batch: K1 {counts['k1']}, K3 "
+          f"{counts['k3']}, K4 {counts['k4']}, K5 {counts['k5']}; f32 routes on vs off max abs "
+          f"err {err:.3e} (limit 1e-4)")
+    check(tuple(off32.shape) == (BATCH, FRAMES, scfg.num_powerset_classes), "SSeRiouSS shape")
+    check(counts["k1"] == scfg.wavlm.num_layers and min(counts.values()) > 0,
+          f"SSeRiouSS eval launches {counts}")
+    check(bool(torch.isfinite(on32).all()) and err <= 1e-4, f"SSeRiouSS routes on vs off: {err}")
+    check_scores(scores16.float(), off32, 0.1, 0.01, "SSeRiouSS bf16 (routes on) vs f32 scores")
+
+    # ---- training: no gradient reaches WavLM; K1's training instance, no K2 ------
+    target = (np.random.default_rng(57).uniform(size=(BATCH, FRAMES, 4)) > 0.7
+              ).astype(np.float32)
+    head = {n: p for n, p in model.named_parameters() if not n.startswith("wav2vec.")}
+    state = create_train_state(model, adamw_with_warmup(head, 1e-3))
+    scores = model(x, torch.bfloat16, train=True, generator=torch.Generator().manual_seed(0))
+    segmentation_loss(scfg.powerset, scores, torch.from_numpy(target).cuda()).backward()
+    trunk_grads = [n for n, p in model.named_parameters()
+                   if n.startswith("wav2vec.") and p.grad is not None]
+    head_grads = [n for n, p in head.items() if p.requires_grad and p.grad is None]
+    check(not trunk_grads and not head_grads,
+          f"SSeRiouSS gradients: trunk {trunk_grads[:3]}, head without one {head_grads[:3]}")
+    model.zero_grad(set_to_none=True)
+    batch = {"xs": windows[:, None], "target": target}
+    train_step(state, batch, 0, torch.bfloat16)  # warm-up: the optimizer's state
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, steps = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        steps.append(train_step(state, batch, 1 + i, torch.bfloat16))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = float(np.median(times))
+    # layer drop (0.05 in WavLM-Base's training) skips a layer now and then:
+    # one K1 training launch for each attention layer a step computed
+    layers = [st["attention_layers"] for st in steps]
+    launches = {"k1": k1.launches, "k1_train": k1.train_launches, "k2": k1.bwd_launches}
+    print(f"SSeRiouSS train step {card}: {BATCH} x 8 s bf16, {step_ms:.2f} ms/step (median of "
+          f"3: {', '.join(f'{t:.1f}' for t in times)}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
+          f"{[round(st['loss'], 5) for st in steps]}; attention layers computed {layers}; K1 "
+          f"training {launches['k1_train']} in 3 steps, K1 inference {launches['k1']}, K2 "
+          f"{launches['k2']}; WavLM gradients None")
+    check(all(np.isfinite(st["loss"]) and not st["skipped"] for st in steps),
+          f"SSeRiouSS steps {steps}")
+    check(launches == {"k1": 0, "k1_train": sum(layers), "k2": 0} and min(layers) > 0,
+          f"SSeRiouSS train launches {launches} for attention layers {layers}")
+    profile_train_step(lambda: train_step(state, batch, 4, torch.bfloat16), f"SSeRiouSS {card}")
+    del state, model
+    torch.cuda.empty_cache()
+    row = sserious_k1_train_row(torch.Generator(device="cuda").manual_seed(58))
+    per_step = {"k1_train": launches["k1_train"] / 3, "k2": launches["k2"] / 3}
+    return {"eval": counts, "eval_ms": eval_ms, "step_ms": step_ms, "train": per_step,
+            "k1_train": {**row, "launches_per_step": per_step["k1_train"]}}
+
+
+def phase_xvector(card: str) -> dict:
+    """The x-vector with its MFCC and SincNet front ends, seeded, on 32
+    windows of 8 s with and without pooling weights on the segmentation
+    grid: the card's f32 embeddings against the CPU's (1e-3), and one batch
+    timed on the card."""
+    wave = make_wave(AUDIO_SECONDS, seed=10)[0]
+    windows = torch.from_numpy(np.stack([wave[i * 12800: i * 12800 + 128000]
+                                         for i in range(BATCH)]))
+    weights = torch.from_numpy(np.random.default_rng(61).uniform(size=(BATCH, 3, FRAMES))
+                               .astype(np.float32))
+    out = {}
+    for frontend in ("mfcc", "sincnet"):
+        xcfg = XVectorConfig(frontend=frontend)
+        sd = random_state_dict(XVectorModel(xcfg), seed=62)
+        embs = card_against_cpu(lambda: XVectorModel(xcfg), sd,
+                                [(windows,), (windows, weights)], f"x-vector {frontend}")
+        check(tuple(embs[0].shape) == (BATCH, xcfg.dimension)
+              and tuple(embs[1].shape) == (BATCH, 3, xcfg.dimension), "x-vector shapes")
+        model = XVectorModel(xcfg)
+        model.load_state_dict(sd)
+        model.cuda().eval()
+        xw = windows.cuda()
+        with torch.inference_mode():
+            ms = median_ms(lambda: model(xw), reps=10)
+        print(f"x-vector {frontend} {card}: {BATCH} x 8 s ({xcfg.num_frames(128000)} TDNN "
+              f"frames a window), {ms:.3f} ms a batch")
+        out[frontend] = ms
+    return out
+
+
+def phase_families(card: str, resnet_sd, flac_jobs) -> dict:
+    """The remaining model families at full width, seeded: the Fbank +
+    Conformer and SincNet-BiLSTM recipe TOMLs (`family_recipe`), SSeRiouSS
+    (`phase_sserious`) and the x-vector (`phase_xvector`)."""
+    t0 = time.perf_counter()
+    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(STREAM_FILES)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        resnet_ckpt = root / "resnet34.bin"
+        torch.save({"state_dict": resnet_sd}, resnet_ckpt)
+        for stem in FAMILY_TOMLS:
+            out[stem] = family_recipe(card, root, stem, waves, flac_jobs, resnet_ckpt)
+            torch.cuda.empty_cache()
+    elapsed("the baselines' recipes")
+    out["sserious"] = phase_sserious(card)
+    out["xvector"] = phase_xvector(card)
+    print(f"the remaining families: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 class StageTimer:
     """Pipeline hook: seconds since the previous stage ended (the per-batch
     progress calls are passed over)."""
@@ -2537,6 +2927,8 @@ def run_phases(flac_jobs) -> int:
     pruning = phase_pruning(card)
     elapsed("fine-tune, distill-prune and collapse")
     multichannel = phase_multichannel(card, resnet_sd)
+    families = phase_families(card, resnet_sd, flac_jobs)
+    elapsed("the remaining families")
 
     kernel["launches"] = launches
     kernel["whole_t1499"]["launches"] = evaluation_launches["whole"]
@@ -2554,6 +2946,15 @@ def run_phases(flac_jobs) -> int:
     trainable[1]["multichannel"] = multichannel["k2"]
     fused_ln[0]["launches"] = stream_launches["k3"]
     fused_ln[1]["launches"] = stream_launches["k4"]
+    # SSeRiouSS on WavLM-Base, one batch of 32 x 8 s: K1, K3, K4 and K5 at the
+    # `base` shapes timed above; K1's training instance alone, K2 never
+    sserious = families["sserious"]
+    kernel["sserious_launches_per_batch"] = sserious["eval"]["k1"]
+    fused_ln[0]["sserious_launches_per_batch"] = sserious["eval"]["k3"]
+    fused_ln[1]["sserious_launches_per_batch"] = sserious["eval"]["k4"]
+    conv_chain["sserious_launches_per_batch"] = sserious["eval"]["k5"]
+    trainable[0]["sserious_forward_only"] = sserious["k1_train"]
+    trainable[1]["sserious_launches_per_step"] = sserious["train"]["k2"]
     print(json.dumps({"kernels": [kernel, *trainable, *fused_ln, conv_chain]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -85,31 +85,29 @@ REFERENCE_PATH_ALIASES = {
     "diarizen_tpu.prune.distill": "diarizen_tpu_torch.prune.distill",
     "diarizen_tpu.prune.distill.distill_loss_fn":
         "diarizen_tpu_torch.prune.distill.distill_loss_fn",
+    "diarizen.models.eend.model_fbank_conformer.Model":
+        "diarizen_tpu_torch.models.build.fbank_conformer",
+    "diarizen_tpu.models.build.fbank_conformer": "diarizen_tpu_torch.models.build.fbank_conformer",
+    "diarizen.models.eend.model_pyannote.Model":
+        "diarizen_tpu_torch.models.build.pyannote_baseline",
+    "diarizen_tpu.models.build.pyannote_baseline":
+        "diarizen_tpu_torch.models.build.pyannote_baseline",
+    "torch.optim.AdamW": "diarizen_tpu_torch.train.optim.adamw_torch_args",
 }
-
-# paths whose targets the port does not have yet; any other path into the
-# JAX package raises as well, instead of importing it
-NOT_PORTED = (
-    "diarizen.models.eend.model_fbank_conformer.Model",
-    "diarizen.models.eend.model_pyannote.Model",
-    "torch.optim.AdamW",
-    "diarizen_tpu.models.build.fbank_conformer",
-    "diarizen_tpu.models.build.pyannote_baseline",
-)
 
 
 def resolve(path: str) -> Any:
     """'pkg.mod.Name' -> attribute. Reference and JAX-package paths are
-    aliased to the port's factories and classes (REFERENCE_PATH_ALIASES); one
-    whose target is not ported yet raises NotImplementedError naming it."""
+    aliased to the port's factories and classes (REFERENCE_PATH_ALIASES); any
+    other path into the JAX package raises NotImplementedError naming it,
+    instead of importing the JAX package."""
     path = REFERENCE_PATH_ALIASES.get(path, path)
-    if path in NOT_PORTED or path.split(".")[0] == "diarizen_tpu":
+    if path.split(".")[0] == "diarizen_tpu":
         raise NotImplementedError(
-            f"{path!r} has no counterpart in diarizen_tpu_torch yet: the fbank, SincNet "
-            "(pyannote), S-Serious and x-vector model families, torch.optim.AdamW and the "
-            "JAX package's other modules are not ported; WavLM + Conformer and its "
-            "multi-channel model, their trainer, dataset and AdamW, and WavLM's "
-            "distill-prune are")
+            f"{path!r} has no counterpart in diarizen_tpu_torch: of the JAX package, the "
+            "port lacks only the learning-rate schedules (noam, one-cycle, "
+            "reduce-on-plateau), parallel/ and the rest of utils.py; every model family, "
+            "the trainer, dataset and optimizers are ported")
     module_name, _, attr = path.rpartition(".")
     module = importlib.import_module(module_name)
     return getattr(module, attr)

@@ -17,9 +17,14 @@ from typing import Callable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from diarizen_tpu_torch.core.segments import SlidingWindow, SlidingWindowFeature
-from diarizen_tpu_torch.models.eend import EendModel
+from diarizen_tpu_torch.models.sincnet_eend import (
+    SINCNET_KERNELS,
+    SINCNET_STRIDES,
+    SincNetEendConfig,
+)
 from diarizen_tpu_torch.ops.aggregate import aggregate
 from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
 from diarizen_tpu_torch.utils import halve_batch_or_raise, resolve_device, to_device_async
@@ -62,11 +67,13 @@ def gather_rows(source: torch.Tensor, starts: torch.Tensor, length: int, pad: in
 
 class SlidingInference:
     """Callable: (waveform (C, num_samples), sample_rate) ->
-    SlidingWindowFeature (num_chunks, num_frames, K)."""
+    SlidingWindowFeature (num_chunks, num_frames, K), for a segmentation
+    model of any family (its forward takes `compute_dtype=`; the model
+    carries its config as `cfg`)."""
 
     def __init__(
         self,
-        model: EendModel,
+        model: nn.Module,
         duration: Optional[float] = None,
         step: Optional[float] = None,
         batch_size: int = 32,
@@ -211,12 +218,18 @@ class SlidingInference:
 
 
 def receptive_field_window(cfg) -> SlidingWindow:
-    """Output frame resolution of a WavLM segmentation model as a
-    SlidingWindow (start at the receptive field of frame 0)."""
+    """Output frame resolution of a segmentation model as a SlidingWindow
+    (start at the receptive field of frame 0), for every family: the centre
+    of WavLM's or SincNet's conv stack, or 0 for the centred fbank frames."""
     step, duration = cfg.rf_info()
-    kernels = [k for _, k, _ in cfg.wavlm.conv_layers]
-    strides = [s for _, _, s in cfg.wavlm.conv_layers]
-    center0 = multi_conv_receptive_field_center(0, kernels, strides)
+    if hasattr(cfg, "wavlm"):
+        kernels = [k for _, k, _ in cfg.wavlm.conv_layers]
+        strides = [s for _, _, s in cfg.wavlm.conv_layers]
+        center0 = multi_conv_receptive_field_center(0, kernels, strides)
+    elif isinstance(cfg, SincNetEendConfig):
+        center0 = multi_conv_receptive_field_center(0, SINCNET_KERNELS, SINCNET_STRIDES)
+    else:  # fbank: frame 0 is centred at t = 0
+        center0 = 0
     # the reference offsets by half of (size - 1) samples, not size / 2
     size = duration * cfg.sample_rate
     start = (center0 - (size - 1) / 2) / cfg.sample_rate

@@ -3,9 +3,11 @@ diarizen_tpu/models/build.py).
 
 A factory mirrors a reference model class's constructor (`[model] path = ...`,
 `[model.args]`) and returns `(config, model)`, the model with seeded random
-weights or, where `wavlm_src` names a checkpoint file, that WavLM. The
-WavLM + Conformer model, its multi-channel model and WavLM's distill-prune
-pair are built here; the other families are not ported yet.
+weights or, where `wavlm_src` names a checkpoint file, that WavLM. Every
+builder of the JAX package is here: the WavLM + Conformer model, its
+multi-channel model, the Fbank + Conformer and SincNet-BiLSTM baselines,
+and WavLM's distill-prune pair. As in the JAX package, SSeRiouSS and the
+x-vector have no builder.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ from diarizen_tpu_torch.models.convert import (
     random_state_dict,
 )
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
+from diarizen_tpu_torch.models.fbank_eend import FbankEendConfig, FbankEendModel
 from diarizen_tpu_torch.models.mc import FusionConfig, McEendConfig, McEendModel
+from diarizen_tpu_torch.models.sincnet_eend import SincNetEendConfig, SincNetEendModel
 from diarizen_tpu_torch.models.wavlm import WavLM, WavLMConfig
 from diarizen_tpu_torch.prune.distill import DistillPruneModel
 from diarizen_tpu_torch.prune.gates import PruneConfig, init_gates
@@ -121,6 +125,68 @@ def wavlm_conformer(
     model.load_state_dict(random_state_dict(model, seed))
     if wavlm_sd is not None:
         model.wavlm_model.load_state_dict(wavlm_sd, strict=True)
+    return cfg, model
+
+
+def fbank_conformer(
+    attention_in: int = 256,
+    ffn_hidden: int = 1024,
+    num_head: int = 4,
+    num_layer: int = 4,
+    kernel_size: int = 31,
+    dropout: float = 0.1,
+    use_posi: bool = False,
+    output_activate_function=False,
+    max_speakers_per_chunk: int = 4,
+    max_speakers_per_frame: int = 2,
+    chunk_size: float = 5,
+    num_channels: int = 8,
+    selected_channel: int = 0,
+    sample_rate: int = 16000,
+    n_fft: int = 400,
+    n_mels: int = 80,
+    win_length: int = 25,
+    hop_length: int = 10,
+    seed: int = 0,
+) -> Tuple[FbankEendConfig, FbankEendModel]:
+    """The Fbank + Conformer EEND, the reference constructor's arguments one
+    for one. As in the JAX package, the fbank is fixed at n_fft 400, 25 ms
+    and 10 ms: `n_fft`, `win_length`, `hop_length` and `num_channels` are
+    taken and not used."""
+    del num_channels, n_fft, win_length, hop_length
+    cfg = FbankEendConfig(
+        conformer=ConformerConfig(
+            dim=attention_in, ffn_hidden=ffn_hidden, num_heads=num_head,
+            num_layers=num_layer, kernel_size=kernel_size, dropout=dropout,
+            use_posi=use_posi, output_activation=output_activate_function or None,
+        ),
+        n_mels=n_mels,
+        attention_in=attention_in,
+        max_speakers_per_chunk=max_speakers_per_chunk,
+        max_speakers_per_frame=max_speakers_per_frame,
+        chunk_size=float(chunk_size),
+        sample_rate=sample_rate,
+        selected_channel=selected_channel,
+    )
+    model = FbankEendModel(cfg)
+    model.load_state_dict(random_state_dict(model, seed))
+    return cfg, model
+
+
+def pyannote_baseline(
+    max_speakers_per_chunk: int = 4,
+    chunk_size: float = 8,
+    num_channels: int = 8,
+    selected_channel: int = 0,
+    seed: int = 0,
+) -> Tuple[SincNetEendConfig, SincNetEendModel]:
+    """The SincNet-BiLSTM baseline, the reference constructor's arguments
+    one for one (`num_channels` taken and not used, as in the JAX package)."""
+    del num_channels
+    cfg = SincNetEendConfig(max_speakers_per_chunk=max_speakers_per_chunk,
+                            chunk_size=float(chunk_size), selected_channel=selected_channel)
+    model = SincNetEendModel(cfg)
+    model.load_state_dict(random_state_dict(model, seed))
     return cfg, model
 
 

@@ -59,6 +59,49 @@ def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """Leaky ReLU at slope 0.01 (jax.nn.leaky_relu's and torch's default)."""
+    return F.leaky_relu(x, 0.01)
+
+
+def instance_norm(norm: nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm1d over time on channel-first (B, C, T): float32
+    statistics per (batch, channel), biased variance, then `norm`'s affine
+    weight and bias; output in x's type."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * norm.weight.float()[:, None] + norm.bias.float()[:, None]).to(x.dtype)
+
+
+def lstm_layer(in_dim: int, hidden: int, bidirectional: bool = True) -> nn.LSTM:
+    """One (bi)directional LSTM layer in torch's layout (gates i, f, g, o),
+    with the JAX package's single bias per direction: `bias_ih` carries it,
+    `bias_hh` stays zero and takes no gradient. A stack of these with dropout
+    between the layers draws that dropout from the step's generator, where a
+    multi-layer nn.LSTM would draw it from the global one."""
+    layer = nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=bidirectional)
+    for name, p in layer.named_parameters():
+        if name.startswith("bias_hh"):
+            p.requires_grad_(False)
+            with torch.no_grad():
+                p.zero_()
+    return layer
+
+
+def run_lstm(layers: nn.ModuleList, x: torch.Tensor, rate: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(B, T, D) through the stacked LSTM layers in float32, dropout (with a
+    generator) after every layer but the last."""
+    x = x.float()
+    for i, layer in enumerate(layers):
+        x = layer(x)[0]
+        if i < len(layers) - 1:
+            x = dropout(x, rate, generator)
+    return x
+
+
 class TrainRandom:
     """The randomness of one training forward. `host` draws what the host
     decides (attention-dropout seeds, layer drop) without a device sync;

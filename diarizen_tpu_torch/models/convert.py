@@ -11,6 +11,19 @@ inverses of the JAX package's `eend_params_from_torch`,
 pos-conv weight norm to `weight_g` (1, 1, K) / `weight_v`, and `weight_sum`
 from (L,) to (1, L).
 
+`fbank_eend_state_dict_from_jax`, `sincnet_eend_state_dict_from_jax`,
+`sserious_state_dict_from_jax` and `xvector_state_dict_from_jax` do the same
+for the other families. The JAX package has no torch converter for them, so
+their layout is the port's own, named after pyannote's modules where that is
+natural (each model's docstring lists it): a JAX LSTM direction's `w_ih`
+(in, 4h) and `w_hh` (h, 4h) become nn.LSTM's `weight_ih_l0[_reverse]` and
+`weight_hh_l0[_reverse]` transposed, gates i, f, g, o; its one bias `b`
+becomes `bias_ih_l0[_reverse]`, with `bias_hh_l0[_reverse]` zero; SincNet's
+`low_hz` / `band_hz` become `sincnet.conv1d.0.low_hz_` / `band_hz_`, its
+norms `wav_norm1d` and `norm1d.{0,1,2}`, its convs `conv1d.{1,2}`; the
+x-vector's TDNN layer i becomes `tdnns.{i}.0` (conv) and `tdnns.{i}.2`
+(BatchNorm with its running statistics).
+
 `random_state_dict` gives seeded random weights at a module's shapes, for
 runs without released checkpoints.
 
@@ -20,8 +33,9 @@ so what they return loads with `load_state_dict(strict=True)`.
 
 `load_pytree` reads a pytree that the JAX package saved as `.npz` (its
 trainer's `params.npz`) with numpy alone, and `eend_state_dict_from_params`
-carries such EEND params into a model, keeping the model's own BatchNorm
-statistics as the JAX loader keeps its initial state.
+carries such params of a WavLM + Conformer, Fbank + Conformer or SincNet
+model into it, keeping the model's own Conformer BatchNorm statistics as
+the JAX loader keeps its initial state (the SincNet family has none).
 
 The other way, `wavlm_params_to_jax` is the inverse of
 `wavlm_state_dict_from_jax` (a port WavLM state dict as the JAX package's
@@ -41,6 +55,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from diarizen_tpu_torch.models.fbank_eend import FbankEendModel
+from diarizen_tpu_torch.models.sincnet_eend import SincNetEendModel
 from diarizen_tpu_torch.models.wavlm import WavLMConfig
 
 StateDict = Dict[str, torch.Tensor]
@@ -229,6 +245,82 @@ def eend_state_dict_from_jax(params: dict, state: dict, cfg) -> StateDict:
     return sd
 
 
+def fbank_eend_state_dict_from_jax(params: dict, state: dict, cfg=None) -> StateDict:
+    """JAX Fbank + Conformer (params, state) -> the port's `FbankEendModel`
+    state dict (`cfg`, the FbankEendConfig, sets nothing of the layout)."""
+    del cfg
+    sd: StateDict = {}
+    _linear(sd, "proj", params["proj"])
+    _norm(sd, "lnorm", params["lnorm"])
+    sd.update(conformer_state_dict_from_jax(
+        params["conformer"], state["conformer"], prefix="conformer."))
+    _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def _lstm(sd: StateDict, key: str, layer: dict) -> None:
+    """One JAX LSTM layer ({"fwd", "bwd"}) -> nn.LSTM's keys at `key`."""
+    for suffix, direction in (("", "fwd"), ("_reverse", "bwd")):
+        if direction not in layer:
+            continue
+        p = layer[direction]
+        sd[f"{key}.weight_ih_l0{suffix}"] = _t(np.asarray(p["w_ih"]).T)
+        sd[f"{key}.weight_hh_l0{suffix}"] = _t(np.asarray(p["w_hh"]).T)
+        sd[f"{key}.bias_ih_l0{suffix}"] = _t(p["b"])
+        sd[f"{key}.bias_hh_l0{suffix}"] = torch.zeros(np.shape(p["b"]))
+
+
+def sincnet_state_dict_from_jax(params: dict, prefix: str = "sincnet.") -> StateDict:
+    """The JAX SincNet front end's params -> the port's `SincNet` keys."""
+    sd: StateDict = {}
+    _norm(sd, f"{prefix}wav_norm1d", params["wav_norm"])
+    sd[f"{prefix}conv1d.0.low_hz_"] = _t(params["sinc"]["low_hz"])
+    sd[f"{prefix}conv1d.0.band_hz_"] = _t(params["sinc"]["band_hz"])
+    for i in (1, 2):
+        _conv1d(sd, f"{prefix}conv1d.{i}", params[f"conv{i}"])
+    for i in range(3):
+        _norm(sd, f"{prefix}norm1d.{i}", params[f"norm{i}"])
+    return sd
+
+
+def sincnet_eend_state_dict_from_jax(params: dict, cfg=None) -> StateDict:
+    """JAX SincNet-BiLSTM params -> the port's `SincNetEendModel` state dict
+    (the family has no state; `cfg` sets nothing of the layout)."""
+    del cfg
+    sd = sincnet_state_dict_from_jax(params)
+    for i, layer in enumerate(params["lstm"]):
+        _lstm(sd, f"lstm.{i}", layer)
+    _linear(sd, "linear.0", params["linear1"])
+    _linear(sd, "linear.1", params["linear2"])
+    _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def sserious_state_dict_from_jax(params: dict, cfg) -> StateDict:
+    """JAX SSeRiouSS params -> the port's `SSeRiouSSModel` state dict; `cfg`
+    is the SSeRiouSSConfig."""
+    sd = wavlm_state_dict_from_jax(params["wavlm"], cfg.wavlm, prefix="wav2vec.")
+    sd["wav2vec_weights"] = _t(params["wav2vec_weights"])
+    for i, layer in enumerate(params["lstm"]):
+        _lstm(sd, f"lstm.{i}", layer)
+    for i, layer in enumerate(params["linears"]):
+        _linear(sd, f"linear.{i}", layer)
+    _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def xvector_state_dict_from_jax(params: dict, cfg) -> StateDict:
+    """JAX x-vector params -> the port's `XVectorModel` state dict; `cfg` is
+    the XVectorConfig."""
+    sd = sincnet_state_dict_from_jax(params["sincnet"]) if cfg.frontend == "sincnet" else {}
+    for i, layer in enumerate(params["tdnn"]):
+        _conv1d(sd, f"tdnns.{i}.0", layer)
+        bn = layer["bn"]
+        _batch_norm(sd, f"tdnns.{i}.2", bn["scale"], bn["bias"], bn["mean"], bn["var"])
+    _linear(sd, "embedding", params["embedding"])
+    return sd
+
+
 def fusion_state_dict_from_jax(params: dict, kind: str = "cross_attention",
                                prefix: str = "") -> StateDict:
     """JAX `CrossChannelAttention` / `TACFusion` params -> the port's fusion
@@ -289,8 +381,9 @@ def resnet_state_dict_from_jax(params: dict, cfg) -> StateDict:
 def random_state_dict(module: nn.Module, seed: int) -> StateDict:
     """Seeded random weights at `module`'s shapes, drawn with numpy: linear
     and conv weights uniform with variance 1 / fan_in, biases uniform in
-    +-1/sqrt(fan_in), norms the identity, embedding tables N(0, 0.02^2), and
-    weight-normed convs with g = ||v|| per tap."""
+    +-1/sqrt(fan_in), norms the identity, embedding tables N(0, 0.02^2),
+    weight-normed convs with g = ||v|| per tap, and LSTM weights uniform in
+    +-1/sqrt(hidden) with zero biases."""
     rng = np.random.default_rng(seed)
 
     def uniform(shape, bound):
@@ -308,6 +401,11 @@ def random_state_dict(module: nn.Module, seed: int) -> StateDict:
         elif isinstance(mod, nn.Embedding):
             out[key + "weight"] = torch.tensor(
                 0.02 * rng.standard_normal(tuple(mod.weight.shape)).astype(np.float32))
+        elif isinstance(mod, nn.LSTM):  # the JAX package's init: zero biases
+            bound = 1.0 / math.sqrt(mod.hidden_size)
+            for pname, p in mod.named_parameters(recurse=False):
+                out[key + pname] = (uniform(p.shape, bound) if pname.startswith("weight")
+                                    else torch.zeros(p.shape))
         elif hasattr(mod, "weight_v") and hasattr(mod, "weight_g"):
             fan_in = math.prod(mod.weight_v.shape[1:])
             v = uniform(mod.weight_v.shape, math.sqrt(3.0 / fan_in))
@@ -412,13 +510,18 @@ def load_pytree(path: Union[str, Path]) -> Any:
 
 
 def eend_state_dict_from_params(params: dict, model: nn.Module) -> StateDict:
-    """JAX EEND params alone -> `model`'s state dict. The Conformer's
-    BatchNorm running statistics are the model's current ones: the JAX
-    loader of `params.npz` keeps the state its initialiser made."""
+    """JAX params alone of a WavLM + Conformer, Fbank + Conformer or
+    SincNet-BiLSTM model -> `model`'s state dict. The Conformer's BatchNorm
+    running statistics are the model's current ones: the JAX loader of
+    `params.npz` keeps the state its initialiser made."""
+    if isinstance(model, SincNetEendModel):
+        return sincnet_eend_state_dict_from_jax(params, model.cfg)
     current = model.state_dict()
     blocks = []
     for i in range(model.cfg.conformer.num_layers):
         key = f"conformer.conformer_layer.{i}.conv.bn_norm"
         blocks.append({"bn": {"mean": current[f"{key}.running_mean"].numpy(),
                               "var": current[f"{key}.running_var"].numpy()}})
-    return eend_state_dict_from_jax(params, {"conformer": {"blocks": blocks}}, model.cfg)
+    convert = (fbank_eend_state_dict_from_jax if isinstance(model, FbankEendModel)
+               else eend_state_dict_from_jax)
+    return convert(params, {"conformer": {"blocks": blocks}}, model.cfg)

@@ -24,7 +24,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 from diarizen_tpu_torch.config import dump_toml, instantiate, load_toml
 from diarizen_tpu_torch.logger import init_logging, log_config
-from diarizen_tpu_torch.models.eend import EendConfig
 from diarizen_tpu_torch.train.checkpoint import average_checkpoints
 from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
 from diarizen_tpu_torch.train.optim import (
@@ -35,10 +34,12 @@ from diarizen_tpu_torch.train.optim import (
 from diarizen_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 
-def build_dataset(section: dict, cfg: EendConfig, num_channels: int = 1,
+def build_dataset(section: dict, cfg, num_channels: int = 1,
                   channel_mode: str = "sdm") -> DiarizationDataset:
-    """The dataset of a `[*_dataset]` section; `num_channels` and
-    `channel_mode` are the defaults of the section's own keys."""
+    """The dataset of a `[*_dataset]` section on the frame grid of `cfg`,
+    the model's config of any family (its `num_frames` and `rf_info`);
+    `num_channels` and `channel_mode` are the defaults of the section's own
+    keys."""
     args = section["args"]
     step, duration = cfg.rf_info()
     chunk_size = args.get("chunk_size", cfg.chunk_size)
@@ -96,7 +97,7 @@ def trainer_config(config: dict, exp_dir: Path, seed: int) -> TrainerConfig:
     )
 
 
-def fit(trainer: Trainer, config: dict, cfg: EendConfig, mode: str, seed: int,
+def fit(trainer: Trainer, config: dict, cfg, mode: str, seed: int,
         **dataset_defaults) -> Dict[str, float]:
     """Resume from the experiment's latest checkpoint, then train and
     validate, or validate; returns the last validation metrics.

@@ -24,7 +24,7 @@ counts included, stays as it was.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -88,10 +88,13 @@ class Optimizer:
 
     def __init__(self, groups: Dict[str, Dict[str, nn.Parameter]],
                  schedules: Dict[str, Schedule], weight_decay: float = 0.01,
-                 clip: Optional[AutoClip] = None, frozen: Iterable[str] = ()):
+                 clip: Optional[AutoClip] = None, frozen: Iterable[str] = (),
+                 betas: Tuple[float, float] = BETAS, eps: float = EPS):
         self.groups = groups
         self.schedules = schedules
         self.weight_decay = weight_decay
+        self.betas = tuple(betas)
+        self.eps = eps
         self.clip = clip
         self.frozen = set(frozen)
         self.params: Dict[str, nn.Parameter] = {
@@ -113,7 +116,7 @@ class Optimizer:
                 self.state["clip"] = self.clip.init(grads[0].device)
             scale = self.clip.scale(global_norm(grads), self.state["clip"])
             by_name = dict(zip(by_name, torch._foreach_mul(grads, scale)))
-        b1, b2 = BETAS
+        b1, b2 = self.betas
         for group, named in self.groups.items():
             if group in self.frozen or not named:
                 continue
@@ -134,7 +137,7 @@ class Optimizer:
             torch._foreach_addcmul_(nu, g, g, value=1 - b2)
             denom = torch._foreach_div(nu, 1 - b2**count)
             torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, EPS)
+            torch._foreach_add_(denom, self.eps)
             update = torch._foreach_div(mu, 1 - b1**count)
             torch._foreach_div_(update, denom)
             if self.weight_decay:
@@ -208,6 +211,18 @@ def adamw_with_warmup(params: Dict[str, nn.Parameter], lr: float, warmup_steps: 
     clip = None if clip_percentile is None else AutoClip(clip_percentile, clip_history)
     return Optimizer({"all": dict(params)}, {"all": warmup_schedule(lr, warmup_steps)},
                      weight_decay=weight_decay, clip=clip)
+
+
+def adamw_torch_args(params: Dict[str, nn.Parameter], lr: float = 1e-3,
+                     betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
+                     weight_decay: float = 1e-2, **_ignored) -> Optimizer:
+    """AdamW with `torch.optim.AdamW`'s constructor surface and defaults
+    (eps 1e-8, weight decay 1e-2), which a reference `[optimizer]` section
+    names; arguments that torch takes and optax does not (amsgrad, ...) are
+    ignored, as in the JAX package. The update is the Optimizer's (optax's
+    AdamW), with no clipping."""
+    return Optimizer({"all": dict(params)}, {"all": warmup_schedule(lr, 0)},
+                     weight_decay=weight_decay, betas=betas, eps=eps)
 
 
 def dual_lr_optimizer(groups: Dict[str, Dict[str, nn.Parameter]], lr_small: float = 2e-5,

@@ -26,10 +26,11 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
-from diarizen_tpu_torch.models.eend import EendModel
 from diarizen_tpu_torch.models.forward import segmentation_forward
 from diarizen_tpu_torch.models.mc import McEendModel
+from diarizen_tpu_torch.models.wavlm import WavLM
 from diarizen_tpu_torch.train.loss import der_metrics, segmentation_loss
 from diarizen_tpu_torch.train.optim import GradientAccumulation, Optimizer, global_norm
 from diarizen_tpu_torch.utils import resolve_device
@@ -39,12 +40,12 @@ Batch = Dict[str, Union[np.ndarray, torch.Tensor, list]]
 
 @dataclass
 class TrainState:
-    model: EendModel
+    model: nn.Module  # a segmentation model of any family
     optimizer: Union[Optimizer, GradientAccumulation]
     step: int = 0
 
 
-def create_train_state(model: EendModel, optimizer, device=None) -> TrainState:
+def create_train_state(model: nn.Module, optimizer, device=None) -> TrainState:
     """Moves the model (and so the optimizer's parameters) to `device`:
     the CUDA device by default, which raises where there is none."""
     model.to(resolve_device(device))
@@ -78,7 +79,7 @@ def train_step(state: TrainState, batch: Batch, seed: int = 0,
     """One optimizer step on `batch`. Returns loss, grad_norm (before
     clipping, 0 on a skipped batch), skipped, and attention_layers (the
     WavLM attention layers the forward computed: fewer than the model has
-    where layer drop skipped some)."""
+    where layer drop skipped some; 0 for a model with no WavLM)."""
     xs, target = to_device(batch, _device(state.model))
     return _step(state, xs, target, seed, compute_dtype)
 
@@ -121,14 +122,15 @@ def _step(state: TrainState, xs: torch.Tensor, target: torch.Tensor, seed: int,
     for p in model.parameters():
         p.grad = None
     state.step += 1
-    wavlm = model.wavlm_model
-    attention_layers = sum(1 for i in wavlm.layers_run if wavlm.cfg.use_attention[i])
+    wavlm = next((m for m in model.modules() if isinstance(m, WavLM)), None)
+    attention_layers = 0 if wavlm is None else sum(
+        1 for i in wavlm.layers_run if wavlm.cfg.use_attention[i])
     return {"loss": loss_value, "grad_norm": grad_norm, "skipped": not good,
             "attention_layers": attention_layers}
 
 
 @torch.no_grad()
-def eval_step(model: EendModel, batch: Batch,
+def eval_step(model: nn.Module, batch: Batch,
               compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """Loss and DER components summed over the batch, as device tensors
     (accumulate across batches, then divide). The forward is the inference

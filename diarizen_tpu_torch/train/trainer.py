@@ -25,8 +25,8 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+from torch import nn
 
-from diarizen_tpu_torch.models.eend import EendModel
 from diarizen_tpu_torch.train.checkpoint import (
     append_metrics,
     latest_checkpoint,
@@ -56,7 +56,7 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, model: EendModel, trainer_cfg: TrainerConfig, optimizer, device=None,
+    def __init__(self, model: nn.Module, trainer_cfg: TrainerConfig, optimizer, device=None,
                  step_hook: Optional[Callable[[Dict], None]] = None,
                  train_step_fn: Callable = train_step,
                  channel_sampler: Optional[Callable[[], int]] = None):
@@ -82,7 +82,7 @@ class Trainer:
             self.tb = None
 
     @property
-    def model(self) -> EendModel:
+    def model(self) -> nn.Module:
         return self.state.model
 
     def _log_scalar(self, name: str, value: float, step: int) -> None:

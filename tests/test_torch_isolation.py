@@ -1,7 +1,8 @@
-"""The port stands alone: it imports neither jax nor diarizen_tpu, the
-multi-channel recipe TOML builds the port's model with both blocked, its
-entry points refuse to run on the CPU unless asked, and chip_smoke.py fails
-without a CUDA device or without the package beside it."""
+"""The port stands alone: it imports neither jax nor diarizen_tpu (every
+model family's module included), the multi-channel recipe TOML builds the
+port's model with both blocked, its entry points refuse to run on the CPU
+unless asked, and chip_smoke.py fails without a CUDA device or without the
+package beside it."""
 
 import os
 import shutil
@@ -51,6 +52,9 @@ PRUNING_SLICE = ("prune", "prune.hardconcrete", "prune.gates", "prune.distill", 
 # and those of the multi-channel slice
 MC_SLICE = ("models.mc", "models.forward", "infer.mc_pipeline", "recipes.diar_ssl_mc",
             "recipes.diar_ssl_mc.run", "recipes.diar_ssl_mc.infer")
+# and those of the remaining model families
+FAMILIES_SLICE = ("models.fbank_eend", "models.sincnet_eend", "models.sserious",
+                  "models.xvector")
 
 
 def test_every_port_module_imports_without_jax():
@@ -58,9 +62,9 @@ def test_every_port_module_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 69
-    assert all(f"diarizen_tpu_torch.{m}" in names
-               for m in SNAPSHOT_SLICE + EVALUATION_SLICE + PRUNING_SLICE + MC_SLICE)
+    assert len(names) >= 73
+    assert all(f"diarizen_tpu_torch.{m}" in names for m in
+               SNAPSHOT_SLICE + EVALUATION_SLICE + PRUNING_SLICE + MC_SLICE + FAMILIES_SLICE)
     for path in [*(ROOT / "diarizen_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -42,31 +42,42 @@ sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["diarizen_tpu"] = None
 sys.modules["optax"] = None
 from diarizen_tpu_torch import config
-from diarizen_tpu_torch.models.eend import EendModel
 for conf in sys.argv[1:]:
     c = config.load_toml(conf)
     paths = [sec["path"] for sec in c.values() if isinstance(sec, dict) and "path" in sec]
     targets = [config.resolve(p) for p in paths]
     assert all(t.__module__.startswith("diarizen_tpu_torch.") for t in targets), targets
     cfg, model = config.instantiate_section(c, "model")
-    assert isinstance(model, EendModel) and cfg.wavlm.embed_dim == 768
-    print(conf, len(paths), sum(p.numel() for p in model.parameters()))
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(conf.rsplit("/", 1)[-1], len(paths), type(model).__name__, trainable)
 """
+
+# each shipped TOML's model class and trainable parameters: WavLM-Base +
+# Conformer above 90 M; the Fbank + Conformer and SincNet-BiLSTM baselines
+# as many as the JAX package's builders make (6,115,851 and 1,469,765)
+SHIPPED_MODELS = {
+    "fbank_conformer.toml": ("FbankEendModel", 6_115_851),
+    "pyannote_baseline.toml": ("SincNetEendModel", 1_469_765),
+    "wavlm_frozen_conformer.toml": ("EendModel", None),
+    "wavlm_updated_conformer.toml": ("EendModel", None),
+}
 
 
 def test_recipe_tomls_build_the_port_model_without_jax():
-    confs = sorted(str(p) for p in (ROOT / "recipes/diar_ssl/conf").glob("wavlm_*_conformer.toml"))
-    assert len(confs) == 2
+    confs = sorted(str(p) for p in (ROOT / "recipes/diar_ssl/conf").glob("*.toml"))
+    assert [Path(c).name for c in confs] == sorted(SHIPPED_MODELS)
     proc = subprocess.run([sys.executable, "-c", _BUILD_RECIPES, *confs], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    lines = proc.stdout.splitlines()
-    assert len(lines) == 2 and all(int(line.split()[2]) > 90_000_000 for line in lines)
-    # the families that are not ported raise, naming the path
-    for name in ("fbank_conformer", "pyannote_baseline"):
-        c = config.load_toml(ROOT / f"recipes/diar_ssl/conf/{name}.toml")
-        with pytest.raises(NotImplementedError, match=f"diarizen_tpu.models.build.{name}"):
-            config.instantiate_section(c, "model")
+    lines = [line.split() for line in proc.stdout.splitlines()]
+    assert [line[0] for line in lines] == sorted(SHIPPED_MODELS)
+    for name, paths, model, trainable in lines:
+        want_model, want_params = SHIPPED_MODELS[name]
+        assert model == want_model and int(paths) >= 5, name
+        if want_params is None:
+            assert int(trainable) > 90_000_000, name
+        else:
+            assert int(trainable) == want_params, name
 
 
 RECIPE_TOML = """\
