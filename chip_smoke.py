@@ -128,7 +128,17 @@ Phases (any failure exits non-zero, before the last line is printed):
      (K1's training instance 12 a step, K2 never) and K1's training instance
      alone at B 32; the x-vector with MFCC and SincNet front ends on 32 x
      8 s, with and without pooling weights, against the CPU (1e-3), timed;
- 16. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
+ 16. the HuggingFace import, the schedules and data parallelism: the port's
+     seeded WavLM-Base written as an HF directory (config.json and the
+     HF-layout state dict as model.safetensors), converted by
+     `recipes.diar_ssl_pruning.convert_wavlm_from_hf` and loaded back from
+     its params.npz: f32 hidden states equal to the seeded model's (1e-5),
+     bf16 through K1 against f32; WavLM-Base + Conformer at 16 x 8 s in bf16
+     for four steps with `noam_adamw` and four on a one-cycle schedule, each
+     step's learning rate printed beside its formula; one pipeline call and
+     one train step without a process group and in a world-size-1 NCCL group
+     started by `initialize_distributed` at 127.0.0.1: the same RTTM and loss;
+ 17. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
      last JSON line {"ok": true, "device": {...}}.
 """
 
@@ -137,7 +147,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -173,7 +185,9 @@ from diarizen_tpu_torch.models.conformer import ConformerConfig
 from diarizen_tpu_torch.models.convert import (
     load_pytree,
     random_state_dict,
+    wavlm_config_from_hf,
     wavlm_state_dict_from_jax,
+    wavlm_state_dict_to_hf,
 )
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank import wespeaker_fbank
@@ -209,6 +223,7 @@ from diarizen_tpu_torch.recipes.diar_ssl import run as recipe_run
 from diarizen_tpu_torch.recipes.diar_ssl_mc import infer as mc_infer
 from diarizen_tpu_torch.recipes.diar_ssl_mc import run as mc_run
 from diarizen_tpu_torch.recipes.diar_ssl_pruning import apply_pruning as apply_pruning_cli
+from diarizen_tpu_torch.recipes.diar_ssl_pruning import convert_wavlm_from_hf
 from diarizen_tpu_torch.recipes.diar_ssl_pruning import get_wavlm_from_finetuned, run_distill_prune
 from diarizen_tpu_torch.models.xvector import XVectorConfig, XVectorModel
 from diarizen_tpu_torch.train import (
@@ -227,7 +242,9 @@ from diarizen_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
+from diarizen_tpu_torch.train.optim import Optimizer, noam_adamw, one_cycle_schedule
 from diarizen_tpu_torch.train.step import create_train_state, mc_train_step
+from diarizen_tpu_torch.parallel import distributed as dp
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor-core rate, and
 # the float32 rate outside the tensor cores
@@ -2786,6 +2803,247 @@ def phase_families(card: str, resnet_sd, flac_jobs) -> dict:
     return out
 
 
+def hf_config_dict(cfg: WavLMConfig) -> dict:
+    """The `config.json` of an HF `WavLMModel` of `cfg`'s architecture (an
+    unpruned WavLM; the inverse of `wavlm_config_from_hf`)."""
+    return {
+        "model_type": "wavlm", "architectures": ["WavLMModel"],
+        "hidden_size": cfg.embed_dim, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.total_num_heads[0],
+        "intermediate_size": cfg.ff_interm_features[0],
+        "feat_extract_norm": "layer" if cfg.extractor_mode == "layer_norm" else "group",
+        "conv_dim": [c for c, _, _ in cfg.conv_layers],
+        "conv_kernel": [k for _, k, _ in cfg.conv_layers],
+        "conv_stride": [st for _, _, st in cfg.conv_layers], "conv_bias": cfg.conv_bias,
+        "feat_proj_dropout": cfg.projection_dropout,
+        "num_conv_pos_embeddings": cfg.pos_conv_kernel,
+        "num_conv_pos_embedding_groups": cfg.pos_conv_groups, "num_buckets": cfg.num_buckets,
+        "max_bucket_distance": cfg.max_distance, "attention_dropout": cfg.attention_dropout,
+        "activation_dropout": cfg.ff_interm_dropout, "hidden_dropout": cfg.dropout,
+        "do_stable_layer_norm": cfg.layer_norm_first, "layerdrop": cfg.layer_drop,
+    }
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """Write tensors as a `.safetensors` file (the header padded with spaces
+    to a multiple of 8 bytes, as the format asks): the HF directory of
+    `phase_hf_import`, without the safetensors package."""
+    names = {dtype: name for name, dtype in
+             convert_wavlm_from_hf.SAFETENSORS_DTYPES.items()}
+    header, chunks, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    Path(path).write_bytes(len(text).to_bytes(8, "little") + text + b"".join(chunks))
+
+
+def phase_hf_import(card: str) -> int:
+    """The pruning recipe's first stage at WavLM-Base's width (768 wide, 12
+    layers of 12 heads): the port's seeded WavLM written as an HF directory
+    (`config.json`, the HF-layout state dict as `model.safetensors`) through
+    the inverse key map, converted by the port's CLI, its `params.npz` loaded
+    back; the imported model's f32 hidden states on the card equal the seeded
+    model's (1e-5), and its bf16 forward through K1 (one launch a layer) is
+    within 1e-1 of max(1, |hidden state|) of f32, the bar of the pruning
+    phase's bf16 hidden states. Returns K1's launches in that forward."""
+    cfg = WavLMConfig.base()
+    seeded = WavLM(cfg)
+    seeded.load_state_dict(random_state_dict(seeded, seed=61))
+    wave = make_wave(AUDIO_SECONDS, seed=11)[0]
+    x = torch.from_numpy(np.stack([wave[i * 12800: i * 12800 + 128000]
+                                   for i in range(TRAIN_BATCH)])).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir, out = Path(tmp) / "wavlm-base-hf", Path(tmp) / "converted"
+        hf_dir.mkdir()
+        (hf_dir / "config.json").write_text(json.dumps(hf_config_dict(cfg), indent=2))
+        write_safetensors(hf_dir / "model.safetensors",
+                          wavlm_state_dict_to_hf(seeded.state_dict()))
+        t0 = time.perf_counter()
+        convert_wavlm_from_hf.main(["--hf_dir", str(hf_dir), "--out_dir", str(out)])
+        seconds = time.perf_counter() - t0
+        converted_cfg = WavLMConfig(**{
+            k: tuple(tuple(x) if isinstance(x, list) else x for x in v) if isinstance(v, list)
+            else v for k, v in json.loads((out / "config.json").read_text()).items()})
+        imported = WavLM(converted_cfg)
+        imported.load_state_dict(wavlm_state_dict_from_jax(load_pytree(out / "params.npz"),
+                                                           converted_cfg), strict=True)
+        size = (hf_dir / "model.safetensors").stat().st_size
+    check(converted_cfg == cfg == wavlm_config_from_hf(hf_config_dict(cfg)),
+          "the converted config differs from WavLM-Base's")
+    seeded.cuda().eval()
+    imported.cuda().eval()
+    with torch.no_grad():
+        with strict_float32():
+            want = seeded.hidden_states(x)
+            f32_err = hidden_errors(imported.hidden_states(x), want)
+        k1.launches = 0
+        got = imported.hidden_states(x, torch.bfloat16)
+        torch.cuda.synchronize()
+        launches = k1.launches
+        bf16_err = hidden_errors(got, want)
+    print(f"HF import {card}: WavLM-Base ({size / 2**20:.1f} MiB of safetensors) converted in "
+          f"{seconds:.2f} s; imported against seeded f32 hidden states {f32_err:.3e} (limit "
+          f"1e-5), bf16 against f32 {bf16_err:.3e} of max(1, |h|) (limit 1e-1), K1 launches in "
+          f"the bf16 forward {launches}")
+    check(f32_err <= 1e-5 and bf16_err <= 1e-1, "the imported WavLM disagrees with the seeded one")
+    check(launches == cfg.num_layers, f"expected {cfg.num_layers} K1 launches, got {launches}")
+    return launches
+
+
+def train_batch(cfg: EendConfig, seed: int) -> dict:
+    """A seeded batch of TRAIN_BATCH x 8 s: noise waveforms and sparse targets."""
+    rng = np.random.default_rng(seed)
+    return {"xs": (0.1 * rng.standard_normal((TRAIN_BATCH, 1, 128000))).astype(np.float32),
+            "target": (rng.uniform(size=(TRAIN_BATCH, cfg.num_frames(128000), 4)) > 0.7
+                       ).astype(np.uint8)}
+
+
+def phase_schedules(card: str) -> None:
+    """WavLM-Base + Conformer at 16 x 8 s in bf16 through K1 and K2, four
+    steps each with `noam_adamw` (model size 256, warmup 2, factor 0.05: a
+    peak of 2.2e-3) and with AdamW on
+    a `one_cycle_schedule` (peak 1e-3 over 4 steps, warmup 25%): each step's
+    learning rate beside its formula in float64 (noam within 1e-6, the port
+    computing it in float32; one-cycle within 1e-12), finite losses, one K1
+    training and one K2 launch per attention layer a step."""
+    cfg = EendConfig(wavlm=WavLMConfig.base(), conformer=ConformerConfig())
+    sd = random_state_dict(EendModel(cfg), seed=62)
+    batch = train_batch(cfg, seed=63)
+    total, peak, pct = 4, 1e-3, 0.25
+
+    def noam(step):
+        s = step + 1
+        return 0.05 * 256 ** -0.5 * min(s ** -0.5, s * 2 ** -1.5)
+
+    def cycle(step):
+        lo, hi = (0, 1) if step < 1 else (1, total)
+        start, end = (peak / 25, peak) if step < 1 else (peak, peak / 25 / 1e4)
+        if step >= total:
+            return end
+        return end + (start - end) / 2 * (math.cos(math.pi * (step - lo) / (hi - lo)) + 1)
+
+    for name, make, formula, limit in (
+            ("noam_adamw", lambda p: noam_adamw(p, model_size=256, warmup=2, factor=0.05), noam,
+             1e-6),
+            ("one_cycle", lambda p: Optimizer({"all": p}, {"all": one_cycle_schedule(
+                peak, total, pct)}), cycle, 1e-12)):
+        model = EendModel(cfg)
+        model.load_state_dict(sd)
+        state = create_train_state(model, make(dict(model.named_parameters())))
+        for step in range(total):
+            lr = state.optimizer.schedules["all"](state.optimizer.state["count"]["all"])
+            k1.train_launches = k1.bwd_launches = 0
+            t0 = time.perf_counter()
+            m = train_step(state, batch, seed=0, compute_dtype=torch.bfloat16)
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = (k1.train_launches, k1.bwd_launches)
+            print(f"  {name} step {step} {card}: lr {lr:.6e}, formula {formula(step):.6e}; loss "
+                  f"{m['loss']:.5f}, {ms:.1f} ms, K1 training {counts[0]}, K2 {counts[1]}")
+            check(abs(lr - formula(step)) <= limit * formula(step), f"{name} lr at step {step}")
+            check(np.isfinite(m["loss"]) and not m["skipped"], f"{name} step {step} not finite")
+            check(counts[0] == counts[1] == m["attention_layers"] > 0,
+                  f"{name} step {step}: K1/K2 launches {counts}")
+        del model, state
+    torch.cuda.empty_cache()
+
+
+def free_local_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_data_parallel(card: str, eend_sd, resnet_sd, eend_cfg, wave) -> dict:
+    """The data-parallel wiring in a world-size-1 NCCL group started by
+    `initialize_distributed` at 127.0.0.1: one Base-s80-md pipeline call
+    (bf16, AHC) on a 120 s file and one WavLM-Base + Conformer train step at
+    16 x 8 s (bf16, K1 and K2) without a group and then in it must give the
+    same RTTM text and the same loss (1e-6 relative; the gradient norm within
+    1e-3, since the backward is not bitwise repeatable on the card). In the
+    group the collectives run: the pipeline takes the host route, gathers
+    its embeddings and broadcasts its clusters, and the step all-reduces the
+    BatchNorm sums (forward and backward) and the gradients; each kind must
+    have run, on the card. Returns the step's K1 training and K2
+    launches."""
+    def pipeline():
+        model = EendModel(eend_cfg)
+        model.load_state_dict(eend_sd)
+        resnet = ResNet(ResNetConfig())
+        resnet.load_state_dict(resnet_sd)
+        seg = SlidingInference(model, batch_size=BATCH)
+        return DiarizationPipeline(
+            seg, EmbeddingInference(resnet, seg.window_size,
+                                    num_speakers=eend_cfg.max_speakers_per_chunk),
+            AgglomerativeClustering(threshold=0.7, min_cluster_size=30), eend_cfg,
+            max_speakers=8)
+
+    cfg = EendConfig(wavlm=WavLMConfig.base(), conformer=ConformerConfig())
+    train_sd = random_state_dict(EendModel(cfg), seed=64)
+    batch = train_batch(cfg, seed=65)
+
+    def run() -> dict:
+        rttm = pipeline()(wave, 16000, uri="dp").to_rttm()
+        model = EendModel(cfg)
+        model.load_state_dict(train_sd)
+        state = create_train_state(model, recipe_optimizer(model))
+        k1.train_launches = k1.bwd_launches = 0
+        m = train_step(state, batch, seed=0, compute_dtype=torch.bfloat16)
+        return {"rttm": rttm, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                "k1_train": k1.train_launches, "k2": k1.bwd_launches}
+
+    alone = run()
+    calls = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    devices = set()
+    originals = {name: getattr(torch.distributed, name) for name in calls}
+
+    def counted(name):
+        def collective(*args, **kwargs):
+            calls[name] += 1
+            devices.add(str(args[1 if name == "all_gather" else 0].device))
+            return originals[name](*args, **kwargs)
+        return collective
+
+    port = free_local_port()
+    t0 = time.perf_counter()
+    dp.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    init_s = time.perf_counter() - t0
+    try:
+        probe = torch.arange(4.0, device="cuda")
+        torch.distributed.all_reduce(probe)
+        check(torch.distributed.get_backend() == "nccl" and dp.process_count() == 1
+              and dp.is_main_process() and torch.equal(probe.cpu(), torch.arange(4.0)),
+              "the NCCL group of one process")
+        for name in calls:
+            setattr(torch.distributed, name, counted(name))
+        grouped = run()
+    finally:
+        for name, fn in originals.items():
+            setattr(torch.distributed, name, fn)
+        torch.distributed.destroy_process_group()
+    print(f"data parallel {card}: NCCL group of 1 at 127.0.0.1:{port} in {init_s:.2f} s; RTTM "
+          f"{len(alone['rttm'].splitlines())} segments, equal: {grouped['rttm'] == alone['rttm']}; "
+          f"loss {grouped['loss']:.7f} vs {alone['loss']:.7f}, grad norm "
+          f"{grouped['grad_norm']:.6f} vs {alone['grad_norm']:.6f}; K1 training "
+          f"{grouped['k1_train']}, K2 {grouped['k2']} launches in the step; collectives in "
+          f"the group {calls} on {sorted(devices)}")
+    check(min(calls.values()) > 0 and devices == {"cuda:0"},
+          "the collectives did not all run on the card in the group of one")
+    check(grouped["rttm"] == alone["rttm"] and len(alone["rttm"].splitlines()) > 0,
+          "the RTTM in a group of one differs from the one without")
+    check(abs(grouped["loss"] - alone["loss"]) <= 1e-6 * abs(alone["loss"]),
+          "the train step's loss in a group of one differs from the one without")
+    # the backward is not bitwise repeatable on the card (ROADMAP.md section 3)
+    check(abs(grouped["grad_norm"] - alone["grad_norm"]) <= 1e-3 * alone["grad_norm"],
+          "the train step's gradient norm in a group of one differs from the one without")
+    check(grouped["k1_train"] == grouped["k2"] > 0, "K1/K2 launches of the data-parallel step")
+    return {"k1_train": grouped["k1_train"], "k2": grouped["k2"]}
+
+
 class StageTimer:
     """Pipeline hook: seconds since the previous stage ended (the per-batch
     progress calls are passed over)."""
@@ -2929,6 +3187,10 @@ def run_phases(flac_jobs) -> int:
     multichannel = phase_multichannel(card, resnet_sd)
     families = phase_families(card, resnet_sd, flac_jobs)
     elapsed("the remaining families")
+    hf_launches = phase_hf_import(card)
+    phase_schedules(card)
+    data_parallel = phase_data_parallel(card, eend_sd, resnet_sd, eend_cfg, wave)
+    elapsed("HF import, schedules and data parallelism")
 
     kernel["launches"] = launches
     kernel["whole_t1499"]["launches"] = evaluation_launches["whole"]
@@ -2955,6 +3217,10 @@ def run_phases(flac_jobs) -> int:
     conv_chain["sserious_launches_per_batch"] = sserious["eval"]["k5"]
     trainable[0]["sserious_forward_only"] = sserious["k1_train"]
     trainable[1]["sserious_launches_per_step"] = sserious["train"]["k2"]
+    # the HF-imported WavLM-Base's bf16 forward; the train step in a group
+    kernel["hf_import_launches_per_forward"] = hf_launches
+    trainable[0]["data_parallel_launches_per_step"] = data_parallel["k1_train"]
+    trainable[1]["data_parallel_launches_per_step"] = data_parallel["k2"]
     print(json.dumps({"kernels": [kernel, *trainable, *fused_ln, conv_chain]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

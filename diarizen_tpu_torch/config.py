@@ -93,6 +93,18 @@ REFERENCE_PATH_ALIASES = {
     "diarizen_tpu.models.build.pyannote_baseline":
         "diarizen_tpu_torch.models.build.pyannote_baseline",
     "torch.optim.AdamW": "diarizen_tpu_torch.train.optim.adamw_torch_args",
+    **{f"diarizen_tpu.train.optim.{name}": f"diarizen_tpu_torch.train.optim.{name}"
+       for name in ("noam_schedule", "noam_adamw", "one_cycle_schedule", "reduce_on_plateau")},
+    **{f"diarizen_tpu.utils.{name}": f"diarizen_tpu_torch.utils.{name}"
+       for name in ("set_random_seed", "prepare_empty_dir", "clamp_inf_value", "Timer",
+                    "print_env")},
+    **{f"diarizen_tpu.parallel.distributed.{name}":
+       f"diarizen_tpu_torch.parallel.distributed.{name}"
+       for name in ("initialize_distributed", "is_main_process", "gather_to_host",
+                    "broadcast_from_host", "process_window_shard", "reassemble_window_shards",
+                    "gather_window_shards")},
+    "diarizen_tpu.models.convert.wavlm_config_from_hf":
+        "diarizen_tpu_torch.models.convert.wavlm_config_from_hf",
 }
 
 
@@ -105,9 +117,9 @@ def resolve(path: str) -> Any:
     if path.split(".")[0] == "diarizen_tpu":
         raise NotImplementedError(
             f"{path!r} has no counterpart in diarizen_tpu_torch: of the JAX package, the "
-            "port lacks only the learning-rate schedules (noam, one-cycle, "
-            "reduce-on-plateau), parallel/ and the rest of utils.py; every model family, "
-            "the trainer, dataset and optimizers are ported")
+            "port lacks only parallel/mesh.py (make_mesh and the tensor-parallel `model` "
+            "axis, eend_param_shardings); every model family, the trainer, dataset, "
+            "optimizers and schedules, data parallelism and utils.py are ported")
     module_name, _, attr = path.rpartition(".")
     module = importlib.import_module(module_name)
     return getattr(module, attr)

@@ -17,6 +17,11 @@ default), so that a file's device work is enqueued without a host wait, or on
 the host in numpy (`fused_stitch=False`, and any file the fused route cannot
 plan); the two routes give identical results. `stream` pipelines files: the
 next file's device work is enqueued before this file's host stages run.
+
+In a process group (`parallel/distributed.py`; of one process too) every
+process segments the whole file, embeds a strided shard of its windows,
+gathers the embeddings, and keeps process 0's clusters; the host route is
+taken.
 """
 
 from __future__ import annotations
@@ -46,6 +51,12 @@ from diarizen_tpu_torch.models.fbank import FRAME_LENGTH, FRAME_SHIFT, kaldi_fba
 from diarizen_tpu_torch.models.resnet import ResNet
 from diarizen_tpu_torch.ops.aggregate import aggregate, trim
 from diarizen_tpu_torch.ops.binarize import Binarize
+from diarizen_tpu_torch.parallel.distributed import (
+    broadcast_from_host,
+    gather_window_shards,
+    in_group,
+    process_window_shard,
+)
 from diarizen_tpu_torch.utils import (
     HostFetch,
     halve_batch_or_raise,
@@ -360,8 +371,9 @@ class DiarizationPipeline:
 
     def _use_fused(self) -> bool:
         # duck-typed stand-ins (tests, other backends) may lack the
-        # dispatch interface the fused chain needs
-        return self.fused_stitch and all(
+        # dispatch interface the fused chain needs; in a process group the
+        # host route shards the embeddings
+        return self.fused_stitch and not in_group() and all(
             hasattr(inf, "dispatch") for inf in (self.seg_inference, self.emb_inference))
 
     def _get_fused(self) -> FusedStitch:
@@ -478,6 +490,9 @@ class DiarizationPipeline:
             embeddings, binarized.data,
             min_clusters=num_speakers or self.min_speakers, max_clusters=max_clusters,
         )
+        # every process clustered the same gathered embeddings; process 0's
+        # assignment is kept so that ties cannot diverge (a copy without a group)
+        hard_clusters = broadcast_from_host(hard_clusters)
         if hook is not None:
             hook("clustering", hard_clusters)
 
@@ -523,5 +538,9 @@ class DiarizationPipeline:
         else:
             weights = masks
         wave, starts = prepared
-        return self.emb_inference(
-            wave, starts[:num_chunks], np.transpose(weights, (0, 2, 1)), hook=hook)
+        weights = np.transpose(weights, (0, 2, 1))
+        # each process embeds a strided shard of the windows and the shards
+        # are gathered back on every process (the whole file without a group)
+        shard = process_window_shard(num_chunks)
+        local = self.emb_inference(wave, starts[:num_chunks][shard], weights[shard], hook=hook)
+        return gather_window_shards(local, num_chunks)

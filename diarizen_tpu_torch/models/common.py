@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diarizen_tpu_torch.parallel.distributed import process_index
+
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
@@ -106,16 +108,21 @@ class TrainRandom:
     """The randomness of one training forward. `host` draws what the host
     decides (attention-dropout seeds, layer drop) without a device sync;
     `device` draws the dropout masks on the activations' device. Both come
-    from one host generator, so a seeded run repeats."""
+    from one host generator, so a seeded run repeats. In a process group
+    every process draws the same from `host`, so layer drop skips the same
+    layers everywhere, but the seeds are offset by the process index: each
+    process draws its own dropout masks for its own rows of the batch."""
 
     def __init__(self, generator: torch.Generator, device: torch.device):
         self.host = generator
+        self.offset = process_index() * 0x9E3779B1
         self.device = torch.Generator(device=device)
         self.device.manual_seed(self.seed())
 
     def seed(self) -> int:
         """A uniform int32 seed in [0, 2^31 - 1)."""
-        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+        drawn = int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+        return (drawn + self.offset) % (2**31 - 1)
 
     def uniform(self) -> float:
         return float(torch.rand((1,), generator=self.host))

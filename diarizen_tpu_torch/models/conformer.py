@@ -9,7 +9,8 @@ key scores q · pe_k[clip(i - j)] / sqrt(d_head), from one shared table
 
 Train mode: BatchNorm normalises with the batch statistics (biased
 variance) and moves its running statistics in place with momentum 0.1
-(unbiased variance), as torch does; dropout in the FFNs, on the attention
+(unbiased variance), as torch does; across the processes of a group the
+statistics are the global batch's; dropout in the FFNs, on the attention
 weights and output, and after the conv module, from the device generator.
 """
 
@@ -31,6 +32,7 @@ from diarizen_tpu_torch.models.common import (
     linear,
     swish,
 )
+from diarizen_tpu_torch.parallel.distributed import all_reduce_sum, process_count
 
 BN_MOMENTUM = 0.1
 
@@ -125,11 +127,17 @@ class _ConvModule(nn.Module):
 
     def _batch_norm(self, h: torch.Tensor, train: bool) -> torch.Tensor:
         """BatchNorm1d over (B, C, T) in float32: batch statistics in train
-        mode (which also move the running ones), running ones otherwise."""
+        mode (which also move the running ones), running ones otherwise. In
+        a process group the batch statistics are those of the global batch,
+        as the JAX package's batch sharded over the mesh has them: the sums
+        are all-reduced (differentiably, so their gradients reach every
+        process's inputs), and every process holds a batch of the same
+        size."""
         bn, hf = self.bn_norm, h.float()
         if train:
-            mean, var = hf.mean(dim=(0, 2)), hf.var(dim=(0, 2), unbiased=False)
-            n = hf.shape[0] * hf.shape[2]
+            n = hf.shape[0] * hf.shape[2] * process_count()
+            mean = all_reduce_sum(hf.sum(dim=(0, 2))) / n
+            var = all_reduce_sum(((hf - mean[:, None]) ** 2).sum(dim=(0, 2))) / n
             with torch.no_grad():
                 m = BN_MOMENTUM
                 bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)

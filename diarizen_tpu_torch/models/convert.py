@@ -28,7 +28,10 @@ x-vector's TDNN layer i becomes `tdnns.{i}.0` (conv) and `tdnns.{i}.2`
 runs without released checkpoints.
 
 `load_reference_wavlm_checkpoint` and `load_eend_checkpoint` read the
-reference's torch files. The port's modules keep the reference's key layout,
+reference's torch files. `wavlm_config_from_hf` and `wavlm_state_dict_from_hf`
+take a HuggingFace `WavLMModel`'s config and state dict (HF's key layout
+mapped onto the reference's), with no import of transformers;
+`wavlm_state_dict_to_hf` is the inverse map. The port's modules keep the reference's key layout,
 so what they return loads with `load_state_dict(strict=True)`.
 
 `load_pytree` reads a pytree that the JAX package saved as `.npz` (its
@@ -419,13 +422,113 @@ def random_state_dict(module: nn.Module, seed: int) -> StateDict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# HuggingFace `transformers.WavLMModel` checkpoints, read without transformers
+
+# HF key prefix -> the reference's (the port's) key prefix
+HF_WAVLM_RENAMES = (
+    ("feature_projection.", "encoder.feature_projection."),
+    ("encoder.layers.", "encoder.transformer.layers."),
+    ("encoder.pos_conv_embed.conv.", "encoder.transformer.pos_conv_embed.conv."),
+    ("encoder.layer_norm.", "encoder.transformer.layer_norm."),
+)
+_WEIGHT_NORM_KEYS = (("parametrizations.weight.original0", "weight_g"),
+                     ("parametrizations.weight.original1", "weight_v"))
+
+
+def wavlm_config_from_hf(hf_config) -> WavLMConfig:
+    """The WavLMConfig of a `transformers.WavLMConfig`, or of the dict of
+    its `config.json`."""
+    c = hf_config if isinstance(hf_config, dict) else hf_config.to_dict()
+    n, heads = c["num_hidden_layers"], c["num_attention_heads"]
+    return WavLMConfig(
+        extractor_mode="layer_norm" if c["feat_extract_norm"] == "layer" else "group_norm",
+        conv_layers=tuple(zip(c["conv_dim"], c["conv_kernel"], c["conv_stride"])),
+        conv_bias=c["conv_bias"],
+        embed_dim=c["hidden_size"],
+        projection_dropout=c["feat_proj_dropout"],
+        pos_conv_kernel=c["num_conv_pos_embeddings"],
+        pos_conv_groups=c["num_conv_pos_embedding_groups"],
+        num_layers=n,
+        use_attention=(True,) * n,
+        use_feed_forward=(True,) * n,
+        total_num_heads=(heads,) * n,
+        remaining_heads=tuple(tuple(range(heads)) for _ in range(n)),
+        num_buckets=c["num_buckets"],
+        max_distance=c["max_bucket_distance"],
+        attention_dropout=c["attention_dropout"],
+        ff_interm_features=(c["intermediate_size"],) * n,
+        ff_interm_dropout=c["activation_dropout"],
+        dropout=c["hidden_dropout"],
+        layer_norm_first=c["do_stable_layer_norm"],
+        layer_drop=c["layerdrop"],
+        normalize_waveform=c["feat_extract_norm"] == "layer",
+    )
+
+
+def wavlm_state_dict_from_hf(state_dict: Dict[str, Any]) -> StateDict:
+    """A WavLM state dict in the HF `WavLMModel` layout (a `wavlm.` prefix
+    of a model with a head stripped) or already in the reference's, in the
+    reference layout that the port's `WavLM` loads: HF keys renamed
+    (`HF_WAVLM_RENAMES`), `masked_spec_embed` dropped, the weight-norm keys
+    of either torch style as `weight_g` / `weight_v`, and an identity
+    `dummy_weight` where the checkpoint has none. Layer 0's relative
+    position table is required, as the JAX package's converter requires it."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    if any(k.startswith("wavlm.") for k in sd):
+        sd = {k[len("wavlm."):]: v for k, v in sd.items() if k.startswith("wavlm.")}
+    if not any(k.startswith("encoder.transformer.") for k in sd):  # HF layout
+        renamed = {}
+        for key, value in sd.items():
+            if key == "masked_spec_embed":
+                continue
+            for old, new in HF_WAVLM_RENAMES:
+                if key.startswith(old):
+                    key = new + key[len(old):]
+                    break
+            renamed[key] = value
+        sd = renamed
+    for old, new in _WEIGHT_NORM_KEYS:
+        sd = {k[: -len(old)] + new if k.endswith(old) else k: v for k, v in sd.items()}
+    if "feature_extractor.dummy_weight" not in sd:
+        last = max(int(k.split(".")[2]) for k in sd if k.startswith("feature_extractor.conv_layers."))
+        out_channels = sd[f"feature_extractor.conv_layers.{last}.conv.weight"].shape[0]
+        sd["feature_extractor.dummy_weight"] = torch.ones(out_channels)
+    if not any(k.endswith("rel_attn_embed.weight") for k in sd):
+        raise ValueError("no rel_attn_embed found in state dict (layer 0 pruned?)")
+    return sd
+
+
+def wavlm_state_dict_to_hf(sd: StateDict) -> StateDict:
+    """The inverse of `wavlm_state_dict_from_hf` for an unpruned WavLM: the
+    port's WavLM state dict in the HF `WavLMModel` layout (weight norm in
+    the `parametrizations` style, no `dummy_weight`, which must be ones)."""
+    dummy = sd.get("feature_extractor.dummy_weight")
+    if dummy is not None and not torch.all(dummy == 1):
+        raise ValueError("a WavLM with a pruned extractor scale has no HF layout")
+    out = {}
+    for key, value in sd.items():
+        if key == "feature_extractor.dummy_weight":
+            continue
+        for hf, ref in HF_WAVLM_RENAMES:
+            if key.startswith(ref):
+                key = hf + key[len(ref):]
+                break
+        for style, name in _WEIGHT_NORM_KEYS:
+            if key.endswith("." + name) and "pos_conv_embed" in key:
+                key = key[: -len(name)] + style
+        out[key] = value
+    return out
+
+
 def load_reference_wavlm_checkpoint(path: str) -> Tuple[WavLMConfig, StateDict]:
     """Load a reference-format `{"config": dict, "state_dict": ...}` WavLM
-    checkpoint (pruned s80 models included): its architecture and its state
-    dict in the layout of the port's `WavLM`."""
+    checkpoint (pruned s80 models included; the state dict in the reference
+    or the HF layout): its architecture and its state dict in the layout of
+    the port's `WavLM`."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     cfg = WavLMConfig.from_reference_dict(ckpt["config"])
-    return cfg, {k: torch.as_tensor(v) for k, v in ckpt["state_dict"].items()}
+    return cfg, wavlm_state_dict_from_hf(ckpt["state_dict"])
 
 
 def load_eend_checkpoint(path: str) -> StateDict:

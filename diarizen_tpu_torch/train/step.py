@@ -9,7 +9,10 @@ skipped as in the JAX package: parameters, optimizer state (the schedules'
 counts and the AutoClip history included) and the BatchNorm running
 statistics, which the forward has already moved, keep their old values;
 the step counter still advances. Reading the loss is the step's one host
-sync.
+sync. In a process group each process's batch is its shard of the global
+batch (of the same size on every process): the gradients and the loss are
+averaged over the processes before the update (`parallel/distributed.py`),
+so every process takes the same step.
 
 Both steps run the model through `segmentation_forward`, so `eval_step`
 evaluates a multi-channel model on all its channels (the JAX package's
@@ -31,6 +34,7 @@ from torch import nn
 from diarizen_tpu_torch.models.forward import segmentation_forward
 from diarizen_tpu_torch.models.mc import McEendModel
 from diarizen_tpu_torch.models.wavlm import WavLM
+from diarizen_tpu_torch.parallel.distributed import all_reduce_mean_
 from diarizen_tpu_torch.train.loss import der_metrics, segmentation_loss
 from diarizen_tpu_torch.train.optim import GradientAccumulation, Optimizer, global_norm
 from diarizen_tpu_torch.utils import resolve_device
@@ -107,11 +111,16 @@ def _step(state: TrainState, xs: torch.Tensor, target: torch.Tensor, seed: int,
                                          generator=step_generator(seed, state.step))
     loss = segmentation_loss(model.cfg.powerset, scores, target)
     loss.backward()
-    loss_value = float(loss.detach())
+    grads = state.optimizer.grads()  # zeros where a parameter got no gradient
+    shared_loss = loss.detach().float().reshape(1)
+    # data parallel: the global batch's mean gradient and mean loss on every
+    # process (a no-op without a group); a non-finite loss anywhere makes
+    # the mean non-finite everywhere, so every process skips the batch together
+    all_reduce_mean_(grads + [shared_loss])
+    loss_value = float(shared_loss)
     good = math.isfinite(loss_value)
     grad_norm = 0.0
     if good:
-        grads = state.optimizer.grads()  # zeros where a parameter got no gradient
         norm = global_norm(grads)
         state.optimizer.step(grads)
         grad_norm = float(norm)

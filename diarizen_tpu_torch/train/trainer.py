@@ -14,6 +14,12 @@ passed. `step_hook`, when given, is called with each train step's metrics.
 multi-channel model); with `channel_sampler` (a callable returning an int) it
 is also given `num_channels=` a value drawn before each step, the random
 channel truncation of multi-channel training.
+
+Data parallel (the JAX trainer's `mesh=`): in a process group, each
+process trains on its stripe of the data (the DataLoader's `rank` /
+`world_size`), the train step averages gradients and loss over the
+processes, validation sums its totals over them, and only process 0 writes
+checkpoints, metrics and TensorBoard.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 from torch import nn
 
+from diarizen_tpu_torch.parallel.distributed import all_reduce_sum, is_main_process
 from diarizen_tpu_torch.train.checkpoint import (
     append_metrics,
     latest_checkpoint,
@@ -69,17 +76,20 @@ class Trainer:
                               else torch.float32)
         self.exp_dir = Path(trainer_cfg.exp_dir)
         self.ckpt_root = self.exp_dir / "checkpoints"
-        self.exp_dir.mkdir(parents=True, exist_ok=True)
+        self.main_process = is_main_process()
         self.start_epoch = 0
         self.best_score = float("inf")
         self.best_epoch = -1
         self.epochs_without_improvement = 0
-        try:
-            from torch.utils.tensorboard import SummaryWriter
+        self.tb = None
+        if self.main_process:
+            self.exp_dir.mkdir(parents=True, exist_ok=True)
+            try:
+                from torch.utils.tensorboard import SummaryWriter
 
-            self.tb = SummaryWriter(str(self.exp_dir / "tb"))
-        except Exception:  # TensorBoard is optional
-            self.tb = None
+                self.tb = SummaryWriter(str(self.exp_dir / "tb"))
+            except Exception:  # TensorBoard is optional
+                pass
 
     @property
     def model(self) -> nn.Module:
@@ -89,12 +99,18 @@ class Trainer:
         if self.tb is not None:
             self.tb.add_scalar(name, value, step)
 
+    def _append_metrics(self, record: Dict) -> None:
+        if self.main_process:
+            append_metrics(self.exp_dir, record)
+
     def _meta(self, extra: Optional[Dict] = None) -> Dict:
         return {"step": self.state.step, "best_score": self.best_score,
                 "best_epoch": self.best_epoch,
                 "epochs_without_improvement": self.epochs_without_improvement, **(extra or {})}
 
-    def save(self, epoch: int, extra: Optional[Dict] = None) -> Path:
+    def save(self, epoch: int, extra: Optional[Dict] = None) -> Optional[Path]:
+        if not self.main_process:
+            return None
         return save_checkpoint(
             self.ckpt_root, epoch, self.model.state_dict(), self.state.optimizer.state_dict(),
             meta=self._meta(extra), max_keep=self.tc.max_num_checkpoints,
@@ -153,7 +169,8 @@ class Trainer:
             acc = m if acc is None else {k: acc[k] + m[k] for k in VAL_KEYS}
         if acc is None:
             raise ValueError("the validation loader yielded no batch")
-        totals = torch.stack([acc[k] for k in VAL_KEYS]).tolist()  # the one host sync
+        # summed over the processes: every metric is a ratio of these sums
+        totals = all_reduce_sum(torch.stack([acc[k] for k in VAL_KEYS])).tolist()  # one sync
         t = dict(zip(VAL_KEYS, totals))
         speech = max(t["speech_total"], 1e-9)
         return {
@@ -172,8 +189,7 @@ class Trainer:
             train_metrics = self.train_epoch(train_loader, epoch)
             if (epoch + 1) % self.tc.validation_interval != 0:
                 # a checkpoint every epoch, validated or not
-                append_metrics(self.exp_dir, {"epoch": epoch, **train_metrics,
-                                              "step": self.state.step})
+                self._append_metrics({"epoch": epoch, **train_metrics, "step": self.state.step})
                 self.save(epoch)
                 continue
             val = self.validate(val_loader)
@@ -191,8 +207,8 @@ class Trainer:
                 self.epochs_without_improvement = 0
             else:
                 self.epochs_without_improvement += 1
-            append_metrics(self.exp_dir, {"epoch": epoch, **train_metrics, **val,
-                                          "best": improved, "step": self.state.step})
+            self._append_metrics({"epoch": epoch, **train_metrics, **val, "best": improved,
+                                  "step": self.state.step})
             self.save(epoch, val)
             if self.epochs_without_improvement >= self.tc.patience:
                 logger.info("early stop at epoch %d (no %s improvement for %d epochs)",

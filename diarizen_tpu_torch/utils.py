@@ -1,9 +1,16 @@
 """Device selection, host-device transfers and the out-of-memory batch
-backoff shared by the port's entry points."""
+backoff shared by the port's entry points, and the small utilities of the
+JAX package's `utils.py` (seeding, directories, clamping, a timer, the
+environment report)."""
 
 from __future__ import annotations
 
 import logging
+import os
+import random
+import shutil
+import time
+from pathlib import Path
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -11,9 +18,13 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """`None` means the CUDA device. Raises when CUDA is asked for and absent:
-    the port never falls back to the CPU on its own."""
-    device = torch.device("cuda" if device is None else device)
+    """`None` means the CUDA device: `cuda:{LOCAL_RANK}` when a launcher such
+    as torchrun set LOCAL_RANK, else the current one. Raises when CUDA is
+    asked for and absent: the port never falls back to the CPU on its own."""
+    if device is None:
+        local_rank = os.environ.get("LOCAL_RANK")
+        device = "cuda" if local_rank is None else f"cuda:{int(local_rank)}"
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
@@ -98,3 +109,74 @@ def halve_batch_or_raise(exc: BaseException, batch_size: int, stage: str) -> int
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     return new
+
+
+def set_random_seed(seed: int = 3407) -> None:
+    """Seed python's, numpy's and torch's generators (every card's too)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    if torch.cuda.is_available():
+        torch.cuda.manual_seed_all(seed)
+
+
+def prepare_empty_dir(path: Union[str, Path], resume: bool = False) -> Path:
+    """`path` as an empty directory (its old contents removed), or as it is
+    when resuming."""
+    path = Path(path)
+    if path.exists() and not resume:
+        shutil.rmtree(path)
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def clamp_inf_value(x, limit: float = 1e10):
+    """+-inf to +-limit and NaN to 0, for numpy arrays and tensors alike."""
+    if isinstance(x, torch.Tensor):
+        return torch.nan_to_num(x, nan=0.0, posinf=limit, neginf=-limit)
+    return np.nan_to_num(x, nan=0.0, posinf=limit, neginf=-limit)
+
+
+class Timer:
+    """A wall-clock timer: a context manager, or `start()` / `stop()`
+    pairs whose spans add up in `elapsed` (seconds)."""
+
+    def __init__(self):
+        self.start_time: Optional[float] = None
+        self.elapsed = 0.0
+
+    def start(self) -> "Timer":
+        self.start_time = time.perf_counter()
+        return self
+
+    def stop(self) -> float:
+        if self.start_time is not None:
+            self.elapsed += time.perf_counter() - self.start_time
+            self.start_time = None
+        return self.elapsed
+
+    def __enter__(self) -> "Timer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+def print_env() -> dict:
+    """Print and return the runtime: torch's and CUDA's versions, each
+    card's name and compute capability, and this process's rank and the
+    world size of the process group (0 and 1 without one)."""
+    from diarizen_tpu_torch.parallel.distributed import process_count, process_index
+
+    info = {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "devices": [f"{torch.cuda.get_device_name(i)} (sm_{''.join(map(str, cap))})"
+                    for i in range(torch.cuda.device_count())
+                    for cap in [torch.cuda.get_device_capability(i)]],
+        "process_index": process_index(),
+        "process_count": process_count(),
+    }
+    for k, v in info.items():
+        print(f"{k}: {v}")
+    return info

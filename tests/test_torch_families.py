@@ -90,16 +90,6 @@ def port_cfg(jax_cfg, cls):
     return cls(**fields)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two torch threads for this module: the suite runs several workers on
-    the same cores, where more threads contend and run far slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def families():
     """{name: (JAX config, params, state, port model, JAX scores of

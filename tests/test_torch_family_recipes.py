@@ -76,8 +76,6 @@ class Block:
             raise ImportError(name + " is blocked")
 sys.meta_path.insert(0, Block())
 import json
-import torch
-torch.set_num_threads(2)  # the suite's other workers share the cores
 from diarizen_tpu_torch.recipes.diar_ssl import infer, run
 root = sys.argv[1]
 out = {}
@@ -93,16 +91,6 @@ for stem in sys.argv[2:]:
                  "speakers": {uri: ann.labels() for uri, ann in hyps.items()}}
 print(json.dumps(out))
 """
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two torch threads for this module: the suite runs several workers on
-    the same cores, where more threads contend and run far slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

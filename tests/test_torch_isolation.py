@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor diarizen_tpu (every
-model family's module included), the multi-channel recipe TOML builds the
+model family's module included), nor transformers or safetensors (the
+HuggingFace WavLM import reads their files itself), the multi-channel recipe TOML builds the
 port's model with both blocked, its entry points refuse to run on the CPU
 unless asked, and chip_smoke.py fails without a CUDA device or without the
 package beside it."""
@@ -30,6 +31,8 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["diarizen_tpu"] = None
+sys.modules["transformers"] = None
+sys.modules["safetensors"] = None
 import diarizen_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(diarizen_tpu_torch.__path__, "diarizen_tpu_torch.")]
 for name in names:
@@ -55,6 +58,9 @@ MC_SLICE = ("models.mc", "models.forward", "infer.mc_pipeline", "recipes.diar_ss
 # and those of the remaining model families
 FAMILIES_SLICE = ("models.fbank_eend", "models.sincnet_eend", "models.sserious",
                   "models.xvector")
+# and those of the schedules, the HuggingFace import and data parallelism
+PARALLEL_SLICE = ("train.optim", "parallel", "parallel.distributed",
+                  "recipes.diar_ssl_pruning.convert_wavlm_from_hf")
 
 
 def test_every_port_module_imports_without_jax():
@@ -62,15 +68,17 @@ def test_every_port_module_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 73
+    assert len(names) >= 76
     assert all(f"diarizen_tpu_torch.{m}" in names for m in
-               SNAPSHOT_SLICE + EVALUATION_SLICE + PRUNING_SLICE + MC_SLICE + FAMILIES_SLICE)
+               SNAPSHOT_SLICE + EVALUATION_SLICE + PRUNING_SLICE + MC_SLICE + FAMILIES_SLICE
+               + PARALLEL_SLICE)
     for path in [*(ROOT / "diarizen_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 module = words[1].split(".")[0]
-                assert module not in ("jax", "diarizen_tpu"), f"{path}: {line}"
+                assert module not in ("jax", "diarizen_tpu", "transformers", "safetensors"), \
+                    f"{path}: {line}"
 
 
 _BUILD_MC_TOML = """

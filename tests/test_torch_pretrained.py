@@ -413,10 +413,11 @@ def test_config_system_equals_jax(tmp_path):
             jax_config.resolve(ref_path))
         assert target.startswith("diarizen_tpu_torch.") and resolved(config.resolve(ref_path))
     # the JAX package's table is covered whole; a path into the JAX package
-    # that the port has no counterpart for (a schedule, the mesh) raises,
-    # naming the path, instead of importing the JAX package
+    # that the port has no counterpart for (the mesh, its tensor-parallel
+    # shardings) raises, naming the path, instead of importing the JAX package
     assert set(jax_config.REFERENCE_PATH_ALIASES) <= set(config.REFERENCE_PATH_ALIASES)
-    for own in ("diarizen_tpu.train.optim.noam_adamw", "diarizen_tpu.parallel.mesh.make_mesh"):
+    for own in ("diarizen_tpu.parallel.mesh.eend_param_shardings",
+                "diarizen_tpu.parallel.mesh.make_mesh"):
         assert callable(jax_config.resolve(own))
         with pytest.raises(NotImplementedError, match=own.replace(".", r"\.")):
             config.resolve(own)
