@@ -138,7 +138,17 @@ Phases (any failure exits non-zero, before the last line is printed):
      step's learning rate printed beside its formula; one pipeline call and
      one train step without a process group and in a world-size-1 NCCL group
      started by `initialize_distributed` at 127.0.0.1: the same RTTM and loss;
- 17. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
+ 17. tensor parallelism: WavLM-Large + Conformer 4 x 256 at full width,
+     seeded, on 8 x 8 s (16 rows cut to 8: the one-process reference and
+     two ranks share the card): the one-process float32 scores and train
+     step (dropout and layer drop on) in this process, then two rank
+     processes on the card in a (1, 2) mesh under gloo (their float32
+     scores, loss, gradient norm and gathered per-leaf gradients against
+     the one process; two bf16 steps with K1's training instance and K2 at
+     the ranks' 8 heads, the model group's all-reduces counted); K1's
+     training instance and K2 at a head offset against the plain version,
+     and timed at H 8 and H 16 (B 8);
+ 18. a JSON line with the six kernels' numbers, the nvidia-smi line, and a
      last JSON line {"ok": true, "device": {...}}.
 """
 
@@ -243,7 +253,7 @@ from diarizen_tpu_torch.train.checkpoint import (
 )
 from diarizen_tpu_torch.train.dataset import DataLoader, DiarizationDataset
 from diarizen_tpu_torch.train.optim import Optimizer, noam_adamw, one_cycle_schedule
-from diarizen_tpu_torch.train.step import create_train_state, mc_train_step
+from diarizen_tpu_torch.train.step import TrainState, create_train_state, mc_train_step
 from diarizen_tpu_torch.parallel import distributed as dp
 
 # H100 SXM data-sheet peaks (dense): HBM bandwidth, bf16 tensor-core rate, and
@@ -3044,6 +3054,285 @@ def phase_data_parallel(card: str, eend_sd, resnet_sd, eend_cfg, wave) -> dict:
     return {"k1_train": grouped["k1_train"], "k2": grouped["k2"]}
 
 
+TP_BATCH = 8  # rows of 8 s: the one-process reference and both ranks share the card's 80 GB
+TP_SEED = 7
+TP_TIMEOUT = 900  # seconds for the two rank processes
+
+
+class GradRecorder:
+    """The train step's optimizer interface that moves nothing: it keeps the
+    gradients the step hands it, after their mean over the mesh."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.params = dict(model.named_parameters())
+        self.recorded = {}
+
+    def grads(self):
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self.params.values()]
+
+    @torch.no_grad()
+    def step(self, grads, value=None, norm=None):
+        self.recorded = {n: g.detach().clone() for n, g in zip(self.params, grads)}
+
+
+def tensor_parallel_config() -> EendConfig:
+    """WavLM-Large (24 x 1024, 16 heads, FF 4096) + Conformer 4 x 256."""
+    return EendConfig(wavlm=WavLMConfig.large(), conformer=ConformerConfig(),
+                      wavlm_layer_num=25, wavlm_feat_dim=1024)
+
+
+def tensor_parallel_rank(rank: int, port: int, work: str) -> int:
+    """One rank of `phase_tensor_parallel`: a (1, 2) mesh under gloo on
+    cuda:0. The f32 forward and one f32 train step (gradients gathered to
+    the full layout), then two bf16 steps with the recipe's optimizer, each
+    counting K1 and K2 launches and the model group's all-reduces; the
+    results go to `work`/rank<rank>.pt."""
+    from diarizen_tpu_torch.parallel import gather_state, make_mesh, shard_model_
+    from diarizen_tpu_torch.train import TrainState
+
+    torch.cuda.set_device(0)
+    inputs = torch.load(Path(work) / "inputs.pt", weights_only=False, mmap=True)
+    cfg, batch = inputs["cfg"], inputs["batch"]
+    dp.initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh(1, 2)
+
+    def split_model():
+        model = EendModel(cfg)
+        model.load_state_dict(inputs["sd"])
+        return shard_model_(model, mesh).cuda()
+
+    out = {"place": (mesh.data_index, mesh.model_index)}
+    with strict_float32():  # as the one-process reference ran
+        model = split_model()
+        k1.launches = 0
+        with torch.no_grad():
+            out["scores"] = model(torch.from_numpy(batch["xs"]).cuda(), torch.float32).cpu()
+        out["k1_forward"] = k1.launches
+        recorder = GradRecorder(model)
+        k1.train_launches = k1.bwd_launches = dp.model_reduces = 0
+        m = train_step(TrainState(model=model, optimizer=recorder), batch, seed=TP_SEED,
+                       compute_dtype=torch.float32)
+        out["f32"] = {**m, "k1_train": k1.train_launches, "k2": k1.bwd_launches,
+                      "reduces": dp.model_reduces}
+    grads = gather_state(recorder.recorded, model, mesh)
+    if rank == 0:
+        out["grads"] = {n: g.cpu() for n, g in grads.items()}
+    del model, recorder, grads
+    torch.cuda.empty_cache()
+
+    model = split_model()
+    state = TrainState(model=model, optimizer=recipe_optimizer(model))
+    out["bf16"] = []
+    for _ in range(2):
+        k1.train_launches = k1.bwd_launches = dp.model_reduces = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(state, batch, seed=TP_SEED, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out["bf16"].append({**m, "ms": 1e3 * (time.perf_counter() - t0),
+                            "k1_train": k1.train_launches, "k2": k1.bwd_launches,
+                            "reduces": dp.model_reduces,
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    torch.save(out, Path(work) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def trainable_rows(b: int, h: int, gen) -> list:
+    """K1's training instance and K2 at (b, h, 399, 64) in bf16, rate 0.1,
+    against the plain version (max abs error), timed beside the plain
+    version, SDPA's forward and backward and the bound."""
+    (q, k, v, pos, gate), do = trainable_inputs(b, h, FRAMES, torch.bfloat16, gen)
+    bias = k1.padded_bias(pos, torch.bfloat16)
+    mask = (gate[..., None] * pos).to(torch.bfloat16)
+    rate, seed = DROPOUT_RATE, DROPOUT_SEED
+    out, lse = k1._forward_train(q, k, v, bias, gate, rate, seed)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+    plain = k1.flash_attention_gated_bias_reference(*leaves, rate, seed)
+    want = torch.autograd.grad(plain, leaves, do, retain_graph=True)
+    got = k1._backward(q, k, v, bias, gate, out, lse, do, rate, seed)
+    lib_leaves = [x.clone().requires_grad_() for x in (q, k, v, mask)]
+    lib = F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
+                                         dropout_p=rate)
+    errors = {"fwd": (out.float() - plain.float()).abs().max().item(),
+              "bwd": max((g.float() - w.float()).abs().max().item()
+                         for g, w in zip(got, want))}
+    rows = {
+        "fwd": {"ms": median_ms(lambda: k1._forward_train(q, k, v, bias, gate, rate, seed)),
+                "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(
+                    q, k, v, pos, gate, rate, seed)),
+                "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, dropout_p=rate))},
+        "bwd": {"ms": median_ms(lambda: k1._backward(q, k, v, bias, gate, out, lse, do, rate,
+                                                     seed)),
+                "plain_ms": median_ms(lambda: torch.autograd.grad(plain, leaves, do,
+                                                                  retain_graph=True)),
+                "library_ms": median_ms(lambda: torch.autograd.grad(lib, lib_leaves, do,
+                                                                    retain_graph=True))},
+    }
+    bounds = trainable_bound_s(b, h, FRAMES, HEAD_DIM, 2)
+    result = []
+    for key in ("fwd", "bwd"):
+        mem_s, op_s = bounds[key]
+        row = {"b": b, "h": h, "t": FRAMES, "d": HEAD_DIM, **rows[key],
+               "bound_ms": 1e3 * max(mem_s, op_s),
+               "bound_by": "bytes" if mem_s >= op_s else "operations",
+               "max_abs_err": errors[key]}
+        check(np.isfinite(errors[key]) and errors[key] <= 2e-2 * max(
+            plain.float().abs().max().item() if key == "fwd" else
+            max(w.float().abs().max().item() for w in want), 1e-6),
+            f"K1/K2 {key} at B={b} H={h} disagrees with the plain version: {errors[key]}")
+        print(f"{'K1 training' if key == 'fwd' else 'K2'} bf16 B={b} H={h} T={FRAMES} rate {rate}: "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"max abs err {errors[key]:.3e}")
+        result.append(row)
+    return result
+
+
+def head_offset_check(gen) -> None:
+    """K1's training instance and K2 on heads 8-15 of a 16-head layer with
+    `head_offset=8` (the seed shifted, the CUDA source unchanged) against
+    the plain version at that offset, and K1's output against the 16-head
+    launch's slice bit for bit (f32, rate 0.1)."""
+    (q, k, v, pos, gate), do = trainable_inputs(TP_BATCH, 16, FRAMES, torch.float32, gen)
+    full = k1.flash_attention_gated_bias_trainable(q, k, v, pos, gate, DROPOUT_RATE,
+                                                   DROPOUT_SEED).detach()
+    part = [x[:, 8:].contiguous() for x in (q, k, v)] + [pos[8:].contiguous(),
+                                                         gate[:, 8:].contiguous()]
+    results = []
+    for fn in (k1.flash_attention_gated_bias_trainable, k1.flash_attention_gated_bias_reference):
+        leaves = [x.clone().requires_grad_() for x in part]
+        o = fn(*leaves, DROPOUT_RATE, DROPOUT_SEED, head_offset=8)
+        o.backward(do[:, 8:])
+        results.append([o.detach()] + [x.grad for x in leaves])
+    rel = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(*results)]
+    print(f"head offset 8 of 16 (f32, rate {DROPOUT_RATE}): K1 training + K2 against the plain "
+          f"version at the offset, o and five gradients: "
+          + ", ".join(f"{e:.2e}" for e in rel) + " of max magnitude; K1 output equal to the "
+          f"16-head launch's heads 8-15: {torch.equal(results[0][0], full[:, 8:])}")
+    check(max(rel) <= 1e-4, "K1/K2 at a head offset disagree with the plain version")
+    check(torch.equal(results[0][0], full[:, 8:]),
+          "K1 at head offset 8 is not the slice of the 16-head launch")
+
+
+def phase_tensor_parallel(card: str) -> dict:
+    """WavLM-Large + Conformer 4 x 256 at full width (seeded) on 8 x 8 s:
+    the one-process float32 scores and train step (dropout and layer drop
+    on) in this process, then two rank processes on cuda:0 in a (1, 2) mesh
+    under gloo (NCCL refuses two ranks on one card), started with a timeout
+    of their own: their float32 scores within 1e-4 of the largest
+    magnitude, the step's loss within 1e-5 relative and gradient norm within
+    1e-3, every gathered gradient within 1e-3 of its leaf's largest
+    magnitude (a leaf of NULL_GRADIENT, whose gradient is rounding noise,
+    within 1e-3 of the largest gradient), and two bf16 steps with K1's
+    training instance and K2 launched once per computed attention layer on
+    each rank at H 8 and the model group's all-reduces counted. K1's
+    training instance and K2 are timed at the ranks' H 8 and the whole
+    layer's H 16 (B 8), and checked at a head offset."""
+    t_phase = time.perf_counter()
+    cfg = tensor_parallel_config()
+    sd = random_state_dict(EendModel(cfg), seed=66)
+    rng = np.random.default_rng(67)
+    batch = {"xs": (0.1 * rng.standard_normal((TP_BATCH, 1, 128000))).astype(np.float32),
+             "target": (rng.uniform(size=(TP_BATCH, cfg.num_frames(128000), 4)) > 0.7
+                        ).astype(np.uint8)}
+    with strict_float32():
+        model = EendModel(cfg)
+        model.load_state_dict(sd)
+        model.cuda()
+        with torch.no_grad():
+            ref_scores = model(torch.from_numpy(batch["xs"]).cuda(), torch.float32).cpu()
+        recorder = GradRecorder(model)
+        ref = train_step(TrainState(model=model, optimizer=recorder), batch, seed=TP_SEED,
+                         compute_dtype=torch.float32)
+        ref_grads = {n: g.cpu() for n, g in recorder.recorded.items()}
+        del model, recorder
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        head_offset_check(gen)
+    rows = {h: trainable_rows(TP_BATCH, h, gen) for h in (8, 16)}
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"cfg": cfg, "sd": sd, "batch": batch}, Path(work) / "inputs.pt")
+        del sd
+        port = free_local_port()
+        code = ("import sys, chip_smoke; sys.exit(chip_smoke.tensor_parallel_rank("
+                "int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]))")
+        t_ranks = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code, str(rank), str(port), work],
+                                  cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+        try:
+            errors = [proc.communicate(timeout=TP_TIMEOUT)[1] for proc in procs]
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+        for rank, (proc, err) in enumerate(zip(procs, errors)):
+            check(proc.returncode == 0,
+                  f"tensor-parallel rank {rank} failed ({proc.returncode}):\n{err[-6000:]}")
+        ranks = [torch.load(Path(work) / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+        ranks_s = time.perf_counter() - t_ranks
+
+    scale = ref_scores.abs().max().item()
+    largest = max(g.abs().max().item() for g in ref_grads.values())
+    worst = (0.0, "")
+    for name, want in ref_grads.items():
+        got = ranks[0]["grads"][name]
+        check(got.shape == want.shape, f"gathered gradient {name}: {tuple(got.shape)}")
+        err = (got - want).abs().max().item()
+        bar = 1e-3 * (largest if name.endswith(NULL_GRADIENT) else want.abs().max().item())
+        check(np.isfinite(err) and err <= bar,
+              f"TP gradient of {name} disagrees with one process: {err} > {bar}")
+        if not name.endswith(NULL_GRADIENT):
+            worst = max(worst, (err / max(want.abs().max().item(), 1e-30), name))
+    heads = [cfg.wavlm.total_num_heads[0] // 2] * 2
+    for rank, res in enumerate(ranks):
+        f32 = res["f32"]
+        score_err = (res["scores"] - ref_scores).abs().max().item()
+        print(f"tensor parallel {card} rank {rank} at {res['place']} (H {heads[rank]}): f32 "
+              f"scores max abs err {score_err:.3e} of {scale:.3f}; f32 step loss "
+              f"{f32['loss']:.7f} vs {ref['loss']:.7f}, grad norm {f32['grad_norm']:.6f} vs "
+              f"{ref['grad_norm']:.6f}; K1 {res['k1_forward']} launches in the forward, K1 "
+              f"training {f32['k1_train']} and K2 {f32['k2']} in the step of "
+              f"{f32['attention_layers']} attention layers; {f32['reduces']} model-group "
+              f"all-reduces")
+        check(score_err <= 1e-4 * scale, f"rank {rank}: TP f32 scores disagree: {score_err}")
+        check(abs(f32["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]),
+              f"rank {rank}: TP f32 loss {f32['loss']} vs {ref['loss']}")
+        check(abs(f32["grad_norm"] - ref["grad_norm"]) <= 1e-3 * ref["grad_norm"],
+              f"rank {rank}: TP f32 gradient norm {f32['grad_norm']} vs {ref['grad_norm']}")
+        check(res["k1_forward"] == cfg.wavlm.num_layers and f32["attention_layers"]
+              == ref["attention_layers"] == f32["k1_train"] == f32["k2"] > 0,
+              f"rank {rank}: K1/K2 launches {res['k1_forward']}, {f32}")
+        for i, step in enumerate(res["bf16"]):
+            print(f"  bf16 step {i} {card} rank {rank}: loss {step['loss']:.5f}, grad norm "
+                  f"{step['grad_norm']:.4f}, {step['ms']:.1f} ms (collectives staged through "
+                  f"the host), K1 training {step['k1_train']}, K2 {step['k2']} of "
+                  f"{step['attention_layers']} attention layers, {step['reduces']} model-group "
+                  f"all-reduces, peak {step['peak_gib']:.2f} GiB")
+            check(np.isfinite(step["loss"]) and not step["skipped"]
+                  and step["k1_train"] == step["k2"] == step["attention_layers"] > 0
+                  and step["reduces"] > 0, f"rank {rank}: bf16 step {i}: {step}")
+            check(step["loss"] == ranks[0]["bf16"][i]["loss"],
+                  f"bf16 step {i}: the ranks' losses differ")
+    print(f"tensor parallel {card}: gathered gradients, worst {worst[0]:.3e} of the leaf's "
+          f"largest magnitude in {worst[1]}; ranks {ranks_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    per_rank = {"heads": heads[0], "b": TP_BATCH, "t": FRAMES}
+    return {
+        "k1": {**per_rank, "launches_per_forward_per_rank": ranks[0]["k1_forward"]},
+        "k1_train": {**per_rank, "launches_per_step_per_rank": [
+            s["k1_train"] for s in ranks[0]["bf16"]], "h8": rows[8][0], "h16": rows[16][0]},
+        "k2": {**per_rank, "launches_per_step_per_rank": [s["k2"] for s in ranks[0]["bf16"]],
+               "h8": rows[8][1], "h16": rows[16][1]},
+        "reduces_per_step": [s["reduces"] for s in ranks[0]["bf16"]],
+    }
+
+
 class StageTimer:
     """Pipeline hook: seconds since the previous stage ended (the per-batch
     progress calls are passed over)."""
@@ -3191,6 +3480,8 @@ def run_phases(flac_jobs) -> int:
     phase_schedules(card)
     data_parallel = phase_data_parallel(card, eend_sd, resnet_sd, eend_cfg, wave)
     elapsed("HF import, schedules and data parallelism")
+    tensor_parallel = phase_tensor_parallel(card)
+    elapsed("tensor parallelism")
 
     kernel["launches"] = launches
     kernel["whole_t1499"]["launches"] = evaluation_launches["whole"]
@@ -3221,6 +3512,10 @@ def run_phases(flac_jobs) -> int:
     kernel["hf_import_launches_per_forward"] = hf_launches
     trainable[0]["data_parallel_launches_per_step"] = data_parallel["k1_train"]
     trainable[1]["data_parallel_launches_per_step"] = data_parallel["k2"]
+    # WavLM-Large on a (1, 2) model axis: each rank's 8 heads of 16, B 8
+    kernel["tensor_parallel"] = tensor_parallel["k1"]
+    trainable[0]["tensor_parallel"] = tensor_parallel["k1_train"]
+    trainable[1]["tensor_parallel"] = tensor_parallel["k2"]
     print(json.dumps({"kernels": [kernel, *trainable, *fused_ln, conv_chain]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

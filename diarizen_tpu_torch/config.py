@@ -103,6 +103,8 @@ REFERENCE_PATH_ALIASES = {
        for name in ("initialize_distributed", "is_main_process", "gather_to_host",
                     "broadcast_from_host", "process_window_shard", "reassemble_window_shards",
                     "gather_window_shards")},
+    **{f"diarizen_tpu.parallel.mesh.{name}": f"diarizen_tpu_torch.parallel.mesh.{name}"
+       for name in ("make_mesh", "eend_param_shardings")},
     "diarizen_tpu.models.convert.wavlm_config_from_hf":
         "diarizen_tpu_torch.models.convert.wavlm_config_from_hf",
 }
@@ -116,10 +118,9 @@ def resolve(path: str) -> Any:
     path = REFERENCE_PATH_ALIASES.get(path, path)
     if path.split(".")[0] == "diarizen_tpu":
         raise NotImplementedError(
-            f"{path!r} has no counterpart in diarizen_tpu_torch: of the JAX package, the "
-            "port lacks only parallel/mesh.py (make_mesh and the tensor-parallel `model` "
-            "axis, eend_param_shardings); every model family, the trainer, dataset, "
-            "optimizers and schedules, data parallelism and utils.py are ported")
+            f"{path!r} has no alias in diarizen_tpu_torch: every module of the JAX package "
+            "has its counterpart in the port (diarizen_tpu_torch, same module paths), but "
+            "only the factories and functions a config names are aliased")
     module_name, _, attr = path.rpartition(".")
     module = importlib.import_module(module_name)
     return getattr(module, attr)

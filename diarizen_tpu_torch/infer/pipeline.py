@@ -21,7 +21,10 @@ next file's device work is enqueued before this file's host stages run.
 In a process group (`parallel/distributed.py`; of one process too) every
 process segments the whole file, embeds a strided shard of its windows,
 gathers the embeddings, and keeps process 0's clusters; the host route is
-taken.
+taken. With a mesh (`DiarizationPipeline(mesh=)`, `SlidingInference(mesh=)`,
+`parallel/mesh.py`) both stages shard their windows over the mesh's data
+axis, parameters replicated: the model ranks of one data index compute the
+same shard.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import gc
 import math
 from dataclasses import dataclass, field
 from itertools import repeat
-from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
+from typing import Any, Callable, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -270,6 +273,9 @@ class DiarizationPipeline:
     # file's whole device chain is enqueued with no host wait and fetched
     # once. Bit-identical to the host stages (tests/test_torch_stream.py).
     fused_stitch: bool = True
+    # a `parallel/mesh.py` mesh: the embedding windows shard over its data
+    # axis (over the whole process group without one)
+    mesh: Optional[Any] = None
     _fused: Optional[FusedStitch] = field(default=None, init=False, repr=False)
     # centroids of the most recent file finished, aligned to its labels()
     # order (read by return_embeddings; per file in stream mode it is racy:
@@ -540,7 +546,9 @@ class DiarizationPipeline:
         wave, starts = prepared
         weights = np.transpose(weights, (0, 2, 1))
         # each process embeds a strided shard of the windows and the shards
-        # are gathered back on every process (the whole file without a group)
-        shard = process_window_shard(num_chunks)
+        # are gathered back on every process (the whole file without a
+        # group): over the data axis of a mesh, over the world without one
+        group = None if self.mesh is None else self.mesh.data_group
+        shard = process_window_shard(num_chunks, group=group)
         local = self.emb_inference(wave, starts[:num_chunks][shard], weights[shard], hook=hook)
-        return gather_window_shards(local, num_chunks)
+        return gather_window_shards(local, num_chunks, group)

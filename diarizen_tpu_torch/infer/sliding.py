@@ -9,6 +9,12 @@ window, hard (uint8 on the device, the diarization path, stitched later by
 (float32 probabilities, `soft=True`). `whole` runs one forward over a whole
 file; `aggregated` overlap-adds the soft windows into one frame sequence for
 the frame-level pipelines (VAD, OSD, multi-label).
+
+With `mesh=` (`parallel/mesh.py`) the windows of a file are sharded over the
+mesh's data axis, parameters replicated, as the JAX package's
+`SlidingInference(mesh=)` shards each window batch: data rank p runs windows
+p, p + n_data, ..., the model ranks of one data index the same ones, and
+the shards are gathered back in window order on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from diarizen_tpu_torch.models.sincnet_eend import (
 )
 from diarizen_tpu_torch.ops.aggregate import aggregate
 from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
+from diarizen_tpu_torch.parallel.distributed import gather_window_shards, process_window_shard
 from diarizen_tpu_torch.utils import halve_batch_or_raise, resolve_device, to_device_async
 
 
@@ -79,9 +86,11 @@ class SlidingInference:
         batch_size: int = 32,
         compute_dtype: torch.dtype = torch.bfloat16,
         device: Optional[Union[str, torch.device]] = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
         self.cfg = cfg = model.cfg
         self.duration = duration if duration is not None else cfg.chunk_size
         self.step = step if step is not None else 0.1 * self.duration
@@ -124,7 +133,21 @@ class SlidingInference:
         (None for no chunks): hard as uint8, or with `soft` the float32
         probabilities exp(scores) @ mapping. Fetch it with `collect`;
         splitting the two lets a caller overlap this file's device work with
-        another file's host stages (`DiarizationPipeline.stream`)."""
+        another file's host stages (`DiarizationPipeline.stream`). On a
+        mesh this rank's data-axis shard of the windows runs, and the
+        gather waits for the device."""
+        if self.mesh is None or self.mesh.device_mesh is None or len(starts) == 0:
+            return self._dispatch(wave, starts, hook, soft)
+        group = self.mesh.data_group
+        shard = process_window_shard(len(starts), group=group)
+        local = self._dispatch(wave, np.asarray(starts)[shard], hook, soft)
+        local = (np.zeros((0, self._frames_per_chunk, self.powerset.num_classes),
+                          np.float32 if soft else np.uint8)
+                 if local is None else local.cpu().numpy())
+        return torch.from_numpy(gather_window_shards(local, len(starts), group)).to(self.device)
+
+    def _dispatch(self, wave: torch.Tensor, starts: np.ndarray, hook: Optional[Callable],
+                  soft: bool) -> Optional[torch.Tensor]:
         total = len(starts)
         if total == 0:
             return None

@@ -8,7 +8,7 @@ statistics and softmax are float32, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -110,12 +110,15 @@ class TrainRandom:
     `device` draws the dropout masks on the activations' device. Both come
     from one host generator, so a seeded run repeats. In a process group
     every process draws the same from `host`, so layer drop skips the same
-    layers everywhere, but the seeds are offset by the process index: each
-    process draws its own dropout masks for its own rows of the batch."""
+    layers everywhere, but the seeds are offset by the data index on the
+    `mesh` a split model trains on (the process index without one): each
+    data rank draws its own dropout masks for its own rows of the batch,
+    and the model ranks of one data index, which hold the same rows, draw
+    alike."""
 
-    def __init__(self, generator: torch.Generator, device: torch.device):
+    def __init__(self, generator: torch.Generator, device: torch.device, mesh=None):
         self.host = generator
-        self.offset = process_index() * 0x9E3779B1
+        self.offset = (process_index() if mesh is None else mesh.data_index) * 0x9E3779B1
         self.device = torch.Generator(device=device)
         self.device.manual_seed(self.seed())
 
@@ -128,15 +131,21 @@ class TrainRandom:
         return float(torch.rand((1,), generator=self.host))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+            columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout, as the JAX package's: kept values divided by
     1 - rate in x's type. No-op without a generator or at rate 0; the mask
-    comes from `generator`, which must live on x's device."""
+    comes from `generator`, which must live on x's device. `columns` =
+    (full width, offset): x holds the columns [offset, offset + width) of a
+    wider activation (a model rank's slice), and the mask is drawn at the
+    full width and sliced, so the generator advances as for the whole."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    shape = x.shape if columns is None else x.shape[:-1] + (columns[0],)
+    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
+    if columns is not None:
+        mask = mask[..., columns[1]: columns[1] + x.shape[-1]]
     return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

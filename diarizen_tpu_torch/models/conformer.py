@@ -108,6 +108,7 @@ class _ConvModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(d, d, kernel_size, groups=d)
         self.bn_norm = nn.BatchNorm1d(d)
         self.pointwise_conv2 = nn.Conv1d(d, d, 1)
+        self.mesh = None  # the mesh a split model trains on (`parallel.mesh.shard_model_`)
 
     @staticmethod
     def _conv(conv: nn.Conv1d, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -130,14 +131,15 @@ class _ConvModule(nn.Module):
         mode (which also move the running ones), running ones otherwise. In
         a process group the batch statistics are those of the global batch,
         as the JAX package's batch sharded over the mesh has them: the sums
-        are all-reduced (differentiably, so their gradients reach every
-        process's inputs), and every process holds a batch of the same
-        size."""
+        are all-reduced over the data axis of `mesh` (the world without one;
+        differentiably, so their gradients reach every process's inputs),
+        and every process holds a batch of the same size."""
         bn, hf = self.bn_norm, h.float()
         if train:
-            n = hf.shape[0] * hf.shape[2] * process_count()
-            mean = all_reduce_sum(hf.sum(dim=(0, 2))) / n
-            var = all_reduce_sum(((hf - mean[:, None]) ** 2).sum(dim=(0, 2))) / n
+            group = None if self.mesh is None else self.mesh.data_group
+            n = hf.shape[0] * hf.shape[2] * process_count(group)
+            mean = all_reduce_sum(hf.sum(dim=(0, 2)), group) / n
+            var = all_reduce_sum(((hf - mean[:, None]) ** 2).sum(dim=(0, 2)), group) / n
             with torch.no_grad():
                 m = BN_MOMENTUM
                 bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)

@@ -82,7 +82,8 @@ class EendModel(nn.Module):
         drop and the attention-dropout seeds."""
         if waveforms.dim() == 3:
             waveforms = waveforms[:, self.cfg.selected_channel]
-        rng = TrainRandom(generator, waveforms.device) if (train and generator is not None) else None
+        rng = (TrainRandom(generator, waveforms.device, self.wavlm_model.mesh)
+               if (train and generator is not None) else None)
         feat = self.wavlm_model(waveforms, self.weight_sum.weight.reshape(-1), compute_dtype,
                                 train=train, rng=rng)
         x = layer_norm(self.lnorm, linear(self.proj, feat.to(compute_dtype)))

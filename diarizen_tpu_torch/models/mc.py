@@ -140,6 +140,10 @@ def wavlm_hidden_states_mc(
     The first len(fusions) hidden states are channel means of the fused
     states, the rest single-stream."""
     cfg = wavlm.cfg
+    if wavlm.mesh is not None:
+        raise NotImplementedError(
+            "wavlm_hidden_states_mc on a model axis: the multi-channel family runs data "
+            "parallel only")
     b, c, n = waveforms.shape
     if cfg.num_frames(n) < 1:
         raise ValueError(f"input of {n} samples is shorter than the conv receptive field")

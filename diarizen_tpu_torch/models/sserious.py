@@ -115,7 +115,8 @@ class SSeRiouSSModel(nn.Module):
         trunk's dropout and the dropout between the LSTM layers."""
         if waveforms.dim() == 3:
             waveforms = waveforms[:, self.cfg.selected_channel]
-        rng = TrainRandom(generator, waveforms.device) if (train and generator is not None) else None
+        rng = (TrainRandom(generator, waveforms.device, self.wav2vec.mesh)
+               if (train and generator is not None) else None)
         x = self.features(waveforms, compute_dtype, train, rng).to(compute_dtype)
         x = run_lstm(self.lstm, x, self.cfg.lstm_dropout, None if rng is None else rng.device)
         for layer in self.linear:

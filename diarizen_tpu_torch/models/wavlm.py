@@ -23,6 +23,17 @@ feed-forward output; with gates the fused-LN and conv-chain routes are off.
 `hidden_states` returns the num_layers + 1 hidden states that the distill
 loss reads, where `forward` returns their weighted sum.
 
+On a mesh's model axis (`parallel/mesh.py`, `shard_model_` sets `mesh`) each
+rank holds whole heads of every layer's remaining heads and a block of its
+FF width. The layer input enters each sublayer through `copy_to_group`
+(its gradient summed over the model group), the rank's heads run through
+K1 (or K1's training instance with the dropout mask of its heads, and K2),
+the rank's columns of out-proj and FF-out give partial sums that
+`reduce_from_group` adds, and the replicated bias follows once. The GRU
+gate reads every head of the full input, so every rank computes it and
+keeps its heads' gates. A rank without heads in a layer launches no K1
+there and adds zeros.
+
 Train mode follows the JAX package's `wavlm_extract_features(train=True)`:
 GradMultiply 0.1 on the extractor output; dropout after the projection,
 after the pos-conv (and its LayerNorm), on the attention output and in the
@@ -65,6 +76,8 @@ from diarizen_tpu_torch.ops.flash_attention import (
     flash_attention_gated_bias_trainable,
 )
 from diarizen_tpu_torch.ops.fused_ln import residual_ln, residual_ln_acc
+from diarizen_tpu_torch.parallel.distributed import copy_to_group, reduce_from_group
+from diarizen_tpu_torch.parallel.mesh import Mesh
 from diarizen_tpu_torch.utils import device_constant
 
 FEATURE_GRAD_MULT = 0.1  # GradMultiply on the extractor output in train mode
@@ -477,6 +490,7 @@ class WavLM(nn.Module):
         self.feature_extractor = _FeatureExtractor(cfg)
         self.encoder = _Encoder(cfg)
         self.layers_run: List[int] = []  # the layers the last forward computed
+        self.mesh: Optional[Mesh] = None  # the mesh its layers are split over
         self._chain_cache: dict = {}  # (type, device) -> (parameter stamp, K5's weights)
 
     def forward(self, waveforms: torch.Tensor, layer_weights: torch.Tensor,
@@ -664,13 +678,13 @@ class WavLM(nn.Module):
         if pre_ln:
             if layer.feed_forward is not None:
                 x = x + self._feed_forward(
-                    layer.feed_forward, layer_norm(layer.final_layer_norm, x), gen, gate)
+                    i, layer.feed_forward, layer_norm(layer.final_layer_norm, x), gen, gate)
             return x, None
         # post-LN: both norms apply even where a sublayer was pruned away
         if not (has_attn and fused):
             x = layer_norm(layer.layer_norm, x)
         if layer.feed_forward is not None:
-            ff_out = self._feed_forward(layer.feed_forward, x, gen, gate)
+            ff_out = self._feed_forward(i, layer.feed_forward, x, gen, gate)
             if fused:
                 norm = layer.final_layer_norm
                 if ws_acc is not None:
@@ -684,56 +698,89 @@ class WavLM(nn.Module):
                         rng: Optional[TrainRandom] = None,
                         hc_gate: Optional[dict] = None) -> torch.Tensor:
         """Gated relative-position self-attention over the layer's remaining
-        heads. The GRU gate reads the raw input of ALL total_num_heads heads;
-        the remaining heads are selected after it. `hc_gate`: the layer's
-        HardConcrete masks, "heads" on the kernel's output, "attn_layer"
-        after `out_proj`."""
+        heads (this rank's share of them on a model axis). The GRU gate
+        reads the raw input of ALL total_num_heads heads; the remaining
+        heads are selected after it. `hc_gate`: the layer's HardConcrete
+        masks, "heads" on the kernel's output, "attn_layer" after
+        `out_proj`."""
         cfg = self.cfg
         b, t, _ = x.shape
         total_heads = cfg.total_num_heads[i]
         remaining = list(cfg.remaining_heads[i])
-        nh, hd = len(remaining), cfg.head_dim
+        h0, nh = (0, len(remaining)) if self.mesh is None else self.mesh.split(len(remaining))
+        heads = remaining[h0:h0 + nh]  # this rank's heads
+        hd = cfg.head_dim
+        if self.mesh is not None:
+            x = copy_to_group(x, self.mesh.model_group)
 
         weight = torch.cat([attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight])
         bias = torch.cat([attn.q_proj.bias, attn.k_proj.bias, attn.v_proj.bias])
         qkv = F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
-        q, k, v = (z.reshape(b, t, nh, hd).transpose(1, 2).contiguous()
-                   for z in qkv.split(nh * hd, dim=-1))
+        w = nh * hd
+        q, k, v = (qkv[..., j * w:(j + 1) * w].reshape(b, t, nh, hd).transpose(1, 2).contiguous()
+                   for j in range(3))
 
         gru = linear(attn.gru_rel_pos_linear, x.reshape(b, t, total_heads, hd))
         gates = torch.sigmoid(gru.float().reshape(b, t, total_heads, 2, 4).sum(-1))
         const = attn.gru_rel_pos_const.float().reshape(1, 1, total_heads)
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Ht)
-        gate = gate.transpose(1, 2)[:, remaining].contiguous()  # (B, nh, T)
+        gate = gate.transpose(1, 2)[:, heads].contiguous()  # (B, nh, T)
 
-        if remaining and remaining == list(range(remaining[0], remaining[0] + nh)):
-            pos = position_bias[remaining[0]:remaining[0] + nh]  # a view, no copy
+        if heads and heads == list(range(heads[0], heads[0] + nh)):
+            pos = position_bias[heads[0]:heads[0] + nh]  # a view, no copy
         else:
-            pos = position_bias[remaining]
+            pos = position_bias[heads]
         pos = pos[..., :t]  # (nh, T, T), rows of the padded stride
-        if train:
+        # the layer's seed is drawn on every rank, one without heads too:
+        # the host generator then stays in step across the model axis
+        rate = cfg.attention_dropout if (train and rng is not None) else 0.0
+        seed = rng.seed() if rate > 0.0 else 0
+        if nh == 0:  # no head here: no launch, zeros through out_proj
+            out = q
+        elif train:
             # the bias gradient flows into layer 0's table from every layer
-            rate = cfg.attention_dropout if rng is not None else 0.0
-            seed = rng.seed() if rate > 0.0 else 0
-            out = flash_attention_gated_bias_trainable(q, k, v, pos, gate, rate, seed)
+            out = flash_attention_gated_bias_trainable(q, k, v, pos, gate, rate, seed,
+                                                       head_offset=h0)
         else:
             out = flash_attention_gated_bias(q, k, v, pos.to(q.dtype), gate)
         hc_gate = hc_gate or {}
         if hc_gate.get("heads") is not None:
-            out = out * hc_gate["heads"].to(out.dtype)[None, :, None, None]
-        out = linear(attn.out_proj, out.transpose(1, 2).reshape(b, t, nh * hd))
+            out = out * hc_gate["heads"][h0:h0 + nh].to(out.dtype)[None, :, None, None]
+        out = out.transpose(1, 2).reshape(b, t, nh * hd)
+        if self.mesh is None:
+            out = linear(attn.out_proj, out)
+        else:  # the ranks' partial products summed, then the bias once
+            out = reduce_from_group(F.linear(out, attn.out_proj.weight.to(out.dtype)),
+                                    self.mesh.model_group)
+            out = out + attn.out_proj.bias.to(out.dtype)
         if hc_gate.get("attn_layer") is not None:
             out = out * hc_gate["attn_layer"].to(out.dtype)
         return out
 
-    def _feed_forward(self, ff: _FeedForward, x: torch.Tensor,
+    def _feed_forward(self, i: int, ff: _FeedForward, x: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       gate: Optional[dict] = None) -> torch.Tensor:
+        """Layer i's feed-forward (this rank's block of its width on a model
+        axis, whose interm dropout mask is the block of the full-width one)."""
         gate = gate or {}
-        h = dropout(gelu(linear(ff.intermediate_dense, x)), self.cfg.ff_interm_dropout, generator)
+        width = self.cfg.ff_interm_features[i]
+        if self.mesh is None:
+            f0, columns = 0, None
+        else:
+            x = copy_to_group(x, self.mesh.model_group)
+            f0 = self.mesh.split(width)[0]
+            columns = (width, f0)
+        h = dropout(gelu(linear(ff.intermediate_dense, x)), self.cfg.ff_interm_dropout,
+                    generator, columns)
         if gate.get("ff_interm") is not None:
-            h = h * gate["ff_interm"].to(h.dtype)
-        y = dropout(linear(ff.output_dense, h), self.cfg.dropout, generator)
+            h = h * gate["ff_interm"][f0:f0 + h.shape[-1]].to(h.dtype)
+        if self.mesh is None:
+            y = linear(ff.output_dense, h)
+        else:
+            y = reduce_from_group(F.linear(h, ff.output_dense.weight.to(h.dtype)),
+                                  self.mesh.model_group)
+            y = y + ff.output_dense.bias.to(y.dtype)
+        y = dropout(y, self.cfg.dropout, generator)
         if gate.get("ff_layer") is not None:
             y = y * gate["ff_layer"].to(y.dtype)
         return y

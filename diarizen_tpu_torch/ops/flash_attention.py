@@ -11,6 +11,12 @@ of (seed, batch index, head index, row, column), the JAX package's
 `_dropout_mask` (`diarizen_tpu/ops/flash_attention.py:165-198`) bit for bit,
 so the backward replays the forward's mask and both packages drop the same
 weights. The softmax normaliser is summed before the mask is applied.
+`head_offset` numbers the heads from an offset: a model rank that holds
+heads o .. o + H - 1 of a layer (`parallel/mesh.py`) draws the slice of the
+whole layer's mask. The hash is linear in (seed, b, h) before its first
+scramble, s0 = seed + b * 0x9E3779B1 + h * 0x85EBCA77 (mod 2^32), so the
+kernels take the offset as the seed shifted by o * 0x85EBCA77 (`head_seed`)
+and their source knows nothing of it.
 
 K1 replaces the Pallas TPU kernel `diarizen_tpu/ops/flash_attention.py:_kernel`
 and K2 its backward `_bwd_kernel`, with the hand-written CUDA kernels of
@@ -119,15 +125,22 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _U32
 
 
+def head_seed(seed: int, head_offset: int) -> int:
+    """The seed whose hash at head h is the hash of `seed` at head
+    h + head_offset."""
+    return (int(seed) + int(head_offset) * 0x85EBCA77) & _U32
+
+
 def dropout_mask(seed: int, batch: int, heads: int, rows: int, cols: int, rate: float,
-                 device=None) -> torch.Tensor:
+                 device=None, head_offset: int = 0) -> torch.Tensor:
     """Float32 (batch, heads, rows, cols) keep mask in {0, 1 / (1 - rate)} of
-    the attention-dropout hash; uint32 arithmetic held in int64 and masked
-    after every add, multiply and left shift."""
+    the attention-dropout hash at heads head_offset .. head_offset + heads -
+    1; uint32 arithmetic held in int64 and masked after every add, multiply
+    and left shift."""
     threshold, keep = dropout_constants(rate)
     dev = torch.device("cpu") if device is None else torch.device(device)
     b = torch.arange(batch, device=dev).view(-1, 1, 1, 1)
-    h = torch.arange(heads, device=dev).view(1, -1, 1, 1)
+    h = torch.arange(head_offset, head_offset + heads, device=dev).view(1, -1, 1, 1)
     s0 = (int(seed) & _U32) + _mul32(b, 0x9E3779B1) + _mul32(h, 0x85EBCA77)
     s0 = s0 & _U32
     s0 = s0 ^ (s0 >> 16)
@@ -164,12 +177,13 @@ def flash_attention_gated_bias_reference(
     gate: torch.Tensor,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version, differentiable: the math of the JAX package's
     `xla_attention_gated_bias` (f32 logits and softmax, the bias rounded to
     q's type as the kernels read it, weights cast to q's type for the
-    product with v), with the hashed dropout mask applied to the normalised
-    weights."""
+    product with v), with the hashed dropout mask of heads from
+    `head_offset` applied to the normalised weights."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     logits = logits + gate.float()[..., None] * pos_bias.to(q.dtype).float()[None]
@@ -177,7 +191,7 @@ def flash_attention_gated_bias_reference(
     w = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0:
         b, h, t, _ = q.shape
-        w = w * dropout_mask(_need_seed(seed), b, h, t, t, dropout_rate, q.device)
+        w = w * dropout_mask(_need_seed(seed), b, h, t, t, dropout_rate, q.device, head_offset)
     return torch.matmul(w.to(q.dtype), v).to(q.dtype)
 
 
@@ -407,8 +421,10 @@ def flash_attention_gated_bias(
     gate: torch.Tensor,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
-    """(B, H, T, D) attention output in q's type, not differentiable.
+    """(B, H, T, D) attention output in q's type, not differentiable
+    (`head_offset` as in the plain version).
 
     CUDA tensors go to K1 (the inference instance at rate 0, the training
     instance otherwise), which takes q, k, v and pos_bias in one type
@@ -422,9 +438,11 @@ def flash_attention_gated_bias(
     if dropout_rate > 0.0:
         seed = _need_seed(seed)
     if q.device.type == "cpu":
-        return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed)
+        return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed,
+                                                    head_offset)
     if dropout_rate > 0.0:
-        return _forward_train(q, k, v, pos_bias, gate, dropout_rate, seed)[0]
+        return _forward_train(q, k, v, pos_bias, gate, dropout_rate,
+                              head_seed(seed, head_offset))[0]
     pos_bias = padded_bias(pos_bias, q.dtype)
     _check_cuda(q, k, v, pos_bias, gate)
     b, h, t, d = q.shape
@@ -472,14 +490,18 @@ def flash_attention_gated_bias_trainable(
     gate: torch.Tensor,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Differentiable gated-bias attention with in-kernel attention dropout
-    (deterministic from the int `seed`); gradients flow to q, k, v, pos_bias
-    and gate. CUDA tensors go to K1 and K2 (as `flash_attention_gated_bias`
-    takes them, except that pos_bias may have any floating type); CPU
-    tensors to autograd through the plain version."""
+    (deterministic from the int `seed`, the mask of heads from
+    `head_offset`); gradients flow to q, k, v, pos_bias and gate. CUDA
+    tensors go to K1 and K2 (as `flash_attention_gated_bias` takes them,
+    except that pos_bias may have any floating type); CPU tensors to
+    autograd through the plain version."""
     _check(q, k, v, pos_bias, gate)
     seed = _need_seed(seed) if dropout_rate > 0.0 else 0
     if q.device.type == "cpu":
-        return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed)
-    return _TrainableAttention.apply(q, k, v, pos_bias, gate, float(dropout_rate), seed)
+        return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed,
+                                                    head_offset)
+    return _TrainableAttention.apply(q, k, v, pos_bias, gate, float(dropout_rate),
+                                     head_seed(seed, head_offset))

@@ -82,11 +82,14 @@ def from_pretrained(
     device: Optional[Union[str, torch.device]] = None,
     inference_overrides: Optional[dict] = None,
     clustering_overrides: Optional[dict] = None,
+    mesh=None,
 ) -> DiarizationPipeline:
     """Build the full diarization pipeline from a local pretrained directory
     or a hub repo id, on the CUDA device unless `device` says otherwise. The
     override dicts layer on top of the directory's `[inference.args]` and
-    `[clustering.args]` sections (None values are ignored)."""
+    `[clustering.args]` sections (None values are ignored). With `mesh`
+    (`parallel/mesh.py`) both models shard their windows over its data
+    axis, parameters replicated."""
     device = resolve_device(device)
     model_dir = resolve_model_dir(model_dir)
     config = load_toml(model_dir / "config.toml")
@@ -120,7 +123,7 @@ def from_pretrained(
     seg_inf = SlidingInference(
         model, duration=seg_duration,
         step=inference_args.get("segmentation_step", 0.1) * seg_duration,
-        batch_size=batch_size, device=device,
+        batch_size=batch_size, device=device, mesh=mesh,
     )
 
     emb_inf = EmbeddingInference(
@@ -152,6 +155,7 @@ def from_pretrained(
         min_speakers=cl.get("min_speakers", 1),
         max_speakers=cl.get("max_speakers", 8),
         apply_median_filtering=inference_args.get("apply_median_filtering", True),
+        mesh=mesh,
     )
     pipeline.rttm_out_dir = Path(rttm_out_dir) if rttm_out_dir else None
     return pipeline

@@ -186,6 +186,9 @@ def make_distill_prune_step(wavlm_cfg: WavLMConfig, dcfg: DistillConfig, teacher
     teacher.requires_grad_(False)
 
     def step(state: DistillPruneState, waveforms, seed: int = 0) -> Dict[str, float]:
+        if state.student.mesh is not None:
+            raise NotImplementedError(
+                "the distill-prune step on a model axis: it runs on one process")
         device = state.lambdas.device
         waves = torch.as_tensor(waveforms).to(device, torch.float32)
         targets = teacher_targets(teacher, waves, dcfg, compute_dtype)

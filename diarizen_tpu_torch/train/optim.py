@@ -38,6 +38,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from diarizen_tpu_torch.parallel.distributed import all_reduce_sum
+
 Schedule = Callable[[int], float]
 BETAS = (0.9, 0.999)  # optax.adamw's defaults, as the recipes use them
 EPS = 1e-8
@@ -128,10 +130,23 @@ class ReduceOnPlateau:
                 "cooldown_count": cooldown, "count": 0, "avg_value": 0.0}
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, as optax.global_norm."""
-    tensors = list(tensors)
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: Iterable[torch.Tensor],
+                params: Optional[Iterable[torch.Tensor]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as optax.global_norm.
+    With `params` (the tensors' parameters, in order), a tensor whose
+    parameter is split over a model axis (it carries the `model_group` that
+    `parallel.mesh.shard_model_` gives it) is this rank's slice: its squares
+    are summed over that group and the others counted once, the norm of the
+    whole."""
+    norms = torch.stack(torch._foreach_norm(list(tensors)))
+    params = list(params or ())
+    split = [p for p in params if hasattr(p, "model_group")]
+    if not split:
+        return torch.linalg.vector_norm(norms)
+    flags = torch.tensor([hasattr(p, "model_group") for p in params], device=norms.device)
+    squares = norms.float() ** 2
+    return torch.sqrt(squares[~flags].sum()
+                      + all_reduce_sum(squares[flags].sum(), split[0].model_group))
 
 
 class AutoClip:
@@ -198,10 +213,12 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None,
-             value: Optional[float] = None) -> None:
+             value: Optional[float] = None, norm: Optional[torch.Tensor] = None) -> None:
         """One update from `grads` (in the order of `self.params`; by
         default the parameters' .grad). `value` is the monitored value that
-        an optimizer with a plateau needs at every step."""
+        an optimizer with a plateau needs at every step; `norm` is the
+        global norm of `grads` where the caller has it (AutoClip's input),
+        computed here otherwise."""
         grads = self.grads() if grads is None else list(grads)
         plateau_scale = 1.0
         if self.plateau is not None:
@@ -213,7 +230,9 @@ class Optimizer:
         if self.clip is not None:
             if self.state["clip"] is None:
                 self.state["clip"] = self.clip.init(grads[0].device)
-            scale = self.clip.scale(global_norm(grads), self.state["clip"])
+            if norm is None:
+                norm = global_norm(grads, self.params.values())
+            scale = self.clip.scale(norm, self.state["clip"])
             by_name = dict(zip(by_name, torch._foreach_mul(grads, scale)))
         b1, b2 = self.betas
         for group, named in self.groups.items():
@@ -282,9 +301,11 @@ class GradientAccumulation:
 
     @torch.no_grad()
     def step(self, grads: Optional[List[torch.Tensor]] = None,
-             value: Optional[float] = None) -> None:
+             value: Optional[float] = None, norm: Optional[torch.Tensor] = None) -> None:
         """Fold `grads` into the mean; on the k-th call update with it, and
-        with that call's `value` (the plateau sees one value an update)."""
+        with that call's `value` (the plateau sees one value an update).
+        `norm`, that of this call's `grads`, is not the mean's: the update
+        clips by the mean's own norm."""
         grads = self.grads() if grads is None else list(grads)
         if self.acc is None:
             self.acc = [torch.zeros_like(g) for g in grads]

@@ -12,7 +12,12 @@ the step counter still advances. Reading the loss is the step's one host
 sync. In a process group each process's batch is its shard of the global
 batch (of the same size on every process): the gradients and the loss are
 averaged over the processes before the update (`parallel/distributed.py`),
-so every process takes the same step.
+so every process takes the same step. For a model split over a mesh's
+model axis (`parallel/mesh.py`, `shard_model_`) the model ranks of one data
+index hold the same rows:
+the sharded gradients average over the data axis, the replicated ones as
+`mesh.mean_gradients_` says, and the gradient norm counts each sharded
+parameter once.
 
 Both steps run the model through `segmentation_forward`, so `eval_step`
 evaluates a multi-channel model on all its channels (the JAX package's
@@ -34,7 +39,7 @@ from torch import nn
 from diarizen_tpu_torch.models.forward import segmentation_forward
 from diarizen_tpu_torch.models.mc import McEendModel
 from diarizen_tpu_torch.models.wavlm import WavLM
-from diarizen_tpu_torch.parallel.distributed import all_reduce_mean_
+from diarizen_tpu_torch.parallel.mesh import mean_gradients_
 from diarizen_tpu_torch.train.loss import der_metrics, segmentation_loss
 from diarizen_tpu_torch.train.optim import GradientAccumulation, Optimizer, global_norm
 from diarizen_tpu_torch.utils import resolve_device
@@ -116,13 +121,14 @@ def _step(state: TrainState, xs: torch.Tensor, target: torch.Tensor, seed: int,
     # data parallel: the global batch's mean gradient and mean loss on every
     # process (a no-op without a group); a non-finite loss anywhere makes
     # the mean non-finite everywhere, so every process skips the batch together
-    all_reduce_mean_(grads + [shared_loss])
+    names = list(state.optimizer.params)
+    mean_gradients_(model, names, grads, [shared_loss])
     loss_value = float(shared_loss)
     good = math.isfinite(loss_value)
     grad_norm = 0.0
     if good:
-        norm = global_norm(grads)
-        state.optimizer.step(grads)
+        norm = global_norm(grads, state.optimizer.params.values())
+        state.optimizer.step(grads, norm=norm)
         grad_norm = float(norm)
     else:
         with torch.no_grad():

@@ -15,11 +15,19 @@ multi-channel model); with `channel_sampler` (a callable returning an int) it
 is also given `num_channels=` a value drawn before each step, the random
 channel truncation of multi-channel training.
 
-Data parallel (the JAX trainer's `mesh=`): in a process group, each
-process trains on its stripe of the data (the DataLoader's `rank` /
-`world_size`), the train step averages gradients and loss over the
-processes, validation sums its totals over them, and only process 0 writes
-checkpoints, metrics and TensorBoard.
+Data parallel: in a process group, each process trains on its stripe of
+the data (the DataLoader's `rank` / `world_size`), the train step averages
+gradients and loss over the processes, validation sums its totals over
+them, and only process 0 writes checkpoints, metrics and TensorBoard.
+
+`mesh=` (the JAX trainer's; `parallel/mesh.py`): the caller stripes the
+data by the data axis (the DataLoader's `rank` = the mesh's data index,
+`world_size` = its n_data), the model is split over the model axis
+(`shard_model_`, before the optimizer's first step) and holds the mesh from
+then on, which the train step, validation's sum over the data axis and the
+checkpoints read. Checkpoints hold the full reference layout, model and
+optimizer state gathered from the model ranks, the same files as without a
+mesh; resuming under a mesh cuts each rank's slices from them.
 """
 
 from __future__ import annotations
@@ -34,6 +42,13 @@ import torch
 from torch import nn
 
 from diarizen_tpu_torch.parallel.distributed import all_reduce_sum, is_main_process
+from diarizen_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_state,
+    local_state,
+    model_mesh,
+    shard_model_,
+)
 from diarizen_tpu_torch.train.checkpoint import (
     append_metrics,
     latest_checkpoint,
@@ -66,8 +81,11 @@ class Trainer:
     def __init__(self, model: nn.Module, trainer_cfg: TrainerConfig, optimizer, device=None,
                  step_hook: Optional[Callable[[Dict], None]] = None,
                  train_step_fn: Callable = train_step,
-                 channel_sampler: Optional[Callable[[], int]] = None):
+                 channel_sampler: Optional[Callable[[], int]] = None,
+                 mesh: Optional[Mesh] = None):
         self.tc = trainer_cfg
+        if mesh is not None:  # from here on the model holds its mesh
+            shard_model_(model, mesh)
         self.step_hook = step_hook
         self.train_step_fn = train_step_fn
         self.channel_sampler = channel_sampler
@@ -108,11 +126,23 @@ class Trainer:
                 "best_epoch": self.best_epoch,
                 "epochs_without_improvement": self.epochs_without_improvement, **(extra or {})}
 
+    def _full(self, tree):
+        """A state tree in the full layout (gathered over the model axis:
+        every rank takes part)."""
+        mesh = model_mesh(self.model)
+        return tree if mesh is None else gather_state(tree, self.model, mesh)
+
+    def _local(self, tree):
+        mesh = model_mesh(self.model)
+        return tree if mesh is None else local_state(tree, self.model, mesh)
+
     def save(self, epoch: int, extra: Optional[Dict] = None) -> Optional[Path]:
+        state_dict = self._full(self.model.state_dict())
+        optimizer_state = self._full(self.state.optimizer.state_dict())
         if not self.main_process:
             return None
         return save_checkpoint(
-            self.ckpt_root, epoch, self.model.state_dict(), self.state.optimizer.state_dict(),
+            self.ckpt_root, epoch, state_dict, optimizer_state,
             meta=self._meta(extra), max_keep=self.tc.max_num_checkpoints,
             protect={self.best_epoch} if self.best_epoch >= 0 else None)
 
@@ -121,9 +151,9 @@ class Trainer:
         if ckpt is None:
             return False
         state_dict, optimizer_state, meta = load_checkpoint(ckpt)
-        self.model.load_state_dict(state_dict)
+        self.model.load_state_dict(self._local(state_dict))
         if optimizer_state is not None:
-            self.state.optimizer.load_state_dict(optimizer_state)
+            self.state.optimizer.load_state_dict(self._local(optimizer_state))
         self.state.step = int(meta.get("step", 0))
         self.start_epoch = meta["epoch"] + 1
         self.best_score = meta.get("best_score", float("inf"))
@@ -169,8 +199,10 @@ class Trainer:
             acc = m if acc is None else {k: acc[k] + m[k] for k in VAL_KEYS}
         if acc is None:
             raise ValueError("the validation loader yielded no batch")
-        # summed over the processes: every metric is a ratio of these sums
-        totals = all_reduce_sum(torch.stack([acc[k] for k in VAL_KEYS])).tolist()  # one sync
+        # summed over the data axis: every metric is a ratio of these sums
+        mesh = model_mesh(self.model)
+        totals = all_reduce_sum(torch.stack([acc[k] for k in VAL_KEYS]),
+                                None if mesh is None else mesh.data_group).tolist()  # one sync
         t = dict(zip(VAL_KEYS, totals))
         speech = max(t["speech_total"], 1e-9)
         return {

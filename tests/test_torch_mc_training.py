@@ -100,7 +100,7 @@ class CaptureGrads:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params.values()]
 
-    def step(self, grads):
+    def step(self, grads, norm=None):
         self.captured = {name: g.clone() for name, g in zip(self.params, grads)}
 
 

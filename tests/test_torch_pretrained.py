@@ -412,15 +412,21 @@ def test_config_system_equals_jax(tmp_path):
         assert ref_path in jax_config.REFERENCE_PATH_ALIASES or resolved(
             jax_config.resolve(ref_path))
         assert target.startswith("diarizen_tpu_torch.") and resolved(config.resolve(ref_path))
-    # the JAX package's table is covered whole; a path into the JAX package
-    # that the port has no counterpart for (the mesh, its tensor-parallel
-    # shardings) raises, naming the path, instead of importing the JAX package
+    # the JAX package's table is covered whole; its mesh paths resolve to the
+    # port's mesh, and any other path into the JAX package that the table
+    # does not alias raises, naming the path, instead of importing the JAX
+    # package
     assert set(jax_config.REFERENCE_PATH_ALIASES) <= set(config.REFERENCE_PATH_ALIASES)
-    for own in ("diarizen_tpu.parallel.mesh.eend_param_shardings",
-                "diarizen_tpu.parallel.mesh.make_mesh"):
-        assert callable(jax_config.resolve(own))
-        with pytest.raises(NotImplementedError, match=own.replace(".", r"\.")):
-            config.resolve(own)
+    from diarizen_tpu_torch.parallel import mesh as port_mesh
+
+    for own in ("eend_param_shardings", "make_mesh"):
+        path = f"diarizen_tpu.parallel.mesh.{own}"
+        assert callable(jax_config.resolve(path))
+        assert config.resolve(path) is getattr(port_mesh, own)
+    other = "diarizen_tpu.parallel.mesh.shard_batch"
+    assert callable(jax_config.resolve(other))
+    with pytest.raises(NotImplementedError, match=other.replace(".", r"\.")):
+        config.resolve(other)
     assert config.instantiate_section(
         {"x": {"path": f"{__name__}.plain_factory", "args": {"wavlm_src": "w"}}}, "x") == "w"
 
