@@ -22,7 +22,13 @@ Phases (any failure exits non-zero, before the last line is printed):
      bit the same in two calls; then timed at the WavLM-Base training
      shapes, with pass A (and the sum of its partial slices) and pass B
      also timed alone, and pass A at other numbers of chunks than the
-     plan's;
+     plan's; then K1's softmax schedules ("f32", "deferred", "bf16") at the
+     `base` shape and at B 16, T 1499, the training forward (f32 schedule)
+     and K2 at rate 0.1 and at rate 0 (the instances without the dropout
+     hash), each against the plain version of its schedule, with the
+     instance counters showing which instance ran, and timed beside its
+     bound, plain version and SDPA; the training forward at rate 0 also
+     beside the deferred schedule's with the log-sum-exp;
   5. serving: DiariZen-Base-s80 EEND and the WeSpeaker ResNet34 at full
      width with seeded random weights; the card's output checked against
      the CPU's on two windows; then a 120 s synthetic two-speaker file
@@ -42,7 +48,7 @@ Phases (any failure exits non-zero, before the last line is printed):
      shapes, K4's accumulator checked to be updated in place; timed against
      the plain versions and PyTorch's own layer_norm calls; then the float32
      EEND scores with the fused-LN route on against off;
-  9. streamed serving with the fused-LN route on: four different 120 s files
+  9. streamed serving with the fused-LN route on: two different 120 s files
      through DiarizationPipeline.stream (device-side stitch), once to warm up
      and once timed, counting K1, K3 and K4 launches; every annotation must
      equal the per-file call's, and in float32 segmentation the device-side
@@ -58,14 +64,14 @@ Phases (any failure exits non-zero, before the last line is printed):
  11. snapshot directories to RTTM files: two directories laid out like
      released ones (config.toml with the reference's class path and VBx
      clustering, pytorch_model.bin, plda/) written from seeds for WavLM-Base
-     and Large-s80-md at full width, four 120 s WAV files and a wav.scp; each
+     and Large-s80-md at full width, two 120 s WAV files and a wav.scp; each
      through `pipelines.from_pretrained` and the wav.scp CLI, once to warm up
-     and once timed. WavLM-Base runs with the conv-chain route on (20 K5 and
-     240 K1 launches expected): its scores with the route on against off
+     and once timed. WavLM-Base runs with the conv-chain route on (10 K5 and
+     120 K1 launches expected): its scores with the route on against off
      (float32 within 1e-4; bfloat16 flips only at small top-2 margins), its
      annotations against `diarize_file` with the route off, streamed
      audio-s/s with the route on and off, the extractor's time, a profiled
-     pass. Large-s80-md (pre-LN, 400 K1 launches, no K3, K4 or K5): float32
+     pass. Large-s80-md (pre-LN, 200 K1 launches, no K3, K4 or K5): float32
      scores on the card against the CPU, streamed audio-s/s, a profiled pass;
  12. scoring and the frame-level modes at Base-s80-md's full width: four
      120 s files written as WAV and as FLAC (encoded by
@@ -165,6 +171,7 @@ import sys
 import tempfile
 import time
 import wave as wavefile
+from collections import Counter
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from multiprocessing import get_context
 from pathlib import Path
@@ -269,8 +276,9 @@ TRAIN_BATCH, TRAIN_HEADS, TRAIN_STEPS = 16, 12, 8  # WavLM-Base, the recipe's ba
 DROPOUT_RATE, DROPOUT_SEED = 0.1, 1234
 LR_SMALL, LR_BIG = 2e-5, 1e-3  # the recipe's learning rates: WavLM, the rest
 EMBED_DIM = 768  # WavLM-Base width: the rows K3 and K4 normalise
-STREAM_FILES = 4
-STREAM_REPEATS = 3  # timed passes per configuration; the median is reported
+STREAM_FILES = 4  # the evaluation and families phases' eval set
+SERVING_FILES = 2  # files of the streamed and snapshot phases
+STREAM_REPEATS = 2  # timed passes per configuration; the median is reported
 
 
 def make_wave(dur_s: int, sr: int = 16000, seed: int = 0) -> np.ndarray:
@@ -384,7 +392,8 @@ def phase_kernel(heads_per_layer) -> dict:
             args = attention_inputs(b, h, t, HEAD_DIM, dtype, gen)
             got = k1.flash_attention_gated_bias(*args)
             torch.cuda.synchronize()
-            want = k1.flash_attention_gated_bias_reference(*args)
+            # the plain version of the schedule the wrapper ran (the serving default)
+            want = k1.flash_attention_gated_bias_reference(*args, softmax_mode=k1.softmax_mode())
             err = (got.float() - want.float()).abs().max().item()
             print(f"K1 vs plain {str(dtype)[6:]} B={b} H={h} T={t} D={HEAD_DIM}: "
                   f"max abs err {err:.3e} (tolerance {tolerance[dtype]:.0e})")
@@ -405,7 +414,8 @@ def phase_kernel(heads_per_layer) -> dict:
         padded = (*args[:3], k1.padded_bias(args[3], torch.bfloat16), args[4])
         row = {
             "ms": median_ms(lambda: k1.flash_attention_gated_bias(*padded)),
-            "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(*args)),
+            "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(
+                *args, softmax_mode=k1.softmax_mode())),
             "library_ms": median_ms(lambda: library_attention(*args)),
         }
         mem_s, op_s = attention_bound_s(b, h, t, HEAD_DIM, 2)
@@ -571,7 +581,7 @@ def phase_trainable_kernels() -> list:
                                                  DROPOUT_RATE, DROPOUT_SEED))
     pass_b_ms = median_ms(lambda: k1._bwd_pass_b(q, k, v, bias, gate, lse, delta, do,
                                                  DROPOUT_RATE, DROPOUT_SEED))
-    chunks = k1._pass_a_plan(q)
+    chunks = k1._pass_a_plan(q, DROPOUT_RATE)
     print(f"gated_bias_attention_bwd passes bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} T={FRAMES}: "
           f"pass A with the sum of its {chunks} partial slices {pass_a_ms:.4f} ms, pass B "
           f"{pass_b_ms:.4f} ms")
@@ -603,6 +613,258 @@ def phase_trainable_kernels() -> list:
             "bound_by": "bytes" if mem_s >= op_s else "operations",
         })
     return entries
+
+
+# K1's output tolerance per schedule, of the largest magnitude, bf16 inputs.
+# f32 and bf16 (two passes, the row's max before any p is rounded, as the
+# plain version): their p or w agree with the plain version's to f32
+# rounding, so the outputs differ by at most one bf16 step of the output
+# (2^-7 of the largest magnitude) where a sum lands near a rounding
+# boundary. deferred (one pass, the online softmax): p is rounded relative
+# to the running max, a different realisation of the same rounding, so the
+# 2e-2 bound that phase_kernel holds K1 to stays.
+SCHEDULE_TOLERANCE = {"f32": 2.0**-7, "deferred": 2e-2, "bf16": 2.0**-7}
+GRAD_TOLERANCE = 2e-2  # K2 rounds dS and W * m to bf16 for its products
+
+
+def launched() -> dict:
+    """The instances of K1 and K2 launched since the counters were last reset."""
+    return {name: n for name, n in k1.instance_launches.items() if n}
+
+
+# each main path's run (single-file and streamed serving, the training
+# epoch with validation, the distill-prune run) -> the instances of K1 and
+# K2 it launched, read from the counters; an instance's `launches` in the
+# kernels line is their sum
+PATH_INSTANCES: dict = {}
+
+
+def path_run(name: str, instances: dict) -> dict:
+    PATH_INSTANCES[name] = dict(instances)
+    return instances
+
+
+def path_launches(instance: str) -> dict:
+    """`launches` (the sum) and `launches_by_path` of `instance`."""
+    by_path = {name: run.get(instance, 0) for name, run in PATH_INSTANCES.items()}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
+def worst_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst error over the largest magnitude."""
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+def abs_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+# The schedules told apart. In bf16 the worst error cannot do it: it is one
+# rounding step of the output for every schedule. The mean error over the
+# mean magnitude counts how many outputs moved and by how much. The f32 and
+# bf16 instances round w or p as their plain versions do (but for rare
+# flips where the f32 sums differ); another schedule's plain version rounds
+# every weight differently. So an instance's mean error against its own
+# plain version must be below SCHEDULE_APART of that against each other
+# schedule's. The deferred instance rounds p relative to the running max:
+# within one key tile (T <= KEY_TILE) that is the row max and the rule
+# holds; over several tiles those before a row's max round differently from
+# its plain version as well (a CPU emulation of the online max: 0.40 of the
+# nearest other's at T 399, 0.48 at T 1499), and there DEFERRED_APART holds.
+SCHEDULE_APART = 0.5
+DEFERRED_APART = 0.75
+KEY_TILE = 64  # keys per tile of K1's bf16 kernel (kBlockK)
+
+
+def mean_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The mean error over the mean magnitude."""
+    return ((got.float() - want.float()).abs().mean() / want.float().abs().mean()).item()
+
+
+def schedules_apart(label: str, mode: str, got: torch.Tensor, plain: dict, margin: float) -> dict:
+    """`got`'s mean error against each schedule's plain version in `plain`;
+    fails unless its own (`mode`'s) is below `margin` times each other's."""
+    means = {m: mean_error(got, want) for m, want in plain.items()}
+    nearest_other = min(e for m, e in means.items() if m != mode)
+    print(f"  {label}: mean error of the mean magnitude against the plain version of "
+          + ", ".join(f"{m} {e:.3e}" for m, e in means.items())
+          + f"; its own over the nearest other's {means[mode] / nearest_other:.3f} (limit {margin})")
+    check(np.isfinite(means[mode]) and means[mode] < margin * nearest_other,
+          f"{label} is not told apart from another schedule: {means}")
+    return means
+
+
+def phase_softmax_schedules() -> dict:
+    """Every instance of K1's softmax schedules and the rate-0 instances of
+    K1's training forward and K2, on the card, each held against the plain
+    version of the same schedule and told apart from the others' plain
+    versions (`schedules_apart`), the counters showing which instance
+    launched, and timed beside its bound, its plain version and SDPA (L2
+    flushed, median of 25): K1 inference in each schedule in float32, and
+    in bf16 at the `base` shape (B 32, H 12, T 399), at B 16, T 1499
+    (`whole`) and within one key tile (B 64, T 64; not timed); the f32
+    schedule's instance with the dropout mask; the training forward (f32)
+    and K2 at rate 0.1 and 0 at B 16, H 12, T 399, beside the deferred
+    forward that the training instance ran before it took the f32
+    schedule."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {"inference": {}, "train": {}, "bwd": {}}
+    # float32 inputs (the CUDA-core kernel): "f32" and "deferred" differ by
+    # reassociation only; "bf16" still rounds the shifted scores and p
+    f32_tolerance = {"f32": 1e-4, "deferred": 1e-4, "bf16": 2.0**-7}
+    for b, h, t in ((4, 12, FRAMES), (2, 3, 37)):
+        args = attention_inputs(b, h, t, HEAD_DIM, torch.float32, gen)
+        plain = {m: k1.flash_attention_gated_bias_reference(*args, softmax_mode=m)
+                 for m in k1.SOFTMAX_MODES}
+        for mode in k1.SOFTMAX_MODES:
+            with k1.softmax_mode_scope(mode):
+                k1.reset_launches()
+                got = k1.flash_attention_gated_bias(*args)
+                torch.cuda.synchronize()
+                instances = launched()
+            err = worst_error(got, plain[mode])
+            label = f"K1 {mode} schedule float32 B={b} H={h} T={t}"
+            print(f"{label}: worst error {err:.3e} of the largest magnitude (tolerance "
+                  f"{f32_tolerance[mode]:.1e}); launched {instances}")
+            check(instances == {f"fwd_{mode}": 1} and err <= f32_tolerance[mode],
+                  f"{label}: {err}, {instances}")
+            # in float32 "f32" and "deferred" are one function up to
+            # reassociation: each is told apart from "bf16" only
+            schedules_apart(label, mode, got, plain if mode == "bf16" else
+                            {m: plain[m] for m in (mode, "bf16")}, SCHEDULE_APART)
+    # inference with dropout: the f32 schedule's instance with the mask
+    for dtype, b, h, t in ((torch.float32, 2, 3, 37), (torch.bfloat16, BATCH, 12, FRAMES)):
+        args = attention_inputs(b, h, t, HEAD_DIM, dtype, gen)
+        tolerance = (f32_tolerance if dtype == torch.float32 else SCHEDULE_TOLERANCE)["f32"]
+        with k1.softmax_mode_scope("f32"):
+            k1.reset_launches()
+            got = k1.flash_attention_gated_bias(*args, dropout_rate=DROPOUT_RATE,
+                                                seed=DROPOUT_SEED)
+            torch.cuda.synchronize()
+            instances = launched()
+        err = worst_error(got, k1.flash_attention_gated_bias_reference(
+            *args, DROPOUT_RATE, DROPOUT_SEED))
+        label = f"K1 f32 schedule {str(dtype)[6:]} B={b} H={h} T={t} rate={DROPOUT_RATE}"
+        print(f"{label}: worst error {err:.3e} of the largest magnitude (tolerance "
+              f"{tolerance:.1e}); launched {instances}")
+        check(instances == {"fwd_f32": 1} and err <= tolerance, f"{label}: {err}, {instances}")
+    # bf16 at the `base` and `whole` shapes, timed, and within one key tile
+    for b, t in ((BATCH, FRAMES), (16, WHOLE_FRAMES), (64, KEY_TILE)):
+        timed = t > KEY_TILE
+        args = attention_inputs(b, 12, t, HEAD_DIM, torch.bfloat16, gen)
+        padded = (*args[:3], k1.padded_bias(args[3], torch.bfloat16), args[4])
+        plain = {m: k1.flash_attention_gated_bias_reference(*args, softmax_mode=m)
+                 for m in k1.SOFTMAX_MODES}
+        if timed:
+            library_ms = median_ms(lambda: library_attention(*args))
+            mem_s, op_s = attention_bound_s(b, 12, t, HEAD_DIM, 2)
+        for mode in k1.SOFTMAX_MODES:
+            with k1.softmax_mode_scope(mode):
+                k1.reset_launches()
+                got = k1.flash_attention_gated_bias(*padded)
+                torch.cuda.synchronize()
+                instances = launched()
+                ms = median_ms(lambda: k1.flash_attention_gated_bias(*padded)) if timed else None
+            errs = {m: worst_error(got, want) for m, want in plain.items()}
+            label = f"K1 {mode} schedule bf16 B={b} H=12 T={t}"
+            print(f"{label}: worst error {errs[mode]:.3e} of the largest magnitude against its "
+                  f"plain version (tolerance {SCHEDULE_TOLERANCE[mode]:.2e}; against the "
+                  "others' " + ", ".join(f"{m} {e:.3e}" for m, e in errs.items() if m != mode)
+                  + f"); launched {instances}")
+            check(instances == {f"fwd_{mode}": 1}, f"K1 {mode}: launched {instances}")
+            check(np.isfinite(errs[mode]) and errs[mode] <= SCHEDULE_TOLERANCE[mode],
+                  f"K1's {mode} schedule disagrees with its plain version: {errs[mode]}")
+            means = schedules_apart(label, mode, got, plain, DEFERRED_APART
+                                    if mode == "deferred" and t > KEY_TILE else SCHEDULE_APART)
+            if not timed:
+                continue
+            row = {"instance": f"fwd_{mode}", "launched": instances,
+                   "max_abs_err": abs_error(got, plain[mode]), "max_rel_err": errs[mode],
+                   "tolerance": SCHEDULE_TOLERANCE[mode], "mean_rel_err": means, "ms": ms,
+                   "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(
+                       *args, softmax_mode=mode)),
+                   "bound_ms": 1e3 * max(mem_s, op_s),
+                   "bound_by": "bytes" if mem_s >= op_s else "operations",
+                   "library_ms": library_ms}
+            out["inference"][(mode, b, t)] = row
+            print(f"  kernel {ms:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA {library_ms:.4f} "
+                  f"ms, bound {row['bound_ms']:.4f} ms (by {row['bound_by']})")
+
+    (q, k, v, pos, gate), do = trainable_inputs(TRAIN_BATCH, TRAIN_HEADS, FRAMES,
+                                                torch.bfloat16, gen)
+    bias = k1.padded_bias(pos, torch.bfloat16)  # as the trainable function saves it
+    mask = (gate[..., None] * pos).to(torch.bfloat16)
+    bounds = trainable_bound_s(TRAIN_BATCH, TRAIN_HEADS, FRAMES, HEAD_DIM, 2)
+    names = ("o", "dq", "dk", "dv", "dpos_bias", "dgate")
+    for rate in (DROPOUT_RATE, 0.0):
+        results = []
+        with k1.softmax_mode_scope("deferred"):  # the training forward is f32 whatever is set
+            for fn in (k1.flash_attention_gated_bias_trainable,
+                       k1.flash_attention_gated_bias_reference):
+                k1.reset_launches()
+                leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+                o = fn(*leaves, dropout_rate=rate, seed=DROPOUT_SEED)
+                o.backward(do)
+                results.append([o.detach()] + [x.grad for x in leaves])
+                if fn is k1.flash_attention_gated_bias_trainable:
+                    torch.cuda.synchronize()
+                    instances = launched()
+        errs = [worst_error(got, want) for got, want in zip(*results)]
+        suffix = "" if rate > 0 else "_rate0"
+        want = {f"train{suffix}": 1, f"bwd{suffix}": 1}
+        check(instances == want, f"rate {rate}: launched {instances}, expected {want}")
+        check(errs[0] <= SCHEDULE_TOLERANCE["f32"] and max(errs[1:]) <= GRAD_TOLERANCE,
+              f"K1 training / K2 at rate {rate} disagree with the plain version: {errs}")
+        # timings: the f32 forward, at rate 0 the deferred forward with the
+        # log-sum-exp (K1 has no deferred instance with the mask), K2, each
+        # beside the plain version and SDPA
+        _, lse = k1._forward_train(q, k, v, bias, gate, rate, DROPOUT_SEED)
+        fwd_out = k1._forward_train(q, k, v, bias, gate, rate, DROPOUT_SEED)[0]
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+        plain = k1.flash_attention_gated_bias_reference(*leaves, rate, DROPOUT_SEED)
+        lib_leaves = [x.clone().requires_grad_() for x in (q, k, v, mask)]
+        lib = F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
+                                             dropout_p=rate)
+        fwd = {"instance": f"train{suffix}", "launched": {f"train{suffix}": 1},
+               "max_abs_err": abs_error(results[0][0], results[1][0]), "max_rel_err": errs[0],
+               "tolerance": SCHEDULE_TOLERANCE["f32"],
+               "ms": median_ms(lambda: k1._forward_train(q, k, v, bias, gate, rate,
+                                                         DROPOUT_SEED)),
+               "plain_ms": median_ms(lambda: k1.flash_attention_gated_bias_reference(
+                   q, k, v, pos, gate, rate, DROPOUT_SEED)),
+               "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, dropout_p=rate))}
+        bwd = {"instance": f"bwd{suffix}", "launched": {f"bwd{suffix}": 1},
+               "max_abs_err": max(abs_error(g, w) for g, w in zip(results[0][1:], results[1][1:])),
+               "max_rel_err": max(errs[1:]), "tolerance": GRAD_TOLERANCE,
+               "ms": median_ms(lambda: k1._backward(q, k, v, bias, gate, fwd_out, lse, do, rate,
+                                                    DROPOUT_SEED)),
+               "plain_ms": median_ms(lambda: torch.autograd.grad(plain, leaves, do,
+                                                                 retain_graph=True)),
+               "library_ms": median_ms(lambda: torch.autograd.grad(lib, lib_leaves, do,
+                                                                   retain_graph=True))}
+        if rate == 0.0:
+            fwd["deferred_ms"] = median_ms(lambda: k1._forward(q, k, v, bias, gate, "deferred",
+                                                               0.0, 0, lse=True))
+        for key, row in (("train", fwd), ("bwd", bwd)):
+            mem_s, op_s = bounds["fwd" if key == "train" else key]
+            row["bound_ms"] = 1e3 * max(mem_s, op_s)
+            row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
+            out[key][rate] = row
+        print(f"K1 training (f32 schedule) + K2 bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} T={FRAMES} "
+              f"rate={rate}: launched {instances}; worst error of the largest magnitude "
+              + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs))
+              + f" (tolerance o {SCHEDULE_TOLERANCE['f32']:.2e}, gradients {GRAD_TOLERANCE:.0e})")
+        deferred = (f" (the deferred schedule's forward {fwd['deferred_ms']:.4f} ms)"
+                    if rate == 0.0 else "")
+        print(f"  K1 training rate={rate}: kernel {fwd['ms']:.4f} ms{deferred}, plain "
+              f"{fwd['plain_ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} ms, bound "
+              f"{fwd['bound_ms']:.4f} ms")
+        print(f"  K2 rate={rate}: kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, "
+              f"SDPA's backward {bwd['library_ms']:.4f} ms "
+              f"({'slower' if bwd['ms'] > bwd['library_ms'] else 'faster'} than SDPA by "
+              f"{bwd['ms'] / bwd['library_ms']:.2f}x), bound {bwd['bound_ms']:.4f} ms")
+    return out
 
 
 def write_kaldi_dir(root: Path, name: str, durations, seed: int, channels: int = 1) -> Path:
@@ -823,12 +1085,13 @@ def phase_training(card: str) -> dict:
                                                max_num_checkpoints=1),
                           recipe_optimizer(model), step_hook=recorder)
         torch.cuda.reset_peak_memory_stats()
-        k1.launches = k1.train_launches = k1.bwd_launches = 0
+        k1.reset_launches()
         t0 = recorder.last = time.perf_counter()
         val = trainer.train(train_loader, val_loader)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"inference": k1.launches, "train": k1.train_launches, "bwd": k1.bwd_launches}
+        instances = path_run("training with validation", launched())
         peak = torch.cuda.max_memory_allocated()
 
         steps = recorder.steps
@@ -849,6 +1112,11 @@ def phase_training(card: str) -> dict:
               "K1/K2 launches per step differ from the attention layers the step ran")
         check(launches["inference"] == cfg.wavlm.num_layers * len(val_loader),
               f"expected {cfg.wavlm.num_layers} K1 inference launches in validation")
+        # the steps at rate 0.1 (f32 schedule), validation in the f32 schedule
+        print(f"instances launched in the run: {instances}")
+        check(instances == {"train": launches["train"], "bwd": launches["bwd"],
+                            "fwd_f32": launches["inference"]},
+              f"the training run launched other instances: {instances}")
         check(np.isfinite(val["loss"]) and np.isfinite(val["der"]), "validation not finite")
 
         ckpt = latest_checkpoint(root / "exp" / "checkpoints")
@@ -1188,16 +1456,16 @@ def timed_pass(run) -> float:
 
 
 def phase_stream(card: str, model, eend_cfg, pipeline) -> dict:
-    """Streamed serving of STREAM_FILES different 120 s files at full width,
+    """Streamed serving of SERVING_FILES different 120 s files at full width,
     the fused-LN route on; returns the launches of K1, K3 and K4 over the
     timed streamed pass."""
-    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(STREAM_FILES)]
-    uris = [f"file{i}" for i in range(STREAM_FILES)]
+    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(SERVING_FILES)]
+    uris = [f"file{i}" for i in range(SERVING_FILES)]
     wavlm = eend_cfg.wavlm
     batches = -(-sum(pipeline.seg_inference.num_chunks(waves[0].shape[1])) // BATCH)
-    expected = {"k1": STREAM_FILES * batches * sum(wavlm.use_attention),
-                "k3": STREAM_FILES * batches * sum(wavlm.use_attention),
-                "k4": STREAM_FILES * batches * sum(wavlm.use_feed_forward)}
+    expected = {"k1": SERVING_FILES * batches * sum(wavlm.use_attention),
+                "k3": SERVING_FILES * batches * sum(wavlm.use_attention),
+                "k4": SERVING_FILES * batches * sum(wavlm.use_feed_forward)}
 
     def stream():
         return [a.to_rttm() for a in pipeline.stream(iter(waves), 16000, uris=uris)]
@@ -1208,12 +1476,14 @@ def phase_stream(card: str, model, eend_cfg, pipeline) -> dict:
     try:
         set_fused_ln(True)
         print(f"stream warm-up: {timed_pass(stream):.3f} s")
-        k1.launches = k3.launches = k3.acc_launches = 0
+        k1.reset_launches()
+        k3.launches = k3.acc_launches = 0
         streamed = []
         seconds = timed_pass(lambda: streamed.extend(stream()))
         launches = {"k1": k1.launches, "k3": k3.launches, "k4": k3.acc_launches}
-        print(f"streamed pass {card}: {STREAM_FILES} x {AUDIO_SECONDS} s in {seconds:.4f} s = "
-              f"{STREAM_FILES * AUDIO_SECONDS / seconds:.2f} audio-s/s; launches K1 "
+        path_run("streamed serving", launched())
+        print(f"streamed pass {card}: {SERVING_FILES} x {AUDIO_SECONDS} s in {seconds:.4f} s = "
+              f"{SERVING_FILES * AUDIO_SECONDS / seconds:.2f} audio-s/s; launches K1 "
               f"{launches['k1']}, K3 {launches['k3']}, K4 {launches['k4']}")
         check(launches == expected, f"expected launches {expected}, got {launches}")
         single = one_by_one()
@@ -1235,7 +1505,7 @@ def phase_stream(card: str, model, eend_cfg, pipeline) -> dict:
         check(routes[True] == routes[False] and all(routes[True]),
               "float32: the device-side stitch and the host stages give different annotations")
         print("float32 segmentation: device-side stitch equals the host stages on "
-              f"{STREAM_FILES} files")
+              f"{SERVING_FILES} files")
 
         # one file's dispatch on the host's clock beside its device time
         torch.cuda.synchronize()
@@ -1262,12 +1532,12 @@ def phase_stream(card: str, model, eend_cfg, pipeline) -> dict:
                 set_fused_ln(fused)
                 times[("streamed", fused)].append(timed_pass(stream))
                 times[("single-file", fused)].append(timed_pass(one_by_one))
-        audio = STREAM_FILES * AUDIO_SECONDS
+        audio = SERVING_FILES * AUDIO_SECONDS
         for (mode, fused), secs in times.items():
             rates = sorted(audio / t for t in secs)
             print(f"throughput {card}: {mode}, fused-LN {'on' if fused else 'off'}: median "
                   f"{float(np.median(rates)):.2f} audio-s/s of {STREAM_REPEATS} passes over "
-                  f"{STREAM_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in rates)})")
+                  f"{SERVING_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in rates)})")
 
         # the profiler slows the host, so the busy share of a pass as users run
         # it is the profiled device time over the unprofiled pass's wall clock
@@ -1456,7 +1726,7 @@ def run_cli(snap: Path, scp: Path, resnet_ckpt: Path, out: Path) -> float:
 
 
 def reset_counts() -> None:
-    k1.launches = k1.train_launches = k1.bwd_launches = 0
+    k1.reset_launches()
     k3.launches = k3.acc_launches = k5.launches = 0
 
 
@@ -1465,9 +1735,9 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
     wav.scp CLI with VBx clustering, at full width, for WavLM-Base (the
     conv-chain route on: K5 and K1) and Large-s80-md (pre-LN: K1 only).
     Returns the launches of K1 and K5 over the timed `base` CLI run."""
-    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(STREAM_FILES)]
-    uris = [f"rec{i}" for i in range(STREAM_FILES)]
-    audio = STREAM_FILES * AUDIO_SECONDS
+    waves = [make_wave(AUDIO_SECONDS, seed=i) for i in range(SERVING_FILES)]
+    uris = [f"rec{i}" for i in range(SERVING_FILES)]
+    audio = SERVING_FILES * AUDIO_SECONDS
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         resnet_ckpt = root / "resnet34.bin"
@@ -1499,9 +1769,9 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
                         "k4": k3.acc_launches}
         finally:
             set_conv_chain(None)
-        expected = {"k1": STREAM_FILES * batches * wavlm.num_layers,
-                    "k5": STREAM_FILES * batches, "k3": 0, "k4": 0}
-        print(f"base snapshot through the CLI {card}: {STREAM_FILES} x {AUDIO_SECONDS} s in "
+        expected = {"k1": SERVING_FILES * batches * wavlm.num_layers,
+                    "k5": SERVING_FILES * batches, "k3": 0, "k4": 0}
+        print(f"base snapshot through the CLI {card}: {SERVING_FILES} x {AUDIO_SECONDS} s in "
               f"{seconds:.3f} s with loading; launches K1 {launches['k1']}, K5 "
               f"{launches['k5']}, K3 {launches['k3']}, K4 {launches['k4']}")
         check(launches == expected, f"base: expected launches {expected}, got {launches}")
@@ -1512,7 +1782,7 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
         worst = max(rttm_disagreement(cli[uri], single[uri]) for uri in uris)
         equal = sum(cli[uri] == single[uri] for uri in uris)
         print(f"base bf16: CLI (route on) vs diarize_file (route off): {segments} segments, "
-              f"{equal} of {STREAM_FILES} annotations identical, the largest disagreement "
+              f"{equal} of {SERVING_FILES} annotations identical, the largest disagreement "
               f"{100 * worst:.3f}% of the speech time (limit 0.5%)")
         check(worst <= 0.005, f"the routes' bf16 annotations disagree on {worst} of the speech")
 
@@ -1538,19 +1808,17 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
               f"f32: the conv-chain route changes the result: {flips}, {same}")
 
         rates = {}
-        for chain in (True, False, True, False):
+        for chain in (True, False):
             set_conv_chain(chain)
             try:
-                if chain not in rates:
-                    stream_rate(pipe, waves, uris, repeats=1)  # warm this route
-                    rates[chain] = []
-                rates[chain] += stream_rate(pipe, waves, uris, repeats=2)
+                stream_rate(pipe, waves, uris, repeats=1)  # warm this route
+                rates[chain] = stream_rate(pipe, waves, uris)
             finally:
                 set_conv_chain(None)
         for chain, vals in rates.items():
             print(f"throughput {card}: base + VBx streamed, conv-chain {'on' if chain else 'off'}: "
                   f"median {float(np.median(vals)):.2f} audio-s/s of {len(vals)} passes over "
-                  f"{STREAM_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in sorted(vals))})")
+                  f"{SERVING_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in sorted(vals))})")
 
         # the extractor alone, one batch, and a profiled pass with the route on
         batch = windows[:BATCH, None, :].to(torch.bfloat16)
@@ -1587,9 +1855,9 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
         large = {"k1": k1.launches, "k5": k5.launches, "k3": k3.launches, "k4": k3.acc_launches}
         pipe = pipelines.from_pretrained(snaps["large_s80_md"], embedding_ckpt=resnet_ckpt)
         wavlm = pipe.eend_cfg.wavlm
-        expected = {"k1": STREAM_FILES * batches * sum(wavlm.use_attention), "k5": 0, "k3": 0,
+        expected = {"k1": SERVING_FILES * batches * sum(wavlm.use_attention), "k5": 0, "k3": 0,
                     "k4": 0}
-        print(f"large_s80_md snapshot through the CLI {card}: {STREAM_FILES} x {AUDIO_SECONDS} s "
+        print(f"large_s80_md snapshot through the CLI {card}: {SERVING_FILES} x {AUDIO_SECONDS} s "
               f"in {seconds:.3f} s with loading; launches K1 {large['k1']}, K5 {large['k5']}, "
               f"K3 {large['k3']}, K4 {large['k4']}")
         check(large == expected, f"large_s80_md: expected launches {expected}, got {large}")
@@ -1610,7 +1878,7 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
         vals = stream_rate(pipe, waves, uris)
         print(f"throughput {card}: large_s80_md + VBx streamed: median "
               f"{float(np.median(vals)):.2f} audio-s/s of {len(vals)} passes over "
-              f"{STREAM_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in vals)})")
+              f"{SERVING_FILES} x {AUDIO_SECONDS} s ({', '.join(f'{r:.2f}' for r in vals)})")
         timer = StageTimer()
         timer.last = time.perf_counter()
         pipe(waves[0], 16000, uri="stages", hook=timer)
@@ -1887,34 +2155,44 @@ class LaunchRecorder:
         self.reset()
 
     def reset(self) -> None:
-        k1.launches = k1.train_launches = k1.bwd_launches = 0
+        k1.reset_launches()
         self.counts = (0, 0, 0)
+        self.instances = dict(k1.instance_launches)
         self.last = time.perf_counter()
 
     def __call__(self, metrics) -> None:
         torch.cuda.synchronize()
         now = time.perf_counter()
         counts = (k1.launches, k1.train_launches, k1.bwd_launches)
-        self.steps.append({**metrics, "ms": 1e3 * (now - self.last),
+        instances = {n: c - self.instances[n] for n, c in k1.instance_launches.items()
+                     if c != self.instances[n]}
+        self.steps.append({**metrics, "ms": 1e3 * (now - self.last), "instances": instances,
                            **dict(zip(("k1", "k1_train", "k2"),
                                       (a - b for a, b in zip(counts, self.counts))))})
         self.last, self.counts = now, counts
+        self.instances = dict(k1.instance_launches)
 
 
 def rate0_trainable_kernels(gen) -> list:
     """K1's training instance and K2 at dropout rate 0 (the distill step's
-    student) at (B 16, H 12, T 399) bf16 against the plain version's forward
-    and autograd, within 2e-2 of each tensor's largest magnitude; timed
-    beside their bounds and SDPA."""
+    student: the instances without the dropout hash) at (B 16, H 12, T 399)
+    bf16 against the plain version's forward and autograd, within 2e-2 of
+    each tensor's largest magnitude; timed beside their bounds and SDPA,
+    whose backward K2 took 1.17x of with the hash (0.6586 against 0.5619 ms)."""
     (q, k, v, pos, gate), do = trainable_inputs(TRAIN_BATCH, TRAIN_HEADS, FRAMES,
                                                 torch.bfloat16, gen)
     results = []
     for fn in (k1.flash_attention_gated_bias_trainable, k1.flash_attention_gated_bias_reference):
+        k1.reset_launches()
         leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
         out = fn(*leaves, dropout_rate=0.0)
         out.backward(do)
         results.append([out.detach()] + [x.grad for x in leaves])
+        if fn is k1.flash_attention_gated_bias_trainable:
+            torch.cuda.synchronize()
+            instances = launched()
     torch.cuda.synchronize()
+    check(instances == {"train_rate0": 1, "bwd_rate0": 1}, f"rate 0 launched {instances}")
     errs = []
     for name, got, want in zip(("o", "dq", "dk", "dv", "dpos_bias", "dgate"), *results):
         err = (got.float() - want.float()).abs().max().item()
@@ -1951,9 +2229,13 @@ def rate0_trainable_kernels(gen) -> list:
         row["bound_ms"] = 1e3 * max(mem_s, op_s)
         row["bound_by"] = "bytes" if mem_s >= op_s else "operations"
         print(f"{'K1 training' if key == 'fwd' else 'K2'} bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} "
-              f"T={FRAMES} rate=0: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"(by {row['bound_by']})")
+              f"T={FRAMES} rate=0 (instances {instances}): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms (by {row['bound_by']})")
+    bwd = rows["bwd"]
+    print(f"K2 at rate 0 without the hash: {bwd['ms']:.4f} ms against SDPA's backward "
+          f"{bwd['library_ms']:.4f} ms: {'still slower' if bwd['ms'] > bwd['library_ms'] else 'faster'}"
+          f" ({bwd['ms'] / bwd['library_ms']:.2f}x; 0.6586 against 0.5619 ms with the hash)")
     return [rows["fwd"], rows["bwd"]]
 
 
@@ -2065,6 +2347,13 @@ def phase_pruning(card: str) -> dict:
                                                      for s in steps), "a distill step failed")
         check(all(s["k1"] == s["k1_train"] == s["k2"] == base.num_layers for s in steps),
               "K1 inference, K1 training and K2 must each launch 12 times a distill step")
+        # the teacher in the exact f32 schedule, the student at rate 0
+        distill_instances = {"fwd_f32": base.num_layers, "train_rate0": base.num_layers,
+                             "bwd_rate0": base.num_layers}
+        print(f"distill step instances: {steps[0]['instances']}")
+        check(all(s["instances"] == distill_instances for s in steps),
+              f"a distill step launched other instances than {distill_instances}")
+        path_run("distill-prune", sum((Counter(s["instances"]) for s in steps), Counter()))
         # the student, whose sampled masks make it differ from the teacher,
         # moves towards it; the lambdas and the target move
         check(steps[-1]["loss_distill"] < steps[0]["loss_distill"] and steps[-1]["lambda1"] != 0.0
@@ -2083,9 +2372,15 @@ def phase_pruning(card: str) -> dict:
         wave = torch.from_numpy(make_wave(8)[:, :128000].repeat(TRAIN_BATCH, 0)).cuda()
         wave = wave + 0.01 * torch.randn(wave.shape, device="cuda",
                                          generator=torch.Generator(device="cuda").manual_seed(5))
-        for _ in range(2):
-            step(state, wave)
-        phase_profile(f"one distill step {card}", lambda: step(state, wave))
+        with k1.softmax_mode_scope("f32"):  # as the recipe runs it
+            for _ in range(2):
+                step(state, wave)
+            k1.reset_launches()
+            phase_profile(f"one distill step {card}", lambda: step(state, wave))
+            profiled = launched()
+        want = {n: 2 * c for n, c in distill_instances.items()}  # the profiler runs it twice
+        print(f"profiled distill steps' instances: {profiled}")
+        check(profiled == want, f"the profiled distill steps launched {profiled}, not {want}")
         del state, step, student
 
         rate0 = rate0_trainable_kernels(torch.Generator(device="cuda").manual_seed(3))
@@ -2119,7 +2414,7 @@ def phase_pruning(card: str) -> dict:
                 errors["f32"] = hidden_errors(pruned.hidden_states(wave),
                                               teacher.hidden_states(wave, gates=masks))
             gated = teacher.hidden_states(wave, torch.bfloat16, gates=masks)
-            k1.launches = 0
+            k1.reset_launches()
             got = pruned.hidden_states(wave, torch.bfloat16)
             torch.cuda.synchronize()
             pruned_launches = k1.launches
@@ -2136,8 +2431,7 @@ def phase_pruning(card: str) -> dict:
         heads = [len(h) for h, a in zip(cfg.remaining_heads, cfg.use_attention) if a]
         pruned_row = pruned_k1_layers(heads)
         pruned_row["launches"] = pruned_launches
-    return {"rate0": rate0, "pruned": pruned_row,
-            "distill_step": {k: steps[-1][k] for k in ("k1", "k1_train", "k2")}}
+    return {"rate0": rate0, "pruned": pruned_row, "distill_step": steps[-1]["instances"]}
 
 
 def pruned_k1_layers(heads: list) -> dict:
@@ -2273,7 +2567,7 @@ def mc_trainable(b: int, heads: list, gen) -> tuple:
                 rows[key][field] += median_ms(fn)
             by_bytes[key] += bounds[key][0]
             by_flops[key] += bounds[key][1]
-        chunks[h] = k1._pass_a_plan(q)
+        chunks[h] = k1._pass_a_plan(q, DROPOUT_RATE)
         if b == MC_TRAIN_BATCH * MC_CHANNELS and h in (min(heads), max(heads)):
             print(f"K2 pass A at B={b} H={h}:")
             pass_a_by_chunks(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do,
@@ -2891,7 +3185,7 @@ def phase_hf_import(card: str) -> int:
         with strict_float32():
             want = seeded.hidden_states(x)
             f32_err = hidden_errors(imported.hidden_states(x), want)
-        k1.launches = 0
+        k1.reset_launches()
         got = imported.hidden_states(x, torch.bfloat16)
         torch.cuda.synchronize()
         launches = k1.launches
@@ -2947,7 +3241,7 @@ def phase_schedules(card: str) -> None:
         state = create_train_state(model, make(dict(model.named_parameters())))
         for step in range(total):
             lr = state.optimizer.schedules["all"](state.optimizer.state["count"]["all"])
-            k1.train_launches = k1.bwd_launches = 0
+            k1.reset_launches()
             t0 = time.perf_counter()
             m = train_step(state, batch, seed=0, compute_dtype=torch.bfloat16)
             ms = 1e3 * (time.perf_counter() - t0)
@@ -3001,7 +3295,7 @@ def phase_data_parallel(card: str, eend_sd, resnet_sd, eend_cfg, wave) -> dict:
         model = EendModel(cfg)
         model.load_state_dict(train_sd)
         state = create_train_state(model, recipe_optimizer(model))
-        k1.train_launches = k1.bwd_launches = 0
+        k1.reset_launches()
         m = train_step(state, batch, seed=0, compute_dtype=torch.bfloat16)
         return {"rttm": rttm, "loss": m["loss"], "grad_norm": m["grad_norm"],
                 "k1_train": k1.train_launches, "k2": k1.bwd_launches}
@@ -3105,12 +3399,13 @@ def tensor_parallel_rank(rank: int, port: int, work: str) -> int:
     out = {"place": (mesh.data_index, mesh.model_index)}
     with strict_float32():  # as the one-process reference ran
         model = split_model()
-        k1.launches = 0
+        k1.reset_launches()
         with torch.no_grad():
             out["scores"] = model(torch.from_numpy(batch["xs"]).cuda(), torch.float32).cpu()
         out["k1_forward"] = k1.launches
         recorder = GradRecorder(model)
-        k1.train_launches = k1.bwd_launches = dp.model_reduces = 0
+        k1.reset_launches()
+        dp.model_reduces = 0
         m = train_step(TrainState(model=model, optimizer=recorder), batch, seed=TP_SEED,
                        compute_dtype=torch.float32)
         out["f32"] = {**m, "k1_train": k1.train_launches, "k2": k1.bwd_launches,
@@ -3125,7 +3420,8 @@ def tensor_parallel_rank(rank: int, port: int, work: str) -> int:
     state = TrainState(model=model, optimizer=recipe_optimizer(model))
     out["bf16"] = []
     for _ in range(2):
-        k1.train_launches = k1.bwd_launches = dp.model_reduces = 0
+        k1.reset_launches()
+        dp.model_reduces = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = train_step(state, batch, seed=TP_SEED, compute_dtype=torch.bfloat16)
@@ -3403,6 +3699,7 @@ def run_phases(flac_jobs) -> int:
     with strict_float32():
         kernel = phase_kernel(heads)
         trainable = phase_trainable_kernels()
+        schedules = phase_softmax_schedules()
         phase_reference(eend_sd, resnet_sd, eend_cfg, wave)
     elapsed("K1, K2 and the card-against-CPU reference")
 
@@ -3423,12 +3720,13 @@ def run_phases(flac_jobs) -> int:
     print(f"pipeline warm-up: {time.perf_counter() - t0:.3f} s")
 
     timer = StageTimer()
-    k1.launches = k1.train_launches = k1.bwd_launches = 0
+    k1.reset_launches()
     t0 = timer.last = time.perf_counter()
     ann = pipeline(wave, 16000, uri="smoke", hook=timer)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = k1.launches
+    serving_instances = path_run("single-file serving", launched())
 
     num_chunks = sum(seg.num_chunks(wave.shape[1]))
     print("pipeline with PyTorch's float32 defaults: matmul.allow_tf32="
@@ -3439,6 +3737,8 @@ def run_phases(flac_jobs) -> int:
     for step, s in timer.seconds.items():
         print(f"  stage {step} {card}: {s:.4f} s")
     check(launches == 50, f"expected 50 K1 launches (5 batches x 10 layers), got {launches}")
+    check(serving_instances == {"fwd_deferred": 50},
+          f"serving must run the deferred schedule: {serving_instances}")
     rttm = ann.to_rttm().splitlines()
     check(len(rttm) > 0 and "embeddings" in timer.seconds, "no speech found: embeddings did not run")
     for line in rttm:
@@ -3484,14 +3784,35 @@ def run_phases(flac_jobs) -> int:
     elapsed("tensor parallelism")
 
     kernel["launches"] = launches
+    kernel["instance"] = "fwd_deferred"
     kernel["whole_t1499"]["launches"] = evaluation_launches["whole"]
     kernel["recipe_launches"] = evaluation_launches["recipe"]
     kernel["pruned"] = pruning["pruned"]  # the collapsed model's forward, B 16
-    kernel["distill_launches_per_step"] = pruning["distill_step"]["k1"]
     trainable[0]["launches"] = train_launches["train"]
     trainable[1]["launches"] = train_launches["bwd"]
-    for entry, row, key in zip(trainable, pruning["rate0"], ("k1_train", "k2")):
-        entry["rate0"] = {**row, "launches_per_distill_step": pruning["distill_step"][key]}
+    trainable[0]["instance"], trainable[1]["instance"] = "train", "bwd"
+    # K1's f32 and bf16 inference schedules (f32: validation and the distill
+    # teacher; bf16 runs only where a caller sets it) at the `base` shape and
+    # `whole` (B 16, T 1499), and the rate-0 instances (the distill student)
+    source = {"route": "cuda", "source": "diarizen_tpu_torch/csrc/gated_bias_attention.cu"}
+    instances = []
+    for mode in ("f32", "bf16"):
+        rows = {(b, t): row for (m, b, t), row in schedules["inference"].items() if m == mode}
+        instances.append({"name": f"gated_bias_attention_{mode}", **source,
+                          "replaces": "diarizen_tpu/ops/flash_attention.py:201",
+                          **rows[(BATCH, FRAMES)], **path_launches(f"fwd_{mode}"),
+                          "whole_t1499_b16": rows[(16, WHOLE_FRAMES)],
+                          "distill_launches_per_step":
+                              pruning["distill_step"].get(f"fwd_{mode}", 0)})
+    for instance, row, replaces in zip(
+            ("train_rate0", "bwd_rate0"), pruning["rate0"],
+            ("diarizen_tpu/ops/flash_attention.py:201", "diarizen_tpu/ops/flash_attention.py:326")):
+        instances.append({"name": "gated_bias_attention_" + instance, **source,
+                          "replaces": replaces, "instance": instance, **row,
+                          **path_launches(instance),
+                          "launches_per_distill_step": pruning["distill_step"].get(instance, 0)})
+    # the training forward at rate 0 beside the deferred schedule's with lse
+    instances[2]["deferred_ms"] = schedules["train"][0.0]["deferred_ms"]
     # the multi-channel recipe: K1 at B 16 x 8 streams (layers 0-3) with its
     # launches a file; K1 training and K2 launches a step at each k, K2 at 8 k
     kernel["multichannel"] = multichannel["k1"]
@@ -3516,7 +3837,8 @@ def run_phases(flac_jobs) -> int:
     kernel["tensor_parallel"] = tensor_parallel["k1"]
     trainable[0]["tensor_parallel"] = tensor_parallel["k1_train"]
     trainable[1]["tensor_parallel"] = tensor_parallel["k2"]
-    print(json.dumps({"kernels": [kernel, *trainable, *fused_ln, conv_chain]}))
+    print(json.dumps({"kernels": [kernel, *instances[:2], *trainable, *instances[2:], *fused_ln,
+                                  conv_chain]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

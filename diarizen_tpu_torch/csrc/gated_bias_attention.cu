@@ -8,19 +8,35 @@
 // rate 0), a pure hash of (seed, b, h, i, j) that the backward replays.
 //
 // K1 replaces the Pallas TPU kernel diarizen_tpu/ops/flash_attention.py:_kernel
-// (l.201, pallas_call l.302; launched by flash_attention_gated_bias), with
-// the "deferred" softmax schedule: unnormalised p @ v accumulated in f32 and
-// one divide by the f32 row sum at the end; p is rounded to the input type
-// before the p @ v product, as the TPU kernel rounds it to v's type. It has
-// two instances:
-//  * inference (kTrain = false): rate 0, no side output;
-//  * training (kTrain = true): applies the dropout mask to p after the row
-//    sum (the sum is taken before the mask, as in the TPU kernel) and writes
-//    the f32 row log-sum-exp lse = max + log(sum) that K2 needs.
+// (l.201, pallas_call l.302; launched by flash_attention_gated_bias) with its
+// three static softmax schedules (softmax_mode, Schedule below); p is the
+// exp of the scores less the row max, l its f32 row sum, taken before the
+// dropout mask as in the TPU kernel:
+//  * f32: w = p / l, times the mask, rounded to the input type for w @ v.
+//    The normaliser must be known before w is rounded, so the kernel walks
+//    the key tiles twice in one launch: the first pass computes q k^T and
+//    the gated bias for the row max and sum only (no V is loaded), the
+//    second recomputes them and accumulates the rounded w @ v in f32, with
+//    no division at the end.
+//  * deferred: unnormalised p @ v accumulated in f32 and one divide by l at
+//    the end, in one pass with a running max (the online softmax): a tile's
+//    p is rounded to the input type relative to the max so far and the
+//    accumulator rescaled when the max grows, where the TPU kernel rounds p
+//    relative to the row's max. The serving default.
+//  * bf16: deferred with p = exp of the shifted scores rounded to bf16, a
+//    bf16 value (and the keep scale and p * keep in bf16), in two passes as
+//    f32, so that p is rounded relative to the row max as the TPU kernel
+//    does; the first pass takes the max only.
+// Each schedule has an instance without the dropout mask (rate 0: no hash,
+// no keep bits, as the TPU kernel compiles no mask at rate 0), and the f32
+// schedule one with it: no path runs inference with dropout in another.
+// The training forward runs the f32 schedule and also writes the f32 row
+// log-sum-exp lse = max + log(l) that K2 needs; inference leaves lse alone.
 //
 // K2 replaces the Pallas TPU kernel ops/flash_attention.py:_bwd_kernel
 // (launched by _flash_bwd). With W = exp(s - lse), dW' = dO V^T,
-// D = rowsum(dO * O) and dS = W * (dW' * m - D), it writes
+// D = rowsum(W * dW' * m) (the TPU kernel's r; in f32 pass A takes the
+// equal rowsum(dO * O)) and dS = W * (dW' * m - D), it writes
 //   dq = dS K / sqrt(D),  dk = dS^T Q / sqrt(D),  dv = (W * m)^T dO,
 //   dgate[b,h,i] = sum_j dS * bias[h,i,j],  dbias[h,i,j] = sum_b gate * dS.
 // The TPU kernel carries dbias from one grid step to the next along its
@@ -36,8 +52,9 @@
 //    with two resident blocks each, that is S = 6 and 504 blocks, against 84
 //    blocks without the split; S = 4 (336 blocks for 264 slots) leaves the
 //    card three quarters idle for a second round of four-element blocks. A
-//    block loops over its chunk's batch elements in order and the 64-key
-//    tiles; it owns its rows of its chunk's f32 dbias slice (S, H, T, ldb) in
+//    block loops over its chunk's batch elements in order and, for each,
+//    twice over the 64-key tiles (in bf16: first for D, then for dS); it
+//    owns its rows of its chunk's f32 dbias slice (S, H, T, ldb) in
 //    scratch for the whole call and adds each batch element's tile in place
 //    (the rows stay in L2). In bf16 it does so as float2 pairs, since a lane
 //    of the m16n8k16 accumulator owns two neighbouring columns, with all of
@@ -59,14 +76,14 @@
 // read, dbias written in f32) against 19.6 GFLOP of the five products it
 // needs; at 3.35 TB/s and 989 TFLOP/s both are bound by bytes (K1: 13.0
 // us). K1's inference instance at the unpruned `base` model's shape (B 32,
-// H 12) moves 82.9 MB against 15.6 GFLOP: 24.7 us by bytes. The training
-// instance also has an issue-rate floor: about 30 instructions per score
+// H 12) moves 82.9 MB against 15.6 GFLOP: 24.7 us by bytes. The dropout
+// instances also have an issue-rate floor: about 30 instructions per score
 // (19 of them the dropout hash) over 30.6 M scores at 132 SMs x 4
-// schedulers x 32 lanes x 1.98 GHz is about 27 us, above its byte bound.
+// schedulers x 32 lanes x 1.98 GHz is about 27 us, above their byte bound.
 // The split adds the S partial slices (4 x 7.6 MB written and read at that
 // shape), which stay in the 50 MB L2.
 //
-// K1, bfloat16 (both instances; sm_90a):
+// K1, bfloat16 (every instance; sm_90a):
 //  * A block owns 128 query rows of one (batch, head): two warpgroups of 64
 //    rows, 256 threads, two blocks an SM at D 64 (128 registers, 82 KB of
 //    shared memory each). Grid: ceil(T / 128) x B H. At T 399 that is 128
@@ -89,9 +106,14 @@
 //  * Both products on wgmma m64n64k16 (f32 accumulate): s = q k^T with Q
 //    and K from shared memory (K-major); o += p v with p from registers (the
 //    accumulator rounded to bf16 in place, which is the A layout) and the V
-//    tile MN-major. The softmax runs in base 2 (ex2.approx), deferred: one
-//    f32 row sum, taken before the dropout mask, and one divide at the end.
-//  * The training instance computes the 32 keep bits of a lane's scores
+//    tile MN-major. The f32 and deferred schedules run in base 2
+//    (ex2.approx of scores scaled by log2(e)); bf16 keeps the scores in
+//    natural units, rounds the shifted score to bf16 and takes ex2 of it
+//    times log2(e) in f32, whose rounding (2^-24 relative) lies far below
+//    bf16's (2^-9), so p differs from exp in bf16 only where ex2.approx's
+//    two ulps cross a bf16 rounding boundary. Both passes of a two-pass
+//    schedule stream their tiles through the same ring.
+//  * The dropout instances compute the 32 keep bits of a lane's scores
 //    while that tile's q k^T runs on the tensor cores, so the hash is off
 //    the critical path; the bits select p * keep_scale or 0 after the sum.
 //
@@ -102,7 +124,11 @@
 //    cores with mma.sync m16n8k16 (f32 accumulate). An accumulator's
 //    register layout is the A-operand layout of the next product, so dS and
 //    W * m are rounded to bf16 in registers and never touch shared memory.
-//  * float32: 256 threads on the CUDA cores in f32, exact for f32 inputs.
+//  * float32: 256 threads on the CUDA cores in f32, exact for f32 inputs;
+//    K1 there has the three schedules too (f32 and deferred differ only by
+//    reassociation for f32 inputs; bf16 still rounds the scores), with a
+//    first pass over the K tiles in the f32 and bf16 schedules.
+// K2's passes have an instance without the mask replay for rate 0.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -110,7 +136,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace {
+
+// the TPU kernel's softmax_mode, numbered as ops/flash_attention.py's SOFTMAX_MODES
+enum Schedule : int { kF32 = 0, kDeferred = 1, kBf16 = 2 };
 
 constexpr int kBlockQ = 64;        // query rows per block
 constexpr int kBlockK = 64;        // keys per shared-memory tile
@@ -152,10 +183,16 @@ __device__ __forceinline__ uint32_t dropout_hash(uint32_t s1, uint32_t s2, uint3
   return x;
 }
 
-// keep value of (row, col)
+// keep value of (row, col); 1 in an instance without dropout
+template <bool kDrop>
 __device__ __forceinline__ float dropout_keep(uint32_t s1, uint32_t s2, uint32_t r,
                                               uint32_t c, const Dropout& dr) {
+  if (!kDrop) return 1.f;
   return dropout_hash(s1, s2, r, c) >= dr.threshold ? dr.keep_scale : 0.f;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // ---------------------------------------------------------------------------
@@ -516,18 +553,15 @@ __device__ __forceinline__ uint32_t keep_bits(uint32_t s1, uint32_t s2, const in
   return bits;
 }
 
-// The scores of one key tile to p: scale, gated bias from the staged tile,
-// the running max (corr: the factor of the old max against the new one),
-// the row sum before the dropout mask, p = 2^(x - m) rounded to bf16 in the
-// A layout of the p @ v product. Everything in base 2: x = s log2(e) /
-// sqrt(D) + gate log2(e) bias. kMask: the tile holds keys past t.
-template <bool kTrain, bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2],
-                                             const __nv_bfloat16* bias_row, int g, int c,
-                                             float c1, const float (&gt2)[2], int k0, int t,
-                                             uint32_t keep, float keep_scale) {
-  float tmax[2] = {-INFINITY, -INFINITY};
+// The scores of one key tile in place, in the units of c1 and gt2 (base 2
+// or natural): x = s c1 + gt2 bias from the staged tile, keys past t set to
+// kMasked when kTail, and with kMax the tile's row maxima, reduced over the
+// 4 lanes of a row group (which hold its 64 columns).
+template <bool kTail, bool kMax>
+__device__ __forceinline__ void tile_scores(float (&s)[32], float (&tmax)[2],
+                                            const __nv_bfloat16* bias_row, int g, int c,
+                                            float c1, const float (&gt2)[2], int k0, int t) {
+  tmax[0] = tmax[1] = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -537,38 +571,83 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], 
           bias_row + i * 8 * kBlockK + ((j ^ g) * 8) + 2 * c));
       float x0 = fmaf(s[4 * j + 2 * i], c1, gt2[i] * b.x);
       float x1 = fmaf(s[4 * j + 2 * i + 1], c1, gt2[i] * b.y);
-      if (kMask) {
+      if (kTail) {
         const int col = k0 + 8 * j + 2 * c;
         if (col >= t) x0 = kMasked;
         if (col + 1 >= t) x1 = kMasked;
       }
       s[4 * j + 2 * i] = x0;
       s[4 * j + 2 * i + 1] = x1;
-      tmax[i] = fmaxf(tmax[i], fmaxf(x0, x1));
+      if (kMax) tmax[i] = fmaxf(tmax[i], fmaxf(x0, x1));
     }
   }
+  if (kMax) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {  // the 4 lanes of a row group hold its 64 columns
-    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-    const float m_new = fmaxf(m[i], tmax[i]);  // finite: key 0 is valid
-    corr[i] = ex2(m[i] - m_new);
-    m[i] = m_new;
-    l[i] *= corr[i];
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+    }
   }
+}
+
+// The first pass of a two-pass schedule over one tile of scores x: the
+// running row max m and, in the f32 schedule, this lane's share of the row
+// sum of 2^(x - m), rescaled when m grows.
+template <int kMode>
+__device__ __forceinline__ void tile_stats(const float (&s)[32], const float (&tmax)[2],
+                                           float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], tmax[i]);  // finite: key 0 is valid
+    if (kMode == kF32) l[i] *= ex2(m[i] - m_new);
+    m[i] = m_new;
+  }
+  if (kMode == kF32) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        l[i] += ex2(s[4 * j + 2 * i] - m[i]) + ex2(s[4 * j + 2 * i + 1] - m[i]);
+  }
+}
+
+// The weights of one tile of scores x, rounded to bf16 in the A layout of
+// the p @ v product:
+//  * deferred: p = 2^(x - m) with m the running max, l += p;
+//  * f32: w = 2^(x - m) / l with m and l of the whole row (first pass);
+//  * bf16: p = bf16(e^bf16(x - m)) with x and m in natural units and m the
+//    row max, l += p.
+// The dropout instances then take bit 4 j + 2 i + e of `keep`: p * keep_scale
+// or 0 (in bf16 for the bf16 schedule, whose keep_scale is bf16-rounded).
+template <int kMode, bool kDrop>
+__device__ __forceinline__ void tile_weights(float (&s)[32], uint32_t (&p)[16],
+                                             const float (&m)[2], float (&l)[2],
+                                             const float (&inv_l)[2], uint32_t keep,
+                                             float keep_scale) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      float p0 = ex2(s[4 * j + 2 * i] - m[i]);
-      float p1 = ex2(s[4 * j + 2 * i + 1] - m[i]);
-      l[i] += p0 + p1;
-      if (kTrain) {  // dropout after the row sum: bit 4 j + 2 i + e of `keep`
-        p0 = (keep >> (4 * j + 2 * i)) & 1u ? p0 * keep_scale : 0.f;
-        p1 = (keep >> (4 * j + 2 * i + 1)) & 1u ? p1 * keep_scale : 0.f;
+      float w[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = s[4 * j + 2 * i + e];
+        if (kMode == kBf16) {
+          w[e] = round_bf16(ex2(round_bf16(x - m[i]) * kLog2e));
+        } else {
+          w[e] = ex2(x - m[i]);
+        }
+        if (kMode == kF32) {
+          w[e] *= inv_l[i];
+        } else {
+          l[i] += w[e];
+        }
+        if (kDrop) {
+          const float kept = kMode == kBf16 ? round_bf16(w[e] * keep_scale) : w[e] * keep_scale;
+          w[e] = (keep >> (4 * j + 2 * i + e)) & 1u ? kept : 0.f;
+        }
+        s[4 * j + 2 * i + e] = w[e];
       }
-      s[4 * j + 2 * i] = p0;
-      s[4 * j + 2 * i + 1] = p1;
     }
   }
 #pragma unroll
@@ -581,8 +660,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[16], 
 // Block (query tile of kFwdRows rows, b * h + head): two warpgroups of 64
 // query rows. Lane (g = lane / 4, c = lane % 4) of warp w of warpgroup wg
 // owns rows q0 + 64 wg + 16 w + g and + 8, and in each 8-wide column tile the
-// columns 2 c and 2 c + 1.
-template <int kDim, bool kTrain>
+// columns 2 c and 2 c + 1. lse: the row log-sum-exp, written when not null.
+template <int kDim, int kMode, bool kDrop>
 __global__ void __launch_bounds__(kFwdThreads, kDim == 64 ? 2 : 1)
 gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
@@ -593,6 +672,7 @@ gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                                  float* __restrict__ lse,
                                  int num_heads, int t, int d, float scale, Dropout dr) {
   using L = FwdLayout<kDim>;
+  constexpr bool kTwoPass = kMode != kDeferred;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -604,21 +684,25 @@ gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = blockIdx.x * kFwdRows;
   const int bh = blockIdx.y, h = bh % num_heads;
   const int tiles = (t + kBlockK - 1) / kBlockK;
+  // loads through the ring: a two-pass schedule's first pass reads the K
+  // and bias tiles of every key tile, then the second K, V and bias again
+  const int loads = kTwoPass ? 2 * tiles : tiles;
   const int active = min(kFwdWarpgroups, (t - q0 + 63) / 64);  // warpgroups with rows < t
   const int wg = threadIdx.x / 128;
   const bool producer = threadIdx.x == 0;
 
-  // the K, V and bias tiles of key tile j into its ring slot (thread 0)
-  auto load_tile = [&](int j) {
-    const int slot = j % kFwdStages;
+  // load n of the ring into its slot (thread 0)
+  auto load_tile = [&](int n) {
+    const int slot = n % kFwdStages, j = n < tiles ? n : n - tiles;
+    const bool with_v = !kTwoPass || n >= tiles;
     unsigned char* st = stage(slot);
-    mbar_expect_tx(&full[slot], L::kStageBytes, producer);
+    mbar_expect_tx(&full[slot], with_v ? L::kStageBytes : L::kStageBytes - L::kKVBytes, producer);
 #pragma unroll
     for (int hf = 0; hf < L::kHalves; ++hf) {
       tma_load_3d(st + hf * kBlockK * 128, &k_map, &full[slot], 64 * hf, j * kBlockK, bh,
                   producer);
       tma_load_3d(st + L::kKVBytes + hf * kBlockK * 128, &v_map, &full[slot], 64 * hf,
-                  j * kBlockK, bh, producer);
+                  j * kBlockK, bh, producer && with_v);
     }
     tma_load_3d(st + 2 * L::kKVBytes, &bias_map, &full[slot], j * kBlockK, q0, h, producer);
   };
@@ -637,21 +721,24 @@ gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int hf = 0; hf < L::kHalves; ++hf)
     tma_load_3d(base + hf * kFwdRows * 128, &q_map, q_bar, 64 * hf, q0, bh, producer);
-  for (int j = 0; j < kFwdStages && j < tiles; ++j) load_tile(j);  // the ring starts empty
+  for (int n = 0; n < kFwdStages && n < loads; ++n) load_tile(n);  // the ring starts empty
 
   const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
   const int r_tile = 64 * wg + 16 * (threadIdx.x % 128 / 32) + g;  // first row within the block
   const int row[2] = {q0 + r_tile, q0 + r_tile + 8};
-  const float c1 = scale * kLog2e;
-  float gt2[2], m[2], l[2];
+  // scores in base 2 (x = s log2(e)), in natural units for the bf16 schedule
+  const float unit = kMode == kBf16 ? 1.f : kLog2e;
+  const float c1 = scale * unit;
+  const float keep_scale = kMode == kBf16 ? round_bf16(dr.keep_scale) : dr.keep_scale;
+  float gt2[2], m[2], l[2], inv_l[2] = {1.f, 1.f};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    gt2[i] = row[i] < t ? gate[(size_t)bh * t + row[i]] * kLog2e : 0.f;
+    gt2[i] = row[i] < t ? gate[(size_t)bh * t + row[i]] * unit : 0.f;
     m[i] = -INFINITY;
     l[i] = 0.f;  // this lane's share of the row sum; lanes are summed at the end
   }
   uint32_t s1 = 0, s2 = 0;
-  if (kTrain) dropout_streams(dr.seed, bh / num_heads, h, s1, s2);
+  if (kDrop) dropout_streams(dr.seed, bh / num_heads, h, s1, s2);
   uint64_t qd[L::kHalves];
   float o[L::kHalves][32];
 #pragma unroll
@@ -660,38 +747,86 @@ gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[hf][i] = 0.f;
   }
-  float sc[32];
+  float sc[32], tmax[2];
   uint32_t p[16];
   mbar_wait(q_bar, 0);
 
+  // this warp no longer reads load n: its slot goes back to the ring, and
+  // thread 0 refills it with load n + 2 once all warps have released it
+  auto release = [&](int n) {
+    const int slot = n % kFwdStages;
+    __syncwarp();
+    mbar_arrive(&empty[slot], lane == 0);
+    if (n + kFwdStages < loads) {
+      mbar_wait(&empty[slot], (n / kFwdStages) & 1, producer);
+      load_tile(n + kFwdStages);
+    }
+  };
+
+  if (kTwoPass) {  // first pass: q k^T and the bias of every key tile, for m (and l)
+    for (int j = 0; j < tiles; ++j) {
+      unsigned char* st = stage(j % kFwdStages);
+      mbar_wait(&full[j % kFwdStages], (j / kFwdStages) & 1);
+      issue_scores<kDim>(sc, qd, st);
+      const int k0 = j * kBlockK;
+      wgmma_wait<0>();
+      fence_regs(sc);
+      const __nv_bfloat16* bias_row =
+          reinterpret_cast<const __nv_bfloat16*>(st + 2 * L::kKVBytes) + r_tile * kBlockK;
+      if (k0 + kBlockK <= t)
+        tile_scores<false, true>(sc, tmax, bias_row, g, c, c1, gt2, k0, t);
+      else
+        tile_scores<true, true>(sc, tmax, bias_row, g, c, c1, gt2, k0, t);
+      tile_stats<kMode>(sc, tmax, m, l);
+      release(j);
+    }
+    if (kMode == kF32) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the row's sum, in every lane of its group
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        inv_l[i] = 1.f / l[i];
+      }
+    }
+  }
+
   // Key tile j: q k^T is issued; while it runs on the tensor cores the
-  // training instance hashes the tile's keep bits. The softmax makes p, and
-  // p @ v is issued and waited for; then the slot goes back to the ring and
-  // thread 0 refills it with tile j + 2 once all warps have released it. (A p @ v left in flight into the
-  // next tile makes ptxas serialise every wgmma; issuing the next tile's
-  // q k^T before this tile's softmax measured slower.)
+  // dropout instances hash the tile's keep bits. The softmax makes p, and
+  // p @ v is issued and waited for; then the slot goes back to the ring. (A
+  // p @ v left in flight into the next tile makes ptxas serialise every
+  // wgmma; issuing the next tile's q k^T before this tile's softmax measured
+  // slower.)
+  const int first = kTwoPass ? tiles : 0;
   for (int j = 0; j < tiles; ++j) {
-    const int slot = j % kFwdStages;
+    const int n = first + j, slot = n % kFwdStages;
     unsigned char* st = stage(slot);
-    mbar_wait(&full[slot], (j / kFwdStages) & 1);
+    mbar_wait(&full[slot], (n / kFwdStages) & 1);
     issue_scores<kDim>(sc, qd, st);
     const int k0 = j * kBlockK;
-    const uint32_t keep = kTrain ? keep_bits(s1, s2, row, k0, c, dr.threshold) : 0u;
+    const uint32_t keep = kDrop ? keep_bits(s1, s2, row, k0, c, dr.threshold) : 0u;
     wgmma_wait<0>();
     fence_regs(sc);
-    float corr[2];
     const __nv_bfloat16* bias_row =
         reinterpret_cast<const __nv_bfloat16*>(st + 2 * L::kKVBytes) + r_tile * kBlockK;
     if (k0 + kBlockK <= t)
-      softmax_tile<kTrain, false>(sc, p, m, l, corr, bias_row, g, c, c1, gt2, k0, t, keep,
-                                  dr.keep_scale);
+      tile_scores<false, !kTwoPass>(sc, tmax, bias_row, g, c, c1, gt2, k0, t);
     else
-      softmax_tile<kTrain, true>(sc, p, m, l, corr, bias_row, g, c, c1, gt2, k0, t, keep,
-                                 dr.keep_scale);
+      tile_scores<true, !kTwoPass>(sc, tmax, bias_row, g, c, c1, gt2, k0, t);
+    if (!kTwoPass) {  // the running max; o and l rescaled by the factor of the old against the new
+      float corr[2];
 #pragma unroll
-    for (int hf = 0; hf < L::kHalves; ++hf)
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], tmax[i]);  // finite: key 0 is valid
+        corr[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[hf][i] *= corr[(i / 2) % 2];
+      for (int hf = 0; hf < L::kHalves; ++hf)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[hf][i] *= corr[(i / 2) % 2];
+    }
+    tile_weights<kMode, kDrop>(sc, p, m, l, inv_l, keep, keep_scale);
     // p and the rescaled o are complete before the fence: the compiler may
     // not sink their instructions into the wgmma pipeline
     fence_regs(p);
@@ -710,25 +845,25 @@ gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     fence_regs(p);
 #pragma unroll
     for (int hf = 0; hf < L::kHalves; ++hf) fence_regs(o[hf]);
-    __syncwarp();
-    mbar_arrive(&empty[slot], lane == 0);  // this warp no longer reads tile j
-    if (j + kFwdStages < tiles) {
-      mbar_wait(&empty[slot], (j / kFwdStages) & 1, producer);
-      load_tile(j + kFwdStages);
-    }
+    release(n);
   }
 
+  float out_scale[2] = {1.f, 1.f};  // the f32 schedule's w is normalised already
+  if (kMode != kF32) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      out_scale[i] = 1.f / l[i];
+    }
   }
   const size_t head = (size_t)bh * t * d;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= t) continue;
-    const float inv = 1.f / l[i];
-    if (kTrain && c == 0) lse[(size_t)bh * t + row[i]] = (m[i] + log2f(l[i])) * kLn2;
+    if (lse != nullptr && c == 0)  // natural units
+      lse[(size_t)bh * t + row[i]] = kMode == kBf16 ? m[i] + logf(l[i])
+                                                    : (m[i] + log2f(l[i])) * kLn2;
 #pragma unroll
     for (int hf = 0; hf < L::kHalves; ++hf)
 #pragma unroll
@@ -736,26 +871,32 @@ gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         const int col = 64 * hf + 8 * j + 2 * c;
         if (col < d) {
           *reinterpret_cast<__nv_bfloat162*>(out + head + (size_t)row[i] * d + col) =
-              __floats2bfloat162_rn(o[hf][4 * j + 2 * i] * inv, o[hf][4 * j + 2 * i + 1] * inv);
+              __floats2bfloat162_rn(o[hf][4 * j + 2 * i] * out_scale[i],
+                                    o[hf][4 * j + 2 * i + 1] * out_scale[i]);
         }
       }
   }
 }
 
 // K2 pass A, bf16: one block per (head, 64 query rows, batch chunk),
-// looping over the chunk's batch elements and, for each, the 64-key tiles.
-// Lane layout as in K1. The K, V and bias tiles of the next (batch element,
-// key tile) step are copied into the other half of a double buffer with
-// cp.async while this step computes; the bias comes padded to rows of
-// ldbias (a multiple of 8) elements so that its tiles load in 16 bytes.
-template <int kDim>
+// looping over the chunk's batch elements and, for each, over the 64-key
+// tiles twice. The first sweep takes D = rowsum(W * dW' * m) as the TPU
+// kernel's r = sum(dw * w), from the exact f32 W (the FlashAttention-2
+// identity D = rowsum(dO * O) would read the forward's O, whose weights
+// were rounded to bf16 for the p @ v product: off by more than the
+// reference allows in dgate, which cancels D against the row's sum). The
+// second computes dS, dq, dgate and the partial dbias. Lane layout as in
+// K1. The K, V and bias tiles of the next (batch element, sweep, key tile)
+// step are copied into the other half of a double buffer with cp.async
+// while this step computes; the bias comes padded to rows of ldbias (a
+// multiple of 8) elements so that its tiles load in 16 bytes.
+template <int kDim, bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              const __nv_bfloat16* __restrict__ bias, int ldbias,
                              const float* __restrict__ gate,
-                             const __nv_bfloat16* __restrict__ out,
                              const __nv_bfloat16* __restrict__ dout,
                              const float* __restrict__ lse,
                              float* __restrict__ delta,
@@ -775,7 +916,6 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ks = dos + kBlockQ * ld;  // two K tiles, then two V tiles, then two bias tiles
   __nv_bfloat16* vs = ks + 2 * kTileKV;
   __nv_bfloat16* pbs = vs + 2 * kTileKV;
-  float* delta_s = reinterpret_cast<float*>(pbs + 2 * kTileP);  // (64,)
 
   const int h = blockIdx.x;
   const int q0 = blockIdx.y * kBlockQ;
@@ -788,12 +928,12 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* bias_h = bias + (size_t)h * t * ldbias;
   float* part = dbias_part + ((size_t)blockIdx.z * num_heads + h) * t * ldb;
   const int tiles = (t + kBlockK - 1) / kBlockK;
-  const int steps = (b1 - b0) * tiles;
+  const int steps = (b1 - b0) * 2 * tiles;  // per batch element: the D sweep, then the dS sweep
 
   // the K, V and bias tiles of step `st` into buffer st % 2
   auto prefetch = [&](int st) {
     const int buf = st & 1, k0 = (st % tiles) * kBlockK;
-    const size_t head = (size_t)((b0 + st / tiles) * num_heads + h) * t * d;
+    const size_t head = (size_t)((b0 + st / (2 * tiles)) * num_heads + h) * t * d;
     load_tile_async<kDim>(ks + buf * kTileKV, k + head, k0, t, d);
     load_tile_async<kDim>(vs + buf * kTileKV, v + head, k0, t, d);
     for (int i = tid; i < kBlockQ * (kBlockK / 8); i += kWarps * 32) {
@@ -811,28 +951,13 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t s1 = 0, s2 = 0;
   prefetch(0);
   for (int st = 0; st < steps; ++st) {
-    const int b = b0 + st / tiles, kt = st % tiles, k0 = kt * kBlockK, buf = st & 1;
+    const int b = b0 + st / (2 * tiles), kt = st % tiles, k0 = kt * kBlockK, buf = st & 1;
+    const bool d_sweep = st % (2 * tiles) < tiles;
     const int bh = b * num_heads + h;
     const size_t head = (size_t)bh * t * d;
-    if (kt == 0) {  // a new batch element: its q and dO rows, D, gate and lse
+    if (d_sweep && kt == 0) {  // a new batch element: its q and dO rows, gate and lse
       load_tile<kDim>(qs, q + head, q0, t, d);
       load_tile<kDim>(dos, dout + head, q0, t, d);
-      {  // D = rowsum(dO * O): two threads per row, half the head dim each
-        const int r = tid / 2, half = tid % 2;
-        const int rr = q0 + r;
-        float acc = 0.f;
-        if (rr < t) {
-          const __nv_bfloat16* o_row = out + head + (size_t)rr * d;
-          const __nv_bfloat16* do_row = dout + head + (size_t)rr * d;
-          for (int c = half; c < d; c += 2)
-            acc += __bfloat162float(o_row[c]) * __bfloat162float(do_row[c]);
-        }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        if (half == 0) {
-          delta_s[r] = acc;
-          if (rr < t) delta[(size_t)bh * t + rr] = acc;
-        }
-      }
       __syncthreads();
       load_a_fragments<kDim>(qf, qs, rq, c2);
       load_a_fragments<kDim>(df, dos, rq, c2);
@@ -841,10 +966,13 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const bool valid = row[i] < t;
         gt[i] = valid ? gate[(size_t)bh * t + row[i]] : 0.f;
         ls[i] = valid ? lse[(size_t)bh * t + row[i]] : 0.f;
-        dl[i] = delta_s[rq + 8 * i];
-        dg[i] = 0.f;
+        dl[i] = 0.f;  // this lane's share of D
       }
-      dropout_streams(dr.seed, b, h, s1, s2);
+      if (kDrop) dropout_streams(dr.seed, b, h, s1, s2);
+    }
+    if (!d_sweep && kt == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) dg[i] = 0.f;
 #pragma unroll
       for (int j = 0; j < kOut; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
     }
@@ -861,6 +989,34 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     float s[8][4], dp[8][4];
     mma_rows_by_tile<kDim>(s, qf, kt_s, g, c2);              // q k^T
     mma_rows_by_tile<kDim>(dp, df, vs + buf * kTileKV, g, c2);  // dO v^T
+    if (d_sweep) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + 8 * j + c2;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 pb = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(pb_s + (rq + 8 * i) * ldp + 8 * j + c2));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (col + e < t && row[i] < t) {
+              const float w = expf(s[j][2 * i + e] * scale + gt[i] * (e == 0 ? pb.x : pb.y) - ls[i]);
+              dl[i] += w * dp[j][2 * i + e] * dropout_keep<kDrop>(s1, s2, row[i], col + e, dr);
+            }
+          }
+        }
+      }
+      if (kt == tiles - 1) {  // D of the rows: the 4 lanes of a row group hold its columns
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 1);
+          dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 2);
+          if (c2 == 0 && row[i] < t) delta[(size_t)bh * t + row[i]] = dl[i];
+        }
+      }
+      __syncthreads();  // this step's buffer is no longer read
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = k0 + 8 * j + c2;
@@ -874,7 +1030,7 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           float ds = 0.f;
           if (col + e < t && row[i] < t) {
             const float w = expf(s[j][2 * i + e] * scale + gt[i] * pbe - ls[i]);
-            ds = w * (dp[j][2 * i + e] * dropout_keep(s1, s2, row[i], col + e, dr) - dl[i]);
+            ds = w * (dp[j][2 * i + e] * dropout_keep<kDrop>(s1, s2, row[i], col + e, dr) - dl[i]);
             dg[i] += ds * pbe;
           }
           s[j][2 * i + e] = ds;
@@ -934,7 +1090,7 @@ attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 // K2 pass B, bf16: one block per (batch, head, 64 keys). Lane (g, c) of warp
 // w owns keys 16 w + g and 16 w + g + 8; the "columns" of its score tiles are
 // query rows.
-template <int kDim>
+template <int kDim, bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
@@ -978,8 +1134,8 @@ attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t kf[kSteps][4], vf[kSteps][4];
   load_a_fragments<kDim>(kf, ks, rk, c2);
   load_a_fragments<kDim>(vf, vs, rk, c2);
-  uint32_t s1, s2;
-  dropout_streams(dr.seed, b, h, s1, s2);
+  uint32_t s1 = 0, s2 = 0;
+  if (kDrop) dropout_streams(dr.seed, b, h, s1, s2);
   float dka[kOut][4], dva[kOut][4];
 #pragma unroll
   for (int j = 0; j < kOut; ++j) {
@@ -1019,7 +1175,7 @@ attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         if (qrow < t && key[i] < t) {
           const float pb = __bfloat162float(pt[qi * ldp + rk + 8 * i]);
           const float w = expf(st[j][e] * scale + gate_s[qi] * pb - lse_s[qi]);
-          const float keep = dropout_keep(s1, s2, qrow, key[i], dr);
+          const float keep = dropout_keep<kDrop>(s1, s2, qrow, key[i], dr);
           wd = w * keep;
           ds = w * (dpt[j][e] * keep - delta_s[qi]);
         }
@@ -1070,8 +1226,10 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
 // Thread (ty, tx) owns query rows ty + 16 * i (i < kRows), keys tx + 16 * j of
 // each tile (j < kKeys) and head-dim columns tx + 16 * j (j < kCols). The 16
 // threads that share a row sit in one half-warp, so row reductions are
-// shuffles. kCols * 16 >= D.
-template <int kCols, bool kTrain>
+// shuffles. kCols * 16 >= D. The schedules as in the bf16 kernel, in natural
+// units (expf): the f32 and bf16 ones take a first pass over the K tiles
+// for the row max (and the f32 row sum) before the pass that reads V.
+template <int kCols, int kMode, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ bias,
@@ -1117,20 +1275,23 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
     for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   }
   uint32_t s1 = 0, s2 = 0;
-  if (kTrain) dropout_streams(dr.seed, bh / num_heads, h, s1, s2);
+  if (kDrop) dropout_streams(dr.seed, bh / num_heads, h, s1, s2);
+  const float keep_scale = kMode == kBf16 ? round_bf16(dr.keep_scale) : dr.keep_scale;
 
-  for (int k0 = 0; k0 < t; k0 += kBlockK) {
+  // K (and V) rows k0 .. k0 + 63 into shared memory, zeros past t
+  auto load_keys = [&](int k0, bool with_v) {
     __syncthreads();  // the previous tile's ks, vs and ps are no longer read
     for (int i = tid; i < kBlockK * d; i += kThreads) {
       const int r = i / d, c = i % d;
       const int row = k0 + r;
       const bool valid = row < t;
       ks[r * ld + c] = valid ? kh[(size_t)row * d + c] : 0.f;
-      vs[r * ld + c] = valid ? vh[(size_t)row * d + c] : 0.f;
+      if (with_v) vs[r * ld + c] = valid ? vh[(size_t)row * d + c] : 0.f;
     }
     __syncthreads();
-
-    float s[kRows][kKeys];
+  };
+  // this thread's scores of the tile at k0: q k^T + gate bias, keys past t masked
+  auto scores = [&](int k0, float (&s)[kRows][kKeys]) {
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -1147,11 +1308,9 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
 #pragma unroll
         for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
-
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int row = q0 + ty + kThreadsY * i;
-      float row_max = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
         const int col = k0 + tx + kThreadsX * j;
@@ -1160,29 +1319,81 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
         } else if (row < t) {
           s[i][j] += g[i] * bias_h[(size_t)row * ldbias + col];
         }
-        row_max = fmaxf(row_max, s[i][j]);
       }
+    }
+  };
+  auto row_max = [&](const float (&s)[kKeys]) {
+    float mx = -INFINITY;
 #pragma unroll
-      for (int off = kThreadsX / 2; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      // key 0 is valid in the first tile, so m_new is finite from then on
-      const float m_new = fmaxf(m[i], row_max);
-      const float corr = expf(m[i] - m_new);
-      float row_sum = 0.f;
+    for (int j = 0; j < kKeys; ++j) mx = fmaxf(mx, s[j]);
+#pragma unroll
+    for (int off = kThreadsX / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    return mx;
+  };
+  auto row_sum = [&](float x) {
+#pragma unroll
+    for (int off = kThreadsX / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+  };
+
+  if (kMode != kDeferred) {  // first pass: the row max and, f32, the row sum
+    for (int k0 = 0; k0 < t; k0 += kBlockK) {
+      load_keys(k0, false);
+      float s[kRows][kKeys];
+      scores(k0, s);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        // key 0 is valid in the first tile, so m_new is finite from then on
+        const float m_new = fmaxf(m[i], row_max(s[i]));
+        if (kMode == kF32) {
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < kKeys; ++j) sum += expf(s[i][j] - m_new);
+          l[i] = l[i] * expf(m[i] - m_new) + row_sum(sum);
+        }
+        m[i] = m_new;
+      }
+    }
+  }
+
+  for (int k0 = 0; k0 < t; k0 += kBlockK) {
+    load_keys(k0, true);
+    float s[kRows][kKeys];
+    scores(k0, s);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + ty + kThreadsY * i;
+      float corr = 1.f;
+      if (kMode == kDeferred) {  // the running max; o and l rescaled
+        const float m_new = fmaxf(m[i], row_max(s[i]));
+        corr = expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+      float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
-        float p = expf(s[i][j] - m_new);
-        row_sum += p;
-        if (kTrain) p *= dropout_keep(s1, s2, row, k0 + tx + kThreadsX * j, dr);
+        float p;
+        if (kMode == kF32) {
+          p = expf(s[i][j] - m[i]) / l[i];
+        } else if (kMode == kBf16) {
+          p = round_bf16(expf(round_bf16(s[i][j] - m[i])));
+          sum += p;
+        } else {
+          p = expf(s[i][j] - m[i]);
+          sum += p;
+        }
+        if (kDrop) {
+          const float keep = dropout_keep<true>(s1, s2, row, k0 + tx + kThreadsX * j, dr);
+          p = keep == 0.f ? 0.f : kMode == kBf16 ? round_bf16(p * keep_scale) : p * keep;
+        }
         ps[(ty + kThreadsY * i) * ldp + tx + kThreadsX * j] = p;
       }
+      if (kMode != kF32) l[i] = l[i] * corr + row_sum(sum);
+      if (kMode == kDeferred) {
 #pragma unroll
-      for (int off = kThreadsX / 2; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[i] = l[i] * corr + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= corr;
+        for (int j = 0; j < kCols; ++j) acc[i][j] *= corr;
+      }
     }
     __syncthreads();
 
@@ -1207,8 +1418,8 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty + kThreadsY * i;
     if (row >= t) continue;
-    const float inv = 1.f / l[i];
-    if (kTrain && tx == 0) lse[(size_t)bh * t + row] = m[i] + logf(l[i]);
+    const float inv = kMode == kF32 ? 1.f : 1.f / l[i];
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * t + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int col = tx + kThreadsX * j;
@@ -1219,7 +1430,7 @@ gated_bias_attention_f32_kernel(const float* __restrict__ q, const float* __rest
 
 // K2 pass A, float32: one block per (head, 64 query rows, batch chunk),
 // looping over the chunk's batch elements. Thread layout as in the forward.
-template <int kCols>
+template <int kCols, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ bias,
@@ -1273,8 +1484,8 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
 #pragma unroll
       for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
     }
-    uint32_t s1, s2;
-    dropout_streams(dr.seed, b, h, s1, s2);
+    uint32_t s1 = 0, s2 = 0;
+    if (kDrop) dropout_streams(dr.seed, b, h, s1, s2);
 
     for (int k0 = 0; k0 < t; k0 += kBlockK) {
       __syncthreads();  // the previous tile's ks and dss are no longer read
@@ -1319,7 +1530,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
           if (col < t && row < t) {
             const float pb = bias_h[(size_t)row * ldbias + col];
             const float w = expf(s[i][j] + g[i] * pb - ls[i]);
-            ds = w * (dp[i][j] * dropout_keep(s1, s2, row, col, dr) - dl[i]);
+            ds = w * (dp[i][j] * dropout_keep<kDrop>(s1, s2, row, col, dr) - dl[i]);
             dg[i] += ds * pb;
             const float contrib = g[i] * ds;
             float* at = part + (size_t)row * ldb + col;
@@ -1367,7 +1578,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
 // K2 pass B, float32: one block per (batch, head, 64 keys). Thread (ty, tx)
 // owns keys ty + 16 * i, query columns tx + 16 * j of each query tile and
 // head-dim columns tx + 16 * j.
-template <int kCols>
+template <int kCols, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ bias,
@@ -1399,8 +1610,8 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restri
 
   load_tile_f32(ks, k + head, k0, t, d, ld, 1.f);
   load_tile_f32(vs, v + head, k0, t, d, ld, 1.f);
-  uint32_t s1, s2;
-  dropout_streams(dr.seed, b, h, s1, s2);
+  uint32_t s1 = 0, s2 = 0;
+  if (kDrop) dropout_streams(dr.seed, b, h, s1, s2);
   float dka[kRows][kCols], dva[kRows][kCols];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
@@ -1457,7 +1668,7 @@ attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restri
         if (qrow < t && key < t) {
           const float pb = bias_h[(size_t)qrow * ldbias + key];
           const float w = expf(st[i][j] + gate_s[qi] * pb - lse_s[qi]);
-          const float keep = dropout_keep(s1, s2, qrow, key, dr);
+          const float keep = dropout_keep<kDrop>(s1, s2, qrow, key, dr);
           wd = w * keep;
           ds = w * (dpt[i][j] * keep - delta_s[qi]);
         }
@@ -1564,7 +1775,7 @@ int encode_3d(const EncodeTiled encode, CUtensorMap* map, const void* ptr, int c
   return r == CUDA_SUCCESS ? 0 : -1000 - (int)r;
 }
 
-template <int kDim, bool kTrain>
+template <int kDim, int kMode, bool kDrop>
 int launch_forward_bf16(const void* q, const void* k, const void* v, const void* bias,
                         int ldbias, const float* gate, void* out, float* lse, int b, int h,
                         int t, int d, float scale, Dropout dr, cudaStream_t s) {
@@ -1580,7 +1791,7 @@ int launch_forward_bf16(const void* q, const void* k, const void* v, const void*
       (rc = encode_3d(encode, &bias_map, bias, t, t, h, ldbias, (size_t)t * ldbias, kBlockK,
                       kFwdRows)) != 0)
     return rc;
-  auto kernel = gated_bias_attention_bf16_kernel<kDim, kTrain>;
+  auto kernel = gated_bias_attention_bf16_kernel<kDim, kMode, kDrop>;
   const size_t smem = FwdLayout<kDim>::kSmem;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1591,67 +1802,86 @@ int launch_forward_bf16(const void* q, const void* k, const void* v, const void*
   return (int)cudaGetLastError();
 }
 
-template <bool kTrain>
-int launch_forward(const void* q, const void* k, const void* v, const void* bias, int ldbias,
-                   const void* gate, void* out, float* lse, int b, int h, int t, int d,
-                   int is_bf16, Dropout dr, cudaStream_t s) {
-  const float scale = 1.0f / sqrtf((float)d);
-  const float* gate_f = static_cast<const float*>(gate);
-  if (is_bf16) {
-    return d <= 64 ? launch_forward_bf16<64, kTrain>(q, k, v, bias, ldbias, gate_f, out, lse, b,
-                                                     h, t, d, scale, dr, s)
-                   : launch_forward_bf16<128, kTrain>(q, k, v, bias, ldbias, gate_f, out, lse,
-                                                      b, h, t, d, scale, dr, s);
-  }
-  const dim3 grid(b * h, (t + kBlockQ - 1) / kBlockQ);
-  auto kernel = d <= 64 ? gated_bias_attention_f32_kernel<4, kTrain>
-                        : gated_bias_attention_f32_kernel<8, kTrain>;
+template <int kCols, int kMode, bool kDrop>
+int launch_forward_f32(const void* q, const void* k, const void* v, const void* bias,
+                       int ldbias, const float* gate, void* out, float* lse, int b, int h,
+                       int t, int d, float scale, Dropout dr, cudaStream_t s) {
+  auto kernel = gated_bias_attention_f32_kernel<kCols, kMode, kDrop>;
   const size_t smem = sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (d + 1) +
                                        (size_t)kBlockQ * (kBlockK + 1));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * h, (t + kBlockQ - 1) / kBlockQ);
   kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(bias), ldbias, gate_f, static_cast<float*>(out), lse, h, t, d,
+      static_cast<const float*>(bias), ldbias, gate, static_cast<float*>(out), lse, h, t, d,
       scale, dr);
   return (int)cudaGetLastError();
 }
+
+using ForwardLaunch = int (*)(const void*, const void*, const void*, const void*, int,
+                              const float*, void*, float*, int, int, int, int, float, Dropout,
+                              cudaStream_t);
+
+// The instance of (schedule, dropout) at a head dim (bf16: 64 or 128) or a
+// column count (f32: 4 or 8): each schedule without the mask, and the f32
+// schedule with it (the training forward; no path runs inference with
+// dropout in another schedule). A schedule's number is its template
+// argument, so table[mode] runs schedule mode; nullptr: no such instance.
+template <int kDim, int... kModes>
+ForwardLaunch forward_bf16(int mode, int dropout, std::integer_sequence<int, kModes...>) {
+  static const ForwardLaunch table[] = {launch_forward_bf16<kDim, kModes, false>...};
+  if (dropout) return mode == kF32 ? launch_forward_bf16<kDim, kF32, true> : nullptr;
+  return table[mode];
+}
+
+template <int kCols, int... kModes>
+ForwardLaunch forward_f32(int mode, int dropout, std::integer_sequence<int, kModes...>) {
+  static const ForwardLaunch table[] = {launch_forward_f32<kCols, kModes, false>...};
+  if (dropout) return mode == kF32 ? launch_forward_f32<kCols, kF32, true> : nullptr;
+  return table[mode];
+}
+
+using Schedules = std::make_integer_sequence<int, kBf16 + 1>;  // kF32, kDeferred, kBf16
 
 }  // namespace
 
 // q, k, v, out: (b, h, t, d) contiguous, float32 (is_bf16 == 0) or bfloat16,
 // 16-byte aligned; bias: (h, t, t) in the same type, rows of ldbias elements
 // (ldbias >= t, a multiple of 8, heads t * ldbias apart, 16-byte aligned);
-// gate: (b, h, t) float32; d <= 128 and a multiple of 8.
+// gate: (b, h, t) float32; d <= 128 and a multiple of 8. mode: the softmax
+// schedule (0 f32, 1 deferred, 2 bf16). dropout != 0: the instance with the
+// mask of (seed, threshold, keep_scale), f32 schedule only (any other is
+// refused); 0: the instance without it. lse:
+// (b, h, t) float32 row log-sum-exp, written when not null (the training
+// forward, f32 schedule).
 // Returns the CUDA error of the launch (0 on success), -1 when the driver
 // has no cuTensorMapEncodeTiled, -1000 - the driver's error when a tensor
 // map is refused.
 extern "C" int gated_bias_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* bias, int ldbias, const void* gate,
-                                        void* out, int b, int h, int t, int d, int is_bf16,
-                                        void* stream) {
-  return launch_forward<false>(q, k, v, bias, ldbias, gate, out, nullptr, b, h, t, d, is_bf16,
-                               Dropout{0u, 0u, 1.f}, static_cast<cudaStream_t>(stream));
+                                        void* out, void* lse, int b, int h, int t, int d,
+                                        int is_bf16, int mode, int dropout, uint32_t seed,
+                                        uint32_t threshold, float keep_scale, void* stream) {
+  if (mode < 0 || mode > kBf16) return (int)cudaErrorInvalidValue;
+  const ForwardLaunch launch =
+      is_bf16 ? (d <= 64 ? forward_bf16<64>(mode, dropout, Schedules{})
+                         : forward_bf16<128>(mode, dropout, Schedules{}))
+              : (d <= 64 ? forward_f32<4>(mode, dropout, Schedules{})
+                         : forward_f32<8>(mode, dropout, Schedules{}));
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, bias, ldbias, static_cast<const float*>(gate), out,
+                static_cast<float*>(lse), b, h, t, d, 1.0f / sqrtf((float)d),
+                Dropout{seed, threshold, keep_scale}, static_cast<cudaStream_t>(stream));
 }
 
-// As gated_bias_attention_fwd, with the dropout mask of (seed, threshold,
-// keep_scale) and the (b, h, t) float32 row log-sum-exp written to lse.
-extern "C" int gated_bias_attention_fwd_train(const void* q, const void* k, const void* v,
-                                              const void* bias, int ldbias, const void* gate,
-                                              void* out, void* lse, int b, int h, int t, int d,
-                                              int is_bf16, uint32_t seed, uint32_t threshold,
-                                              float keep_scale, void* stream) {
-  return launch_forward<true>(q, k, v, bias, ldbias, gate, out, static_cast<float*>(lse), b, h,
-                              t, d, is_bf16, Dropout{seed, threshold, keep_scale},
-                              static_cast<cudaStream_t>(stream));
-}
-
-// K1's bf16 blocks (either instance) for head dim d: writes the dynamic
+// K1's bf16 blocks (every instance) for head dim d: writes the dynamic
 // shared memory of a block to *smem and returns the blocks one SM of the
-// current device holds at once, or minus the CUDA error.
+// current device holds at once (the deferred instance without dropout, the
+// serving one), or minus the CUDA error.
 extern "C" int gated_bias_attention_fwd_bf16_occupancy(int d, int* smem) {
-  auto kernel = d <= 64 ? gated_bias_attention_bf16_kernel<64, false>
-                        : gated_bias_attention_bf16_kernel<128, false>;
+  auto kernel = d <= 64 ? gated_bias_attention_bf16_kernel<64, kDeferred, false>
+                        : gated_bias_attention_bf16_kernel<128, kDeferred, false>;
   const size_t bytes = d <= 64 ? FwdLayout<64>::kSmem : FwdLayout<128>::kSmem;
   *smem = (int)bytes;
   cudaError_t err = allow_smem(kernel, bytes);
@@ -1662,11 +1892,10 @@ extern "C" int gated_bias_attention_fwd_bf16_occupancy(int d, int* smem) {
 }
 
 // Pass A's shared memory. bf16 (dim 64 or 128): the q and dO tiles, two K,
-// two V and two bias tiles, D. f32: the q, dO, K and V tiles and the dS tile.
+// two V and two bias tiles. f32: the q, dO, K and V tiles and the dS tile.
 static size_t pass_a_smem_bf16(int dim) {
   return sizeof(__nv_bfloat16) * ((size_t)(2 * kBlockQ + 4 * kBlockK) * (dim + 8) +
-                                  2 * (size_t)kBlockQ * (kBlockK + 8)) +
-         sizeof(float) * kBlockQ;
+                                  2 * (size_t)kBlockQ * (kBlockK + 8));
 }
 
 static size_t pass_a_smem_f32(int d) {
@@ -1674,19 +1903,19 @@ static size_t pass_a_smem_f32(int d) {
                           (size_t)kBlockQ * (kBlockK + 1));
 }
 
-// Blocks of pass A that one SM of the current device holds at once (its
-// registers and shared memory decide), or minus the CUDA error. The plan
-// that splits the batch into chunks counts the card's resident blocks so.
-extern "C" int gated_bias_attention_bwd_a_blocks_per_sm(int d, int is_bf16) {
+template <bool kDrop>
+static int pass_a_blocks_per_sm(int d, int is_bf16) {
   int blocks = 0;
   cudaError_t err;
   if (is_bf16) {
-    auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64> : attention_bwd_dq_bf16_kernel<128>;
+    auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64, kDrop>
+                          : attention_bwd_dq_bf16_kernel<128, kDrop>;
     const size_t smem = pass_a_smem_bf16(d <= 64 ? 64 : 128);
     if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return -(int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_a, kWarps * 32, smem);
   } else {
-    auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4> : attention_bwd_dq_f32_kernel<8>;
+    auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4, kDrop>
+                          : attention_bwd_dq_f32_kernel<8, kDrop>;
     const size_t smem = pass_a_smem_f32(d);
     if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return -(int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_a, kThreads, smem);
@@ -1694,9 +1923,51 @@ extern "C" int gated_bias_attention_bwd_a_blocks_per_sm(int d, int is_bf16) {
   return err != cudaSuccess ? -(int)err : blocks;
 }
 
-// K2 pass A and the sum, for the backward of gated_bias_attention_fwd_train
-// with the same dropout arguments. Inputs: q, k, v, bias (h, t, ldbias) with
-// ldbias >= t a multiple of 8 and zeros past t, gate, out, dout (out's
+// Blocks of pass A (the instance with dropout != 0 or without) that one SM
+// of the current device holds at once (its registers and shared memory
+// decide), or minus the CUDA error. The plan that splits the batch into
+// chunks counts the card's resident blocks so.
+extern "C" int gated_bias_attention_bwd_a_blocks_per_sm(int d, int is_bf16, int dropout) {
+  return dropout ? pass_a_blocks_per_sm<true>(d, is_bf16) : pass_a_blocks_per_sm<false>(d, is_bf16);
+}
+
+template <bool kDrop>
+static cudaError_t launch_pass_a(const void* q, const void* k, const void* v, const void* bias,
+                                 int ldbias, const float* gate, const void* out, const void* dout,
+                                 const float* lse, float* delta, void* dq, float* dgate,
+                                 float* part, int b, int h, int t, int d, int is_bf16, int chunks,
+                                 int ldb, Dropout dr, cudaStream_t s) {
+  const dim3 grid(h, (t + kBlockQ - 1) / kBlockQ, chunks);
+  const float scale = 1.0f / sqrtf((float)d);
+  cudaError_t err;
+  if (is_bf16) {
+    using bf16 = __nv_bfloat16;
+    auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64, kDrop>
+                          : attention_bwd_dq_bf16_kernel<128, kDrop>;
+    const size_t smem = pass_a_smem_bf16(d <= 64 ? 64 : 128);
+    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return err;
+    pass_a<<<grid, kWarps * 32, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(bias), ldbias, gate, static_cast<const bf16*>(dout), lse,
+        delta, static_cast<bf16*>(dq), dgate, part, ldb, b, h, t, d, scale, dr);
+  } else {
+    auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4, kDrop>
+                          : attention_bwd_dq_f32_kernel<8, kDrop>;
+    const size_t smem = pass_a_smem_f32(d);
+    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return err;
+    pass_a<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(bias), ldbias, gate, static_cast<const float*>(out),
+        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), dgate, part,
+        ldb, b, h, t, d, scale, dr);
+  }
+  return cudaGetLastError();
+}
+
+// K2 pass A and the sum, for the backward of gated_bias_attention_fwd's
+// training forward with the same dropout arguments (dropout == 0: the
+// instance without the mask replay). Inputs: q, k, v, bias (h, t, ldbias)
+// with ldbias >= t a multiple of 8 and zeros past t, gate, out, dout (out's
 // cotangent), lse; outputs: delta (b, h, t) float32 (D, for pass B),
 // dq in q's type, dgate (b, h, t) and dbias (h, t, t) in float32; scratch:
 // dbias_part (chunks, h, t, ldb) float32 with ldb >= t, ldb % 4 == 0 (rows
@@ -1710,45 +1981,57 @@ extern "C" int gated_bias_attention_bwd_a(const void* q, const void* k, const vo
                                           const void* dout, const void* lse, void* delta, void* dq,
                                           void* dgate, void* dbias_part, void* dbias, int b,
                                           int h, int t, int d, int is_bf16, int chunks, int ldb,
-                                          uint32_t seed, uint32_t threshold, float keep_scale,
-                                          void* stream) {
+                                          int dropout, uint32_t seed, uint32_t threshold,
+                                          float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{seed, threshold, keep_scale};
-  const dim3 grid(h, (t + kBlockQ - 1) / kBlockQ, chunks);
-  const float scale = 1.0f / sqrtf((float)d);
-  const float* lse_f = static_cast<const float*>(lse);
-  float* delta_f = static_cast<float*>(delta);
-  float* dgate_f = static_cast<float*>(dgate);
   float* part = static_cast<float*>(dbias_part);
-  const float* gate_f = static_cast<const float*>(gate);
-  cudaError_t err;
-  if (is_bf16) {
-    using bf16 = __nv_bfloat16;
-    const int dim = d <= 64 ? 64 : 128;
-    auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64> : attention_bwd_dq_bf16_kernel<128>;
-    const size_t smem = pass_a_smem_bf16(dim);
-    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return (int)err;
-    pass_a<<<grid, kWarps * 32, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), ldbias, gate_f, static_cast<const bf16*>(out),
-        static_cast<const bf16*>(dout), lse_f, delta_f, static_cast<bf16*>(dq), dgate_f, part,
-        ldb, b, h, t, d, scale, dr);
-  } else {
-    auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4> : attention_bwd_dq_f32_kernel<8>;
-    const size_t smem = pass_a_smem_f32(d);
-    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return (int)err;
-    pass_a<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), ldbias, gate_f, static_cast<const float*>(out),
-        static_cast<const float*>(dout), lse_f, delta_f, static_cast<float*>(dq), dgate_f, part,
-        ldb, b, h, t, d, scale, dr);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  auto launch = dropout ? launch_pass_a<true> : launch_pass_a<false>;
+  cudaError_t err = launch(q, k, v, bias, ldbias, static_cast<const float*>(gate), out, dout,
+                           static_cast<const float*>(lse), static_cast<float*>(delta), dq,
+                           static_cast<float*>(dgate), part, b, h, t, d, is_bf16, chunks, ldb,
+                           dr, s);
+  if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)h * t * t;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
   dbias_sum_kernel<<<blocks, 256, 0, s>>>(part, static_cast<float*>(dbias), chunks, h * t, t,
                                           ldb);
   return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+static cudaError_t launch_pass_b(const void* q, const void* k, const void* v, const void* bias,
+                                 int ldbias, const float* gate, const void* dout,
+                                 const float* lse, const float* delta, void* dk, void* dv, int b,
+                                 int h, int t, int d, int is_bf16, Dropout dr, cudaStream_t s) {
+  const dim3 grid(b * h, (t + kBlockK - 1) / kBlockK);
+  const float scale = 1.0f / sqrtf((float)d);
+  cudaError_t err;
+  if (is_bf16) {
+    using bf16 = __nv_bfloat16;
+    const int dim = d <= 64 ? 64 : 128;
+    auto pass_b = d <= 64 ? attention_bwd_dkdv_bf16_kernel<64, kDrop>
+                          : attention_bwd_dkdv_bf16_kernel<128, kDrop>;
+    const size_t smem = sizeof(bf16) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
+                                        (size_t)kBlockQ * (kBlockK + 8)) +
+                        sizeof(float) * 3 * kBlockQ;
+    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return err;
+    pass_b<<<grid, kWarps * 32, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(bias), ldbias, gate, static_cast<const bf16*>(dout), lse,
+        delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, t, d, scale, dr);
+  } else {
+    auto pass_b = d <= 64 ? attention_bwd_dkdv_f32_kernel<4, kDrop>
+                          : attention_bwd_dkdv_f32_kernel<8, kDrop>;
+    const size_t smem = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
+                                         2 * (size_t)kBlockK * (kBlockQ + 1) + 3 * kBlockQ);
+    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return err;
+    pass_b<<<grid, kThreads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(bias), ldbias, gate, static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dk), static_cast<float*>(dv), h, t, d, scale, dr);
+  }
+  return cudaGetLastError();
 }
 
 // K2 pass B: dk, dv in q's type from q, k, v, bias (rows of ldbias), gate,
@@ -1758,39 +2041,12 @@ extern "C" int gated_bias_attention_bwd_b(const void* q, const void* k, const vo
                                           const void* bias, int ldbias, const void* gate,
                                           const void* dout,
                                           const void* lse, const void* delta, void* dk, void* dv,
-                                          int b, int h, int t, int d, int is_bf16, uint32_t seed,
-                                          uint32_t threshold, float keep_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout dr{seed, threshold, keep_scale};
-  const dim3 grid(b * h, (t + kBlockK - 1) / kBlockK);
-  const float scale = 1.0f / sqrtf((float)d);
-  const float* lse_f = static_cast<const float*>(lse);
-  const float* delta_f = static_cast<const float*>(delta);
-  const float* gate_f = static_cast<const float*>(gate);
-  cudaError_t err;
-  if (is_bf16) {
-    using bf16 = __nv_bfloat16;
-    const int dim = d <= 64 ? 64 : 128;
-    auto pass_b = d <= 64 ? attention_bwd_dkdv_bf16_kernel<64> : attention_bwd_dkdv_bf16_kernel<128>;
-    const size_t smem = sizeof(bf16) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
-                                        (size_t)kBlockQ * (kBlockK + 8)) +
-                        sizeof(float) * 3 * kBlockQ;
-    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return (int)err;
-    pass_b<<<grid, kWarps * 32, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), ldbias, gate_f, static_cast<const bf16*>(dout), lse_f,
-        delta_f,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, t, d, scale, dr);
-  } else {
-    auto pass_b = d <= 64 ? attention_bwd_dkdv_f32_kernel<4> : attention_bwd_dkdv_f32_kernel<8>;
-    const size_t smem = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
-                                         2 * (size_t)kBlockK * (kBlockQ + 1) + 3 * kBlockQ);
-    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return (int)err;
-    pass_b<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), ldbias, gate_f, static_cast<const float*>(dout), lse_f,
-        delta_f,
-        static_cast<float*>(dk), static_cast<float*>(dv), h, t, d, scale, dr);
-  }
-  return (int)cudaGetLastError();
+                                          int b, int h, int t, int d, int is_bf16, int dropout,
+                                          uint32_t seed, uint32_t threshold, float keep_scale,
+                                          void* stream) {
+  auto launch = dropout ? launch_pass_b<true> : launch_pass_b<false>;
+  return (int)launch(q, k, v, bias, ldbias, static_cast<const float*>(gate), dout,
+                     static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, b,
+                     h, t, d, is_bf16, Dropout{seed, threshold, keep_scale},
+                     static_cast<cudaStream_t>(stream));
 }

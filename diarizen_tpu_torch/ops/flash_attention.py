@@ -25,6 +25,21 @@ PyTorch versions below. On an H100 both kernels are bound by memory traffic
 at WavLM's shapes (the source note has the numbers); their design keeps the
 (T, T) scores, weights and gated bias out of device memory.
 
+K1 has the TPU kernel's three softmax schedules (`SOFTMAX_MODES`):
+"f32" normalises the weights exactly before they are rounded to v's type
+for w @ v; "deferred" multiplies the unnormalised exp by v and divides once
+at the end; "bf16" is deferred with the exp taken of the shifted scores
+rounded to bfloat16. Inference (`flash_attention_gated_bias`) runs the
+process-wide schedule, "deferred" unless `set_softmax_mode` or
+`softmax_mode_scope` says otherwise; the differentiable function always runs
+"f32", as the JAX package pins it for a forward that has a backward. The
+TPU kernel compiles the schedule in at trace time; here the wrapper reads
+it at each call. At dropout rate 0 the training instance and K2 run
+instances without the dropout hash, as the TPU kernels compile no mask
+when their static rate is 0. Inference with dropout runs only in "f32"
+(the training instance's kernel without lse): no caller of either package
+runs it in another schedule, so K1 compiles no such instance.
+
 The kernels read pos_bias as rows of `ldbias` elements, a multiple of 8, so
 that every row starts on a 16-byte boundary and its tiles load by TMA and
 16-byte copies: `padded_bias` gives that layout, a (H, T, ldbias) buffer's
@@ -32,20 +47,22 @@ that every row starts on a 16-byte boundary and its tiles load by TMA and
 one only when handed anything else.
 
 The kernels are compiled with nvcc into `build/diarizen_tpu_torch/` at first
-use and bound through ctypes (a plain C interface, so the build takes
-seconds). The counters count kernel launches, so a run can show that a path
-went through the kernels: `launches` the inference instance of K1,
-`train_launches` its training instance (dropout, log-sum-exp output),
-`bwd_launches` K2 (one count per backward, which runs pass A, the sum of
-its partial d pos_bias slices, and pass B). `pass_a_chunks` is the plan
-that splits K2's pass A across the batch.
+use and bound through ctypes (a plain C interface; the 32 instances take
+under a minute). The counters count kernel launches, so a run can show that a path
+went through the kernels: `instance_launches` by instance (`INSTANCES`; K2
+one count per backward, which runs pass A, the sum of its partial
+d pos_bias slices, and pass B), `reset_launches()` sets them to 0, and
+`launches` (K1's inference instances), `train_launches` (its training
+instance, log-sum-exp output) and `bwd_launches` (K2) read their sums.
+`pass_a_chunks` is the plan that splits K2's pass A across the batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,9 +72,70 @@ from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, library_p
 SOURCE = CSRC_DIR / "gated_bias_attention.cu"
 LIBRARY = library_path(SOURCE)
 
-launches = 0  # K1 inference launches since the caller last set it to 0
-train_launches = 0  # K1 training launches (dropout, log-sum-exp)
-bwd_launches = 0  # K2 launches
+# K1 inference by schedule (at a rate above 0 only "fwd_f32", K1's f32
+# instance with the mask and without lse), K1 training at a rate above 0 and
+# at 0, K2 at a rate above 0 and at 0
+INSTANCES = ("fwd_f32", "fwd_deferred", "fwd_bf16", "train", "train_rate0", "bwd", "bwd_rate0")
+instance_launches: Dict[str, int] = dict.fromkeys(INSTANCES, 0)
+_COUNTER_SUMS = {"launches": INSTANCES[:3], "train_launches": INSTANCES[3:5],
+                 "bwd_launches": INSTANCES[5:]}
+
+
+def reset_launches() -> None:
+    """Every launch counter of this module to 0."""
+    instance_launches.update(dict.fromkeys(INSTANCES, 0))
+
+
+def __getattr__(name: str) -> int:
+    """`launches`, `train_launches`, `bwd_launches`: sums of `instance_launches`."""
+    if name in _COUNTER_SUMS:
+        return sum(instance_launches[n] for n in _COUNTER_SUMS[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# the softmax schedule
+
+SOFTMAX_MODES = ("f32", "deferred", "bf16")  # the kernels' schedule numbers, in order
+_SOFTMAX_MODE = "deferred"
+
+
+def _mode_number(mode: str) -> int:
+    if mode not in SOFTMAX_MODES:
+        raise ValueError(f"softmax mode must be one of {SOFTMAX_MODES}, got {mode!r}")
+    return SOFTMAX_MODES.index(mode)
+
+
+def set_softmax_mode(mode: str) -> None:
+    """Select K1's inference softmax schedule ("f32" | "deferred" | "bf16")
+    for this process, as the JAX package's `set_softmax_mode` does. The
+    differentiable function runs "f32" whatever is set. Read when the
+    attention is called (the JAX package reads it when a kernel is traced,
+    and a compiled executable keeps its schedule; there is no trace here)."""
+    global _SOFTMAX_MODE
+    _mode_number(mode)
+    _SOFTMAX_MODE = mode
+
+
+@contextlib.contextmanager
+def softmax_mode_scope(mode: str):
+    """`set_softmax_mode(mode)` for the calls inside the `with` block; the
+    previous schedule comes back on exit, an exception's included. The
+    Trainer's steps and validation and the distill-prune step run under
+    softmax_mode_scope("f32"), as the JAX package's do."""
+    global _SOFTMAX_MODE
+    _mode_number(mode)
+    previous, _SOFTMAX_MODE = _SOFTMAX_MODE, mode
+    try:
+        yield
+    finally:
+        _SOFTMAX_MODE = previous
+
+
+def softmax_mode() -> str:
+    """The schedule an inference call made now would run."""
+    return _SOFTMAX_MODE
+
 
 _lib: Optional[ctypes.CDLL] = None
 _U32 = 0xFFFFFFFF
@@ -76,17 +154,16 @@ def _library() -> ctypes.CDLL:
         build()
         lib = ctypes.CDLL(str(LIBRARY))
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        dropout = [u32, u32, ctypes.c_float]
-        lib.gated_bias_attention_fwd.argtypes = [ptr] * 4 + [i32] + [ptr] * 2 + [i32] * 5 + [ptr]
-        lib.gated_bias_attention_fwd_train.argtypes = ([ptr] * 4 + [i32] + [ptr] * 3 + [i32] * 5
-                                                       + dropout + [ptr])
+        dropout = [i32, u32, u32, ctypes.c_float]  # on, seed, threshold, keep scale
+        lib.gated_bias_attention_fwd.argtypes = ([ptr] * 4 + [i32] + [ptr] * 3 + [i32] * 6
+                                                 + dropout + [ptr])
         lib.gated_bias_attention_bwd_a.argtypes = ([ptr] * 4 + [i32] + [ptr] * 9 + [i32] * 7
                                                    + dropout + [ptr])
         lib.gated_bias_attention_bwd_b.argtypes = ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 5
                                                    + dropout + [ptr])
-        lib.gated_bias_attention_bwd_a_blocks_per_sm.argtypes = [i32, i32]
+        lib.gated_bias_attention_bwd_a_blocks_per_sm.argtypes = [i32, i32, i32]
         lib.gated_bias_attention_fwd_bf16_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
-        for fn in (lib.gated_bias_attention_fwd, lib.gated_bias_attention_fwd_train,
+        for fn in (lib.gated_bias_attention_fwd,
                    lib.gated_bias_attention_bwd_a, lib.gated_bias_attention_bwd_b,
                    lib.gated_bias_attention_bwd_a_blocks_per_sm,
                    lib.gated_bias_attention_fwd_bf16_occupancy):
@@ -178,21 +255,37 @@ def flash_attention_gated_bias_reference(
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
     head_offset: int = 0,
+    softmax_mode: str = "f32",
 ) -> torch.Tensor:
-    """Plain PyTorch version, differentiable: the math of the JAX package's
-    `xla_attention_gated_bias` (f32 logits and softmax, the bias rounded to
-    q's type as the kernels read it, weights cast to q's type for the
-    product with v), with the hashed dropout mask of heads from
-    `head_offset` applied to the normalised weights."""
+    """Plain PyTorch version, differentiable, of the TPU kernel's schedule
+    `softmax_mode`: f32 logits (the bias rounded to q's type as the kernels
+    read it) less their row max, p = exp of that, the row sum l of p in f32
+    before the hashed dropout mask m of heads from `head_offset`, then
+      "f32": w = p / l (the math of `xla_attention_gated_bias`), (w m)
+              rounded to v's type, times v;
+      "deferred": (p m) rounded to v's type, times v in f32, divided by l;
+      "bf16": as "deferred" with p = exp of the shifted logits rounded to
+              bfloat16, a bfloat16 value, and m in bfloat16.
+    The output is in q's type."""
+    mode = _mode_number(softmax_mode)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     logits = logits + gate.float()[..., None] * pos_bias.to(q.dtype).float()[None]
     logits = logits - logits.amax(dim=-1, keepdim=True).detach()
-    w = torch.softmax(logits, dim=-1)
+    mask = None
     if dropout_rate > 0.0:
         b, h, t, _ = q.shape
-        w = w * dropout_mask(_need_seed(seed), b, h, t, t, dropout_rate, q.device, head_offset)
-    return torch.matmul(w.to(q.dtype), v).to(q.dtype)
+        mask = dropout_mask(_need_seed(seed), b, h, t, t, dropout_rate, q.device, head_offset)
+    if mode == 0:
+        w = torch.softmax(logits, dim=-1)
+        if mask is not None:
+            w = w * mask
+        return torch.matmul(w.to(q.dtype), v).to(q.dtype)
+    p = torch.exp(logits.to(torch.bfloat16) if mode == 2 else logits)
+    total = p.float().sum(dim=-1, keepdim=True)
+    if mask is not None:
+        p = p * mask.to(p.dtype)
+    return (torch.matmul(p.to(v.dtype).float(), v.float()) / total).to(q.dtype)
 
 
 def _need_seed(seed: Optional[int]) -> int:
@@ -284,28 +377,35 @@ def _stream(x: torch.Tensor) -> int:
 # kernel wrappers
 
 
-def _forward_train(q, k, v, pos_bias, gate, rate: float, seed: int):
-    """K1's training instance: (o, f32 row log-sum-exp (B, H, T))."""
-    global train_launches
+def _forward(q, k, v, pos_bias, gate, mode: str, rate: float, seed: int, lse: bool):
+    """One launch of K1: (o, f32 row log-sum-exp (B, H, T) or None). `lse`:
+    the training instance, which writes it; rate 0 takes the instance
+    without the dropout hash."""
     pos_bias = padded_bias(pos_bias, q.dtype)
     _check_cuda(q, k, v, pos_bias, gate)
     threshold, keep = dropout_constants(rate)
     b, h, t, d = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    row_lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if lse else None
     if out.numel() == 0:
-        return out, lse
+        return out, row_lse
     lib = _library()
     with torch.cuda.device(q.device):
-        rc = lib.gated_bias_attention_fwd_train(
+        rc = lib.gated_bias_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
-            gate.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, t, d,
-            int(q.dtype == torch.bfloat16),
-            int(seed) & _U32, threshold, keep, _stream(q))
+            gate.data_ptr(), out.data_ptr(), None if row_lse is None else row_lse.data_ptr(),
+            b, h, t, d, int(q.dtype == torch.bfloat16), _mode_number(mode),
+            int(rate > 0.0), int(seed) & _U32, threshold, keep, _stream(q))
     if rc != 0:
-        raise RuntimeError(f"gated_bias_attention_fwd_train launch failed: CUDA error {rc}")
-    train_launches += 1
-    return out, lse
+        raise RuntimeError(f"gated_bias_attention_fwd launch failed: CUDA error {rc}")
+    instance_launches[("train" if rate > 0.0 else "train_rate0") if lse else f"fwd_{mode}"] += 1
+    return out, row_lse
+
+
+def _forward_train(q, k, v, pos_bias, gate, rate: float, seed: int):
+    """K1's training instance, the f32 schedule: (o, f32 row log-sum-exp
+    (B, H, T))."""
+    return _forward(q, k, v, pos_bias, gate, "f32", rate, seed, lse=True)
 
 
 BLOCK_Q = 64  # query rows per block of K2's pass A
@@ -339,17 +439,18 @@ def chunk_bounds(batch: int, chunks: int) -> List[Tuple[int, int]]:
     return [(z * batch // chunks, (z + 1) * batch // chunks) for z in range(chunks)]
 
 
-_blocks_per_sm = {}  # (device, type, head dim) -> pass A blocks one multiprocessor holds
+_blocks_per_sm = {}  # (device, type, head dim, dropout) -> pass A blocks one multiprocessor holds
 
 
-def _pass_a_plan(q: torch.Tensor) -> int:
-    """`pass_a_chunks` for q (B, H, T, D) on its card."""
+def _pass_a_plan(q: torch.Tensor, rate: float) -> int:
+    """`pass_a_chunks` for q (B, H, T, D) on its card, for pass A's instance
+    at dropout rate `rate` (with the mask replay or without)."""
     b, h, t, d = q.shape
-    key = (q.device, q.dtype, d)
+    key = (q.device, q.dtype, d, rate > 0.0)
     if key not in _blocks_per_sm:
         with torch.cuda.device(q.device):
             per_sm = _library().gated_bias_attention_bwd_a_blocks_per_sm(
-                d, int(q.dtype == torch.bfloat16))
+                d, int(q.dtype == torch.bfloat16), int(rate > 0.0))
         if per_sm <= 0:
             raise RuntimeError(f"K2 pass A occupancy query failed: CUDA error {-per_sm}")
         _blocks_per_sm[key] = per_sm
@@ -366,7 +467,7 @@ def _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int)
     dq = torch.empty_like(q)
     dgate, delta = torch.empty((b, h, t), **f32), torch.empty((b, h, t), **f32)
     dbias = torch.empty((h, t, t), **f32)
-    chunks = _pass_a_plan(q)
+    chunks = _pass_a_plan(q, rate)
     ldb = -(-t // 4) * 4  # rows of the partial slices start on 16-byte boundaries
     part = torch.empty((chunks, h, t, ldb), **f32)
     rc = _library().gated_bias_attention_bwd_a(
@@ -374,8 +475,8 @@ def _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int)
         gate.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dgate.data_ptr(), part.data_ptr(), dbias.data_ptr(), b, h, t, d,
-        int(q.dtype == torch.bfloat16), chunks, ldb, int(seed) & _U32, threshold, keep,
-        _stream(q))
+        int(q.dtype == torch.bfloat16), chunks, ldb, int(rate > 0.0), int(seed) & _U32,
+        threshold, keep, _stream(q))
     if rc != 0:
         raise RuntimeError(f"gated_bias_attention_bwd_a launch failed: CUDA error {rc}")
     return dq, dbias, dgate, delta
@@ -389,16 +490,16 @@ def _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate: float, seed: in
     rc = _library().gated_bias_attention_bwd_b(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
         gate.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h,
-        t, d, int(q.dtype == torch.bfloat16), int(seed) & _U32, threshold, keep, _stream(q))
+        dv.data_ptr(), b, h, t, d, int(q.dtype == torch.bfloat16), int(rate > 0.0),
+        int(seed) & _U32, threshold, keep, _stream(q))
     if rc != 0:
         raise RuntimeError(f"gated_bias_attention_bwd_b launch failed: CUDA error {rc}")
     return dk, dv
 
 
 def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
-    """K2: (dq, dk, dv in q's type, f32 dpos_bias (H, T, T), f32 dgate)."""
-    global bwd_launches
+    """K2: (dq, dk, dv in q's type, f32 dpos_bias (H, T, T), f32 dgate);
+    rate 0 takes the instances without the mask replay."""
     pos_bias = padded_bias(pos_bias, q.dtype)
     _check_cuda(q, k, v, pos_bias, gate, out, dout)
     b, h, t, d = q.shape
@@ -409,7 +510,7 @@ def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
     with torch.cuda.device(q.device):
         dq, dbias, dgate, delta = _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate, seed)
         dk, dv = _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate, seed)
-    bwd_launches += 1
+    instance_launches["bwd" if rate > 0.0 else "bwd_rate0"] += 1
     return dq, dk, dv, dbias, dgate
 
 
@@ -423,48 +524,39 @@ def flash_attention_gated_bias(
     seed: Optional[int] = None,
     head_offset: int = 0,
 ) -> torch.Tensor:
-    """(B, H, T, D) attention output in q's type, not differentiable
-    (`head_offset` as in the plain version).
+    """(B, H, T, D) attention output in q's type, not differentiable, in the
+    softmax schedule `softmax_mode()` gives at the call (`head_offset` as in
+    the plain version).
 
-    CUDA tensors go to K1 (the inference instance at rate 0, the training
-    instance otherwise), which takes q, k, v and pos_bias in one type
-    (float32 or bfloat16; bfloat16 runs on the tensor cores), gate in
+    A rate above 0 needs the "f32" schedule and raises in the others: K1
+    has no such instance, and no path of the port or of the JAX package runs
+    inference with dropout.
+
+    CUDA tensors go to K1's inference instance of that schedule (with the
+    dropout mask at a rate above 0), which takes q, k, v and pos_bias in one
+    type (float32 or bfloat16; bfloat16 runs on the tensor cores), gate in
     float32, q, k, v and gate contiguous, q, k, v 16-byte aligned, and
     D <= 128 a multiple of 8; anything else raises. pos_bias not in
     `padded_bias`'s layout is copied into it first. CPU tensors go to the
     plain version."""
-    global launches
     _check(q, k, v, pos_bias, gate)
-    if dropout_rate > 0.0:
-        seed = _need_seed(seed)
+    seed = _need_seed(seed) if dropout_rate > 0.0 else 0
+    mode = _SOFTMAX_MODE
+    if dropout_rate > 0.0 and mode != "f32":
+        raise ValueError(f"inference with dropout runs only the 'f32' softmax schedule, not "
+                         f"{mode!r}: call it under softmax_mode_scope('f32')")
     if q.device.type == "cpu":
         return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed,
-                                                    head_offset)
-    if dropout_rate > 0.0:
-        return _forward_train(q, k, v, pos_bias, gate, dropout_rate,
-                              head_seed(seed, head_offset))[0]
-    pos_bias = padded_bias(pos_bias, q.dtype)
-    _check_cuda(q, k, v, pos_bias, gate)
-    b, h, t, d = q.shape
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = _library()
-    with torch.cuda.device(q.device):
-        rc = lib.gated_bias_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
-            gate.data_ptr(), out.data_ptr(), b, h, t, d,
-            int(q.dtype == torch.bfloat16), _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"gated_bias_attention_fwd launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+                                                    head_offset, softmax_mode=mode)
+    return _forward(q, k, v, pos_bias, gate, mode, dropout_rate, head_seed(seed, head_offset),
+                    lse=False)[0]
 
 
 class _TrainableAttention(torch.autograd.Function):
-    """K1 (training instance) forward, K2 backward. pos_bias is rounded to
-    q's type into the padded layout once; K1 and both passes of K2 read that
-    copy. Its gradient comes back in pos_bias's own type."""
+    """K1 (training instance, the f32 schedule) forward, K2 backward; rate 0
+    takes both kernels' instances without the dropout hash. pos_bias is
+    rounded to q's type into the padded layout once; K1 and both passes of K2
+    read that copy. Its gradient comes back in pos_bias's own type."""
 
     @staticmethod
     def forward(ctx, q, k, v, pos_bias, gate, rate, seed):
@@ -494,14 +586,15 @@ def flash_attention_gated_bias_trainable(
 ) -> torch.Tensor:
     """Differentiable gated-bias attention with in-kernel attention dropout
     (deterministic from the int `seed`, the mask of heads from
-    `head_offset`); gradients flow to q, k, v, pos_bias and gate. CUDA
-    tensors go to K1 and K2 (as `flash_attention_gated_bias` takes them,
-    except that pos_bias may have any floating type); CPU tensors to
-    autograd through the plain version."""
+    `head_offset`), always in the "f32" softmax schedule, as the JAX
+    package runs every forward that has a backward; gradients flow to q, k,
+    v, pos_bias and gate. CUDA tensors go to K1 and K2 (as
+    `flash_attention_gated_bias` takes them, except that pos_bias may have
+    any floating type); CPU tensors to autograd through the plain version."""
     _check(q, k, v, pos_bias, gate)
     seed = _need_seed(seed) if dropout_rate > 0.0 else 0
     if q.device.type == "cpu":
         return flash_attention_gated_bias_reference(q, k, v, pos_bias, gate, dropout_rate, seed,
-                                                    head_offset)
+                                                    head_offset, softmax_mode="f32")
     return _TrainableAttention.apply(q, k, v, pos_bias, gate, float(dropout_rate),
                                      head_seed(seed, head_offset))

@@ -14,8 +14,8 @@ under `<exp>/checkpoints`, the experiment directory being
     python -m diarizen_tpu_torch.recipes.diar_ssl_pruning.run_distill_prune \\
         -C recipes/diar_ssl_pruning/conf/s80_base.toml [--further_distill]
 
-The JAX recipe pins the teacher's attention to its exact float32 softmax;
-here the teacher runs K1's one softmax schedule. It runs on the CUDA device;
+Each step runs under K1's exact f32 softmax schedule, the teacher's
+forward included, as the JAX recipe's does. It runs on the CUDA device;
 `main(argv, device="cpu")` runs it on the CPU.
 """
 
@@ -34,6 +34,7 @@ from diarizen_tpu_torch.config import load_toml
 from diarizen_tpu_torch.logger import init_logging, log_config
 from diarizen_tpu_torch.models.build import _wavlm
 from diarizen_tpu_torch.models.wavlm import WavLM
+from diarizen_tpu_torch.ops.flash_attention import softmax_mode_scope
 from diarizen_tpu_torch.prune.distill import (
     DistillConfig,
     create_distill_prune_state,
@@ -100,7 +101,8 @@ def run(config: dict, exp_dir: Path, further_distill: bool = False, device=None,
         t0 = time.time()
         losses = []
         for batch in loader:
-            metrics = step(state, batch["xs"][:, 0, :], seed)  # the SDM channel
+            with softmax_mode_scope("f32"):  # the teacher's exact softmax
+                metrics = step(state, batch["xs"][:, 0, :], seed)  # the SDM channel
             if step_hook is not None:
                 step_hook(metrics)
             losses.append(metrics["loss"])

@@ -41,6 +41,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 from torch import nn
 
+from diarizen_tpu_torch.ops.flash_attention import softmax_mode_scope
 from diarizen_tpu_torch.parallel.distributed import all_reduce_sum, is_main_process
 from diarizen_tpu_torch.parallel.mesh import (
     Mesh,
@@ -167,9 +168,14 @@ class Trainer:
         good = skipped = n = 0
         t0 = time.time()
         for i, batch in enumerate(loader):
-            extra = {} if self.channel_sampler is None else {
-                "num_channels": int(self.channel_sampler())}
-            m = self.train_step_fn(self.state, batch, self.tc.seed, self.compute_dtype, **extra)
+            # the step under K1's exact f32 softmax, and validation too, so
+            # that checkpoint selection does not depend on the serving
+            # schedule; the scope restores the process's schedule on exit
+            with softmax_mode_scope("f32"):
+                extra = {} if self.channel_sampler is None else {
+                    "num_channels": int(self.channel_sampler())}
+                m = self.train_step_fn(self.state, batch, self.tc.seed, self.compute_dtype,
+                                       **extra)
             if self.step_hook is not None:
                 self.step_hook(m)
             n += 1
@@ -195,7 +201,8 @@ class Trainer:
     def validate(self, loader: Iterable) -> Dict[str, float]:
         acc = None
         for batch in loader:
-            m = eval_step(self.model, batch, self.compute_dtype)
+            with softmax_mode_scope("f32"):  # see train_epoch
+                m = eval_step(self.model, batch, self.compute_dtype)
             acc = m if acc is None else {k: acc[k] + m[k] for k in VAL_KEYS}
         if acc is None:
             raise ValueError("the validation loader yielded no batch")

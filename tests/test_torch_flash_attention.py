@@ -21,6 +21,7 @@ from diarizen_tpu_torch.ops.flash_attention import (
     flash_attention_gated_bias_reference,
     flash_attention_gated_bias_trainable,
     padded_bias,
+    softmax_mode,
 )
 
 
@@ -46,9 +47,11 @@ def test_port_attention_matches_jax(t, h):
 
 def test_cpu_wrapper_is_the_plain_version_and_checks_inputs():
     q, k, v, pos, gate = (torch.from_numpy(a) for a in _inputs(1, 2, 16, 8, seed=1))
+    # the plain version in the schedule the inference wrapper runs ("deferred")
     torch.testing.assert_close(
         flash_attention_gated_bias(q, k, v, pos, gate),
-        flash_attention_gated_bias_reference(q, k, v, pos, gate), rtol=0, atol=0)
+        flash_attention_gated_bias_reference(q, k, v, pos, gate, softmax_mode=softmax_mode()),
+        rtol=0, atol=0)
     with pytest.raises(ValueError, match="seed"):
         flash_attention_gated_bias(q, k, v, pos, gate, dropout_rate=0.1)
     with pytest.raises(ValueError, match="pos_bias"):

@@ -30,6 +30,7 @@ from diarizen_tpu_torch.ops.flash_attention import (
     flash_attention_gated_bias_reference,
     flash_attention_gated_bias_trainable,
     pass_a_chunks,
+    softmax_mode_scope,
 )
 
 
@@ -79,9 +80,15 @@ def test_trainable_attention_matches_jax(t, rate):
 def test_cpu_wrappers_take_the_plain_version():
     inputs, _ = _arrays(1, 2, 16, 8, seed=1)
     q, k, v, pos, gate = (torch.from_numpy(a) for a in inputs)
+    # training in "f32"; inference with dropout only under the "f32"
+    # schedule (K1 has no dropout instance of the others)
     plain = flash_attention_gated_bias_reference(q, k, v, pos, gate, 0.25, seed=3)
-    torch.testing.assert_close(flash_attention_gated_bias(q, k, v, pos, gate, 0.25, seed=3),
-                               plain, rtol=0, atol=0)
+    with softmax_mode_scope("f32"):
+        torch.testing.assert_close(flash_attention_gated_bias(q, k, v, pos, gate, 0.25, seed=3),
+                                   plain, rtol=0, atol=0)
+    for mode in ("deferred", "bf16"):
+        with softmax_mode_scope(mode), pytest.raises(ValueError, match="f32"):
+            flash_attention_gated_bias(q, k, v, pos, gate, 0.25, seed=3)
     torch.testing.assert_close(
         flash_attention_gated_bias_trainable(q, k, v, pos, gate, 0.25, seed=3),
         plain, rtol=0, atol=0)
