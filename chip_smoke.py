@@ -472,13 +472,14 @@ def trainable_bound_s(b, h, t, d, itemsize) -> dict:
     """(bytes / HBM rate, flops / bf16 peak) of K1's training instance and of
     K2, one call each. K1: q, k, v read, o written, the bias and the gate
     read, the f32 log-sum-exp written; two T x T x D products. K2: q, k, v,
-    o, dO read, dq, dk, dv written, the bias, gate and log-sum-exp read,
-    d pos_bias (f32) and dgate written; five T x T x D products."""
+    dO read (not o: D is the rowsum of W dW' m, as the TPU kernel's r), dq,
+    dk, dv written, the bias, gate and log-sum-exp read, d pos_bias (f32)
+    and dgate written; five T x T x D products."""
     act, bias, row = b * h * t * d * itemsize, h * t * t, b * h * t * 4
     return {
         "fwd": ((4 * act + bias * itemsize + 2 * row) / HBM_BYTES_PER_S,
                 4 * b * h * t * t * d / BF16_FLOP_PER_S),
-        "bwd": ((8 * act + bias * itemsize + bias * 4 + 3 * row) / HBM_BYTES_PER_S,
+        "bwd": ((7 * act + bias * itemsize + bias * 4 + 3 * row) / HBM_BYTES_PER_S,
                 10 * b * h * t * t * d / BF16_FLOP_PER_S),
     }
 
@@ -491,11 +492,13 @@ def trainable_inputs(b, h, t, dtype, gen):
     return (q, k, v, pos, gate), do
 
 
-def pass_a_by_chunks(run, planned: int) -> None:
+def pass_a_by_chunks(run, planned: int, batch: int) -> dict:
     """K2's pass A (with the sum of its slices) timed at other numbers of
-    batch chunks than the plan's, to show where the plan stands: two rounds
-    in opposite orders, so that a drift of the card's clock favours none."""
-    counts = tuple(sorted({1, 2, 3, 4, 5, 6, 7, 8, 12, 16, planned}))
+    batch chunks than the plan's, up to one element a chunk, to show where
+    the plan stands: two rounds in opposite orders, so that a drift of the
+    card's clock favours none. Returns {S: [ms, ms]}."""
+    counts = tuple(sorted({s for s in (1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 24, 32, 48, 64)
+                           if s <= batch} | {planned}))
     times = {s: [] for s in counts}
     plan = k1.pass_a_chunks
     try:
@@ -505,8 +508,124 @@ def pass_a_by_chunks(run, planned: int) -> None:
                 times[s].append(median_ms(run))
     finally:
         k1.pass_a_chunks = plan
+    best = min(times, key=lambda s: sum(times[s]))
     print(f"K2 pass A with its sum by chunks S, two rounds (the plan takes S={planned}): "
-          + ", ".join(f"S={s} {t[0]:.4f}/{t[1]:.4f}" for s, t in times.items()) + " ms")
+          + ", ".join(f"S={s} {t[0]:.4f}/{t[1]:.4f}" for s, t in times.items()) + " ms; "
+          f"best S={best}, the plan at {sum(times[planned]) / sum(times[best]):.3f}x of it")
+    return times
+
+
+def pass_a_and_sum(q, k, v, bias, gate, out, lse, do, rate):
+    """K2's pass A and the sum of its partial slices: (dq, dbias, ...)."""
+    a = k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do, rate, DROPOUT_SEED)
+    return a[0], k1._dbias_sum(a[1], q.shape[2])
+
+
+def pass_times(q, k, v, bias, gate, out, lse, do, rate) -> dict:
+    """K2's pass A, the sum of its partial slices and pass B, each timed
+    alone, in ms."""
+    seed, t = DROPOUT_SEED, q.shape[2]
+    a = k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do, rate, seed)
+    row = {"pass_a_ms": median_ms(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do,
+                                                         rate, seed)),
+           "sum_ms": median_ms(lambda: k1._dbias_sum(a[1], t)),
+           "pass_b_ms": median_ms(lambda: k1._bwd_pass_b(q, k, v, bias, gate, lse, a[3], a[4],
+                                                         do, rate, seed))}
+    b, h, _, _ = q.shape
+    print(f"gated_bias_attention_bwd passes bf16 B={b} H={h} T={t} rate={rate}: pass A "
+          f"{row['pass_a_ms']:.4f} ms, the sum of its {a[1].shape[0]} partial slices "
+          f"{row['sum_ms']:.4f} ms, pass B {row['pass_b_ms']:.4f} ms")
+    return row
+
+
+def launches_per_call(run, want: set) -> dict:
+    """The kernels one `run()` (a K2 call) launched on the card, read from
+    the profiler's device events: {"cuda_launches_per_call": N,
+    "cuda_kernels_per_call": {name: n}, "other_device_events": {name: n}}
+    (events not named as a kernel of this repo, such as the profiler's
+    own); fails unless the kernels are `want`, one launch each. 20 calls
+    (60 kernels) before the one counted, past the kernels the profiler
+    missed late in the process."""
+    kernels, other = Counter(), Counter()
+    for _, n, name in kernel_rows(profiled_events(run, warmup=20)):
+        found = re.search(r"(\w+_kernel)\b", name)
+        if found:
+            kernels[found.group(1)] += n
+        else:
+            other[name] += n
+    kernels, other = dict(sorted(kernels.items())), dict(sorted(other.items()))
+    print(f"K2 call on the card: {sum(kernels.values())} kernel launches {kernels}; other "
+          f"device events {other}")
+    check(kernels == dict.fromkeys(sorted(want), 1),
+          f"a K2 call launched {kernels}, not pass A, the sum and pass B once each")
+    return {"cuda_launches_per_call": sum(kernels.values()), "cuda_kernels_per_call": kernels,
+            "other_device_events": other}
+
+
+K2_BF16_KERNELS = {"attention_bwd_dq_bf16_kernel", "dbias_sum_kernel",
+                   "attention_bwd_dkdv_bf16_kernel"}
+
+
+def check_keep_bits(b, h, t, gen) -> None:
+    """The packed keep mask K2's pass A writes (bf16, rate 0.1, pass B's only
+    source of the mask) against `pack_keep_bits` of the plain mask, bit for
+    bit; and pass A at rate 0 (the instance without the mask) handed a keep
+    buffer full of a sentinel, which it must leave as it was."""
+    (q, k, v, pos, gate), do = trainable_inputs(b, h, t, torch.bfloat16, gen)
+    bias = k1.padded_bias(pos, torch.bfloat16)
+    out, lse = k1._forward_train(q, k, v, bias, gate, DROPOUT_RATE, DROPOUT_SEED)
+    bits = k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE, DROPOUT_SEED)[4]
+    want = k1.pack_keep_bits(k1.dropout_mask(DROPOUT_SEED, b, h, t, t, DROPOUT_RATE, "cuda"))
+    torch.cuda.synchronize()
+    wrong = int((bits != want).sum().item())
+    print(f"K2 packed keep mask B={b} H={h} T={t}: {bits.numel()} words, {wrong} differ from "
+          f"the plain mask's")
+    check(wrong == 0, f"K2's packed keep mask differs from the plain mask in {wrong} words")
+    # the rate-0 entry with a keep buffer and the rate-0.1 constants: only
+    # the dropout flag may select the instance without the mask
+    sentinel = torch.full_like(bits, 0x5A5A5A5A)
+    rows = torch.empty((b * h, bits.shape[3], 4), dtype=torch.float32, device="cuda")
+    dq, dgate = torch.empty_like(q), torch.empty((b, h, t), dtype=torch.float32, device="cuda")
+    ldb = -(-t // 4) * 4
+    part = torch.empty((b, h, t, ldb), dtype=torch.float32, device="cuda")
+    threshold, keep = k1.dropout_constants(DROPOUT_RATE)
+    rc = k1._library().gated_bias_attention_bwd_a_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(), bias.stride(1),
+        gate.data_ptr(), lse.data_ptr(), rows.data_ptr(), sentinel.data_ptr(), dq.data_ptr(),
+        dgate.data_ptr(), part.data_ptr(), b, h, t, HEAD_DIM, b, ldb, 0, DROPOUT_SEED,
+        threshold, keep, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    touched = int((sentinel != 0x5A5A5A5A).sum().item())
+    print(f"K2 pass A at rate 0 with a sentinel keep buffer: rc {rc}, {touched} of "
+          f"{sentinel.numel()} words written")
+    check(rc == 0 and touched == 0, f"K2's rate-0 pass A wrote {touched} keep words (rc {rc})")
+
+
+def check_head_dim_128(gen) -> None:
+    """K1's training instance and K2 at head dim 128 (no served model has it;
+    the wrapper takes it: two 64-column halves per tile) against the plain
+    version's forward and autograd, bf16, rate 0 and 0.1, within 2e-2 of each
+    tensor's largest magnitude."""
+    for t in (37, 130):
+        for rate in (0.0, DROPOUT_RATE):
+            q, k, v, do = (torch.randn((2, 3, t, 128), generator=gen, device="cuda").bfloat16()
+                           for _ in range(4))
+            pos = torch.randn((3, t, t), generator=gen, device="cuda")
+            gate = 1.0 + torch.rand((2, 3, t), generator=gen, device="cuda")
+            results = []
+            for fn in (k1.flash_attention_gated_bias_trainable,
+                       k1.flash_attention_gated_bias_reference):
+                leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
+                out = fn(*leaves, dropout_rate=rate, seed=DROPOUT_SEED)
+                out.backward(do)
+                results.append([out.detach()] + [x.grad for x in leaves])
+            torch.cuda.synchronize()
+            rel = [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                   for g, w in zip(*results)]
+            print(f"K1+K2 vs plain bfloat16 D=128 B=2 H=3 T={t} rate={rate}: o and five gradients "
+                  + ", ".join(f"{e:.2e}" for e in rel) + " of max magnitude (tolerance 2e-02)")
+            check(all(np.isfinite(e) and e <= 2e-2 for e in rel),
+                  f"K1/K2 at head dim 128 disagree with the plain version at T={t} rate={rate}")
 
 
 def phase_trainable_kernels() -> list:
@@ -518,7 +637,10 @@ def phase_trainable_kernels() -> list:
     tensor's largest magnitude: 1e-4 in float32 (reassociation; one wrong
     mask bit at T = 399 costs about 2.5e-3), 2e-2 in bfloat16 (the kernels
     round p, dS and W * m to bf16 for the tensor-core products, and sum in
-    another order)."""
+    another order). K2's packed keep mask (bf16, pass B's only source of the
+    mask) equal to the plain mask's bit for bit at T 37, 70, 399 and 799;
+    head dim 128 at T 37 and 130; K2's passes timed alone at rate 0.1 and 0,
+    and pass A at other numbers of batch chunks."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     names = ("o", "dq", "dk", "dv", "dpos_bias", "dgate")
@@ -552,6 +674,10 @@ def phase_trainable_kernels() -> list:
                       + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, rel))
                       + f" of max magnitude (tolerance {tolerance[dtype]:.0e})")
 
+    for b, h, t in ((2, 3, 37), (2, 3, 70), (TRAIN_BATCH, TRAIN_HEADS, FRAMES), (2, 3, 799)):
+        check_keep_bits(b, h, t, gen)
+    check_head_dim_128(gen)
+
     # timings at WavLM-Base training shapes, bf16, rate 0.1
     (q, k, v, pos, gate), do = trainable_inputs(TRAIN_BATCH, TRAIN_HEADS, FRAMES,
                                                 torch.bfloat16, gen)
@@ -576,17 +702,11 @@ def phase_trainable_kernels() -> list:
     check(torch.equal(grads[0][3], grads[1][3]),
           "K2's d pos_bias differs between two calls on the same inputs")
     print("K2 d pos_bias: bit for bit the same in two calls on the same inputs")
-    delta = k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE, DROPOUT_SEED)[3]
-    pass_a_ms = median_ms(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do,
-                                                 DROPOUT_RATE, DROPOUT_SEED))
-    pass_b_ms = median_ms(lambda: k1._bwd_pass_b(q, k, v, bias, gate, lse, delta, do,
-                                                 DROPOUT_RATE, DROPOUT_SEED))
+    passes = {rate: pass_times(q, k, v, bias, gate, out, lse, do, rate)
+              for rate in (DROPOUT_RATE, 0.0)}
     chunks = k1._pass_a_plan(q, DROPOUT_RATE)
-    print(f"gated_bias_attention_bwd passes bf16 B={TRAIN_BATCH} H={TRAIN_HEADS} T={FRAMES}: "
-          f"pass A with the sum of its {chunks} partial slices {pass_a_ms:.4f} ms, pass B "
-          f"{pass_b_ms:.4f} ms")
-    pass_a_by_chunks(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE,
-                                            DROPOUT_SEED), chunks)
+    sweep = pass_a_by_chunks(lambda: pass_a_and_sum(q, k, v, bias, gate, out, lse, do,
+                                                    DROPOUT_RATE), chunks, q.shape[0])
     bwd = {
         "ms": median_ms(lambda: k1._backward(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE,
                                              DROPOUT_SEED)),
@@ -594,6 +714,11 @@ def phase_trainable_kernels() -> list:
                                                           retain_graph=True)),
         "library_ms": median_ms(lambda: torch.autograd.grad(lib, lib_leaves, do,
                                                             retain_graph=True)),
+        **launches_per_call(lambda: k1._backward(q, k, v, bias, gate, out, lse, do,
+                                                 DROPOUT_RATE, DROPOUT_SEED), K2_BF16_KERNELS),
+        "passes": passes[DROPOUT_RATE],
+        "passes_rate0": passes[0.0],
+        "pass_a_chunks_by_s": {s: t for s, t in sweep.items()},
     }
     bounds = trainable_bound_s(TRAIN_BATCH, TRAIN_HEADS, FRAMES, HEAD_DIM, 2)
     entries = []
@@ -996,20 +1121,22 @@ class StepRecorder:
         self.last, self.counts = now, counts
 
 
-def profiled_events(run, record_shapes: bool = False) -> list:
-    """The profiler's events of one `run()`. It runs twice under the
-    profiler, a synchronisation between, and only the events of the second
-    call are kept: late in this long process the profiler missed about the
-    first 30 kernels of a session (in a fresh process it does not), which
-    on a short call is a whole stage (a SSeRiouSS eval batch lost its
-    extractor)."""
+def profiled_events(run, record_shapes: bool = False, warmup: int = 1) -> list:
+    """The profiler's events of one `run()`. It runs `warmup` times and once
+    more under the profiler, a synchronisation between, and only the events
+    of the last call are kept: late in this long process the profiler missed
+    about the first 30 kernels of a session (in a fresh process it does
+    not), which on a short call is a whole stage (a SSeRiouSS eval batch
+    lost its extractor), so a call of a few kernels needs more warm-up
+    calls than one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=record_shapes) as prof:
-        run()
+        for _ in range(warmup):
+            run()
         torch.cuda.synchronize()
         with record_function("measured call"):
             run()
@@ -2175,10 +2302,10 @@ class LaunchRecorder:
 
 def rate0_trainable_kernels(gen) -> list:
     """K1's training instance and K2 at dropout rate 0 (the distill step's
-    student: the instances without the dropout hash) at (B 16, H 12, T 399)
+    student: the instances without the dropout mask) at (B 16, H 12, T 399)
     bf16 against the plain version's forward and autograd, within 2e-2 of
-    each tensor's largest magnitude; timed beside their bounds and SDPA,
-    whose backward K2 took 1.17x of with the hash (0.6586 against 0.5619 ms)."""
+    each tensor's largest magnitude; timed beside their bounds and SDPA, and
+    K2's passes alone."""
     (q, k, v, pos, gate), do = trainable_inputs(TRAIN_BATCH, TRAIN_HEADS, FRAMES,
                                                 torch.bfloat16, gen)
     results = []
@@ -2221,7 +2348,10 @@ def rate0_trainable_kernels(gen) -> list:
                                                                   retain_graph=True)),
                 "library_ms": median_ms(lambda: torch.autograd.grad(lib, lib_leaves, do,
                                                                     retain_graph=True)),
-                "max_abs_err": max(errs[1:])},
+                "max_abs_err": max(errs[1:]),
+                **launches_per_call(lambda: k1._backward(q, k, v, bias, gate, out, lse, do,
+                                                         0.0, 0), K2_BF16_KERNELS),
+                "passes": pass_times(q, k, v, bias, gate, out, lse, do, 0.0)},
     }
     bounds = trainable_bound_s(TRAIN_BATCH, TRAIN_HEADS, FRAMES, HEAD_DIM, 2)
     for key, row in rows.items():
@@ -2233,9 +2363,9 @@ def rate0_trainable_kernels(gen) -> list:
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms (by {row['bound_by']})")
     bwd = rows["bwd"]
-    print(f"K2 at rate 0 without the hash: {bwd['ms']:.4f} ms against SDPA's backward "
-          f"{bwd['library_ms']:.4f} ms: {'still slower' if bwd['ms'] > bwd['library_ms'] else 'faster'}"
-          f" ({bwd['ms'] / bwd['library_ms']:.2f}x; 0.6586 against 0.5619 ms with the hash)")
+    print(f"K2 at rate 0: {bwd['ms']:.4f} ms against SDPA's backward {bwd['library_ms']:.4f} ms: "
+          f"{'slower' if bwd['ms'] > bwd['library_ms'] else 'faster'} "
+          f"({bwd['ms'] / bwd['library_ms']:.2f}x)")
     return [rows["fwd"], rows["bwd"]]
 
 
@@ -2524,7 +2654,7 @@ def mc_trainable(b: int, heads: list, gen) -> tuple:
     rows = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0} for key in ("fwd", "bwd")}
     by_bytes = {"fwd": 0.0, "bwd": 0.0}
     by_flops, err_max = dict(by_bytes), dict(by_bytes)
-    chunks = {}
+    chunks, sweeps, passes = {}, {}, {}
     for h in heads:
         (q, k, v, pos, gate), do = trainable_inputs(b, h, FRAMES, torch.bfloat16, gen)
         results = []
@@ -2570,8 +2700,11 @@ def mc_trainable(b: int, heads: list, gen) -> tuple:
         chunks[h] = k1._pass_a_plan(q, DROPOUT_RATE)
         if b == MC_TRAIN_BATCH * MC_CHANNELS and h in (min(heads), max(heads)):
             print(f"K2 pass A at B={b} H={h}:")
-            pass_a_by_chunks(lambda: k1._bwd_pass_a(q, k, v, bias, gate, out, lse, do,
-                                                    DROPOUT_RATE, DROPOUT_SEED), chunks[h])
+            sweeps[h] = pass_a_by_chunks(
+                lambda: pass_a_and_sum(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE),
+                chunks[h], b)
+        if b in (MC_TRAIN_BATCH, 3 * MC_TRAIN_BATCH, MC_TRAIN_BATCH * MC_CHANNELS):
+            passes[h] = pass_times(q, k, v, bias, gate, out, lse, do, DROPOUT_RATE)
         del plain, lib
     for key, what in (("fwd", "K1 training"), ("bwd", "K2")):
         row = rows[key]
@@ -2584,6 +2717,8 @@ def mc_trainable(b: int, heads: list, gen) -> tuple:
               f"{row['bound_ms']:.4f} ms (by {row['bound_by']}); max error "
               f"{err_max[key]:.2e} of the largest magnitude")
     rows["bwd"]["pass_a_chunks"] = chunks
+    rows["bwd"]["pass_a_chunks_by_s"] = sweeps
+    rows["bwd"]["passes"] = passes
     print(f"K2 at B={b}: pass A chunks S {chunks}")
     return rows["fwd"], rows["bwd"]
 
@@ -3646,19 +3781,40 @@ class StageTimer:
         self.last = now
 
 
-def print_ptxas(report: str) -> None:
-    """One line per kernel of the compiler's report: registers and spills."""
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, e.g.
+    attention_bwd_dq_bf16_kernel<64, 1> (the name is the one that ends in
+    "kernel" and follows its own length)."""
+    end = mangled.rfind("kernel") + len("kernel")
+    name = mangled
+    for start in range(end - 1, 0, -1):
+        digits = str(end - start)
+        if mangled[start - len(digits):start] == digits:
+            name = mangled[start:end]
+            break
+    args = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[end:])
+    if args:
+        name += "<" + ", ".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def print_ptxas(report: str) -> list:
+    """One line per kernel of the compiler's report: registers and spills;
+    returns the lines that report wgmma instructions serialised."""
     name, spill = "?", ""
+    serialised = [line.strip() for line in report.splitlines()
+                  if "wgmma" in line and "serializ" in line]
     for line in report.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?\d([a-z][a-z0-9_]*kernel)(I\w*?E)?", line)
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = entry.group(1) + (entry.group(2) or "")
+            name = kernel_name(entry.group(1))
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
             print(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}; {spill}")
         elif "setmaxnreg" in line or "wgmma" in line:
             print(f"  ptxas: {line.strip()}")
+    return serialised
 
 
 def main() -> int:
@@ -3688,7 +3844,10 @@ def run_phases(flac_jobs) -> int:
         reports = [f.result() for f in [pool.submit(k1.build), pool.submit(k3.build),
                                         pool.submit(k5.build)]]
     print(f"K1 + K2, K3 + K4 and K5 build: {time.perf_counter() - t0:.1f} s")
-    print_ptxas("\n".join(reports))
+    serialised = print_ptxas("\n".join(reports))
+    k2_serialised = [line for line in serialised if "attention_bwd" in line]
+    print(f"ptxas: {len(serialised)} wgmma serialisation lines, {len(k2_serialised)} of them K2's")
+    check(not k2_serialised, "ptxas serialised the wgmma of a K2 instance")
 
     eend_cfg = EendConfig(wavlm=WavLMConfig.base_s80_md(), conformer=ConformerConfig())
     heads = [len(h) for h, a in zip(eend_cfg.wavlm.remaining_heads,

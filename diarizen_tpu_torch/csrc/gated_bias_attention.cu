@@ -41,47 +41,52 @@
 //   dgate[b,h,i] = sum_j dS * bias[h,i,j],  dbias[h,i,j] = sum_b gate * dS.
 // The TPU kernel carries dbias from one grid step to the next along its
 // sequential batch axis; on Hopper blocks run in no order, so K2 is three
-// launches that need no atomics:
+// launches, each an entry point of its own, that need no atomics:
 //  * pass A (dq, dgate, a partial dbias, D): one block per (head, 64 query
 //    rows, batch chunk). The wrapper splits the batch into S chunks of
-//    consecutive elements. S comes from the batch, heads, T, the number of
-//    SMs and the blocks an SM holds at once: the grid fills at least two
-//    waves of the SMs, and among such S the plan takes the one whose rounds
-//    of resident blocks times the batch elements of the largest chunk is
-//    least (fewest chunks among equals). At B 16, H 12, T 399 on 132 SMs
-//    with two resident blocks each, that is S = 6 and 504 blocks, against 84
-//    blocks without the split; S = 4 (336 blocks for 264 slots) leaves the
-//    card three quarters idle for a second round of four-element blocks. A
-//    block loops over its chunk's batch elements in order and, for each,
-//    twice over the 64-key tiles (in bf16: first for D, then for dS); it
-//    owns its rows of its chunk's f32 dbias slice (S, H, T, ldb) in
-//    scratch for the whole call and adds each batch element's tile in place
-//    (the rows stay in L2). In bf16 it does so as float2 pairs, since a lane
-//    of the m16n8k16 accumulator owns two neighbouring columns, with all of
-//    a tile's earlier pairs requested at once; the K, V and 64 x 64 bias
-//    tiles of the next step are copied by cp.async into a second buffer
-//    while a step computes (the wrapper pads the bias rows to a multiple of
-//    8 so that they load in 16 bytes). dq, dgate and D are per (batch, head,
-//    row) and written by the chunk that owns the batch element.
+//    consecutive elements (pass_a_chunks): S walks the fewest batch
+//    elements per block slot (rounds of resident blocks times the elements
+//    of the largest chunk), which one element a chunk always does, so S = B
+//    wherever B slices fit in a 32nd of the card's memory (2.5 GB on an 80
+//    GB card: every path's shape) and the walk decides below that cap. A block loops over its chunk's batch
+//    elements in order and, for each, twice over the 64-key tiles: first for
+//    D (in bf16 also the keep bits), then for dS. It owns its rows of its
+//    chunk's f32 dbias slice (S, H, T, ldb) in scratch for the whole call
+//    and adds each batch element's tile in place (float2 pairs: a lane of
+//    the wgmma accumulator owns two neighbouring columns). dq, dgate and D
+//    are per (batch, head, row) and written by the chunk that owns the
+//    batch element.
 //  * the sum: dbias = the S slices added in chunk order, one thread per
 //    element: a fixed order, so dbias is the same bit for bit from call to
 //    call.
 //  * pass B (dk, dv): one block per (batch, head, 64 keys) loops over the
-//    query tiles, FlashAttention-2 style, with the saved lse and D.
+//    query tiles, FlashAttention-2 style without dq, with the row values
+//    pass A wrote (bf16: gate, lse and D packed per row; f32: lse and D).
 // Keys past T get dS = 0 and W = 0; query rows past T contribute nothing.
+// The dropout mask is hashed once per score in the bf16 backward: pass A's
+// first sweep hashes it while its products run, keeps the lane's bits in
+// shared memory for the second sweep and writes them packed, 64 bits per
+// row and key block ((B H, T/64 key blocks, 64 T/64 rows, 2) uint32, 4.8 MB
+// at the training shape, zero past T), for pass B, which reads a tile's
+// 512 bytes with its other tiles and hashes nothing. The f32 instances
+// replay the hash in both passes.
 //
 // Bound on an H100 at WavLM-Base training shapes (B 16, H 12, T 399, D 64,
 // bf16): K1 moves about 44 MB (q, k, v, o, bias, gate, lse) against 7.8
-// GFLOP, K2 about 91 MB (q, k, v, o, dO read, dq, dk, dv written, the bias
-// read, dbias written in f32) against 19.6 GFLOP of the five products it
-// needs; at 3.35 TB/s and 989 TFLOP/s both are bound by bytes (K1: 13.0
+// GFLOP, K2 about 81 MB (q, k, v, dO read, dq, dk, dv written, the bias,
+// gate and lse read, dbias written in f32; not o, since D is the TPU
+// kernel's r) against 19.6 GFLOP of the five products it needs; at 3.35
+// TB/s and 989 TFLOP/s both are bound by bytes (K1: 13.0 us, K2: 24.2
 // us). K1's inference instance at the unpruned `base` model's shape (B 32,
 // H 12) moves 82.9 MB against 15.6 GFLOP: 24.7 us by bytes. The dropout
-// instances also have an issue-rate floor: about 30 instructions per score
-// (19 of them the dropout hash) over 30.6 M scores at 132 SMs x 4
-// schedulers x 32 lanes x 1.98 GHz is about 27 us, above their byte bound.
-// The split adds the S partial slices (4 x 7.6 MB written and read at that
-// shape), which stay in the 50 MB L2.
+// instances also have an issue-rate floor, 30.6 M scores at that shape at
+// 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz: K1's training instance
+// about 30 instructions per score (19 of them the dropout hash), about 27
+// us; K2's bf16 passes about 55 per score in all (the hash once, then about
+// 5 for W, 3 for the mask, 3 for D or dS and 2 for dgate and dbias in each
+// of pass A's two sweeps and pass B), about 50 us, twice its byte bound.
+// The split adds the S partial slices (16 x 7.6 MB written and read at that
+// shape, more than the 50 MB L2).
 //
 // K1, bfloat16 (every instance; sm_90a):
 //  * A block owns 128 query rows of one (batch, head): two warpgroups of 64
@@ -117,18 +122,41 @@
 //    while that tile's q k^T runs on the tensor cores, so the hash is off
 //    the critical path; the bits select p * keep_scale or 0 after the sum.
 //
-// K2 and the float32 instance of K1: 64-row tiles staged in shared memory,
-// rows past T zero-filled when a tile is staged, keys past T masked in the
-// kernel.
-//  * bfloat16 (K2): four warps, 16 rows each; every product on the tensor
-//    cores with mma.sync m16n8k16 (f32 accumulate). An accumulator's
-//    register layout is the A-operand layout of the next product, so dS and
-//    W * m are rounded to bf16 in registers and never touch shared memory.
-//  * float32: 256 threads on the CUDA cores in f32, exact for f32 inputs;
-//    K1 there has the three schedules too (f32 and deferred differ only by
-//    reassociation for f32 inputs; bf16 still rounds the scores), with a
-//    first pass over the K tiles in the f32 and bf16 schedules.
-// K2's passes have an instance without the mask replay for rate 0.
+// K2, bfloat16 (every instance; sm_90a):
+//  * A block is one warpgroup (128 threads) of 64 rows: query rows in pass
+//    A, keys in pass B. One warpgroup keeps a block's registers to one
+//    accumulator set: pass A holds s, dW' and dq (96 f32 a thread), pass B
+//    s^T, dW'^T, dk and dv (128); blocks an SM: pass A 3 (168 registers at
+//    D 64, its launch bound, with 48 bytes spilled by the dropout instance:
+//    2 blocks without the spill measured 3-9% slower), pass B 2 (210-227).
+//    A third ring stage, in either pass, measured no faster.
+//  * Every product on wgmma m64n64k16 (f32 accumulate): s = Q K^T and dW' =
+//    dO V^T (pass B: s^T = K Q^T and dW'^T = V dO^T) with both operands
+//    K-major from shared memory; dq += dS K, dv += (W m)^T dO and dk +=
+//    dS^T Q with the A operand in registers (the accumulator rounded to bf16
+//    in place, the A layout, as K1's p) and the B tile MN-major, as K1's V.
+//  * Tiles arrive by TMA in the 128B-swizzled layout, from 3-D tensor maps
+//    per (b h) and per head (rows and keys past T read as zeros), into a
+//    two-stage ring behind full / empty mbarriers: pass A stages Q and dO
+//    once per batch element and streams K, V and the 64 x 64 bias tile;
+//    pass B stages K and V once and streams Q, dO, the bias tile, the 64
+//    rows' (gate log2 e, lse log2 e, D, 0) and their keep words (bulk
+//    copies). Thread 0 issues every load and refills a slot once the four
+//    warps have released it, as in K1.
+//  * W = 2^(s c1 + g2 bias - l2) in base 2 (ex2.approx), c1 = log2(e) /
+//    sqrt(D), g2 and l2 the gate and lse times log2(e); pass A writes them
+//    per row so that pass B reads them with its tiles; rows past T get l2 =
+//    inf, so W = 0 there without a test. The bias tile reaches the lanes
+//    through ldmatrix (transposed in pass B, whose accumulator columns are
+//    the tile's rows), four instructions a tile.
+//
+// The float32 instances of K1 and K2: 256 threads on the CUDA cores in f32,
+// exact for f32 inputs, 64-row tiles staged in shared memory, rows past T
+// zero-filled when a tile is staged, keys past T masked in the kernel. K1
+// there has the three schedules too (f32 and deferred differ only by
+// reassociation for f32 inputs; bf16 still rounds the scores), with a first
+// pass over the K tiles in the f32 and bf16 schedules.
+// K2's passes have instances without the dropout mask for rate 0.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -193,141 +221,6 @@ __device__ __forceinline__ float dropout_keep(uint32_t s1, uint32_t s2, uint32_t
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores
-
-constexpr int kWarps = 4;  // each warp owns 16 rows
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed: lane l gives the address of row l % 8
-// of matrix l / 8 and receives, per matrix, rows 2 (l % 4) and 2 (l % 4) + 1
-// of column l / 4 -- the B operand of m16n8k16 from a row-major (k, n) tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [r0, r0 + 64) of a (t, d) bf16 matrix into shared memory as
-// (64, kDim + 8) with zeros past t and d; d % 8 == 0 and 16-byte aligned rows.
-template <int kDim>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int r0, int t, int d) {
-  constexpr int kChunks = kDim / 8;  // 16-byte chunks per row
-  constexpr int ld = kDim + 8;
-  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < t && c < d) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0: nothing is read, 16 zero bytes are written
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// load_tile through cp.async: the copies are issued, not waited for
-template <int kDim>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int r0, int t, int d) {
-  constexpr int kChunks = kDim / 8;
-  constexpr int ld = kDim + 8;
-  for (int i = threadIdx.x; i < kBlockK * kChunks; i += kWarps * 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool valid = r0 + r < t && c < d;
-    cp_async_16(dst + r * ld + c, valid ? src + (size_t)(r0 + r) * d + c : src, valid);
-  }
-}
-
-// A-operand fragments of the warp's 16 rows of a staged (64, kDim + 8) tile
-template <int kDim>
-__device__ __forceinline__ void load_a_fragments(uint32_t (&f)[kDim / 16][4],
-                                                 const __nv_bfloat16* tile, int r, int c2) {
-  constexpr int ld = kDim + 8;
-#pragma unroll
-  for (int s = 0; s < kDim / 16; ++s) {
-    const __nv_bfloat16* base = tile + r * ld + 16 * s + c2;
-    f[s][0] = load_u32(base);
-    f[s][1] = load_u32(base + 8 * ld);
-    f[s][2] = load_u32(base + 8);
-    f[s][3] = load_u32(base + 8 * ld + 8);
-  }
-}
-
-// acc[j] = A (16 rows, kDim) . B^T for the 8 column tiles of 8 rows of a
-// staged (64, kDim + 8) tile B: a 16 x 64 product over the head dim
-template <int kDim>
-__device__ __forceinline__ void mma_rows_by_tile(float (&acc)[8][4],
-                                                 const uint32_t (&a)[kDim / 16][4],
-                                                 const __nv_bfloat16* tile, int g, int c2) {
-  constexpr int ld = kDim + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const __nv_bfloat16* base = tile + (8 * j + g) * ld + c2;
-#pragma unroll
-    for (int st = 0; st < kDim / 16; ++st)
-      mma_bf16(acc[j], a[st], load_u32(base + 16 * st), load_u32(base + 16 * st + 8));
-  }
-}
-
-// out[j] += P (16 rows, 64) . tile (64, kDim): P from a 16 x 64 accumulator
-// rounded to bf16, the tile's rows through ldmatrix.trans
-template <int kDim>
-__device__ __forceinline__ void mma_acc_by_tile(float (&out)[kDim / 8][4], const float (&p)[8][4],
-                                                const __nv_bfloat16* tile, int lane) {
-  constexpr int ld = kDim + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {  // 16 rows of the tile per step
-    uint32_t pa[4];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int j = 2 * kk + half;
-      pa[2 * half] = pack_bf16(p[j][0], p[j][1]);
-      pa[2 * half + 1] = pack_bf16(p[j][2], p[j][3]);
-    }
-    const int row = 16 * kk + (lane / 8 % 2) * 8 + lane % 8;
-#pragma unroll
-    for (int j = 0; j < kDim / 8; j += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, tile + row * ld + 8 * (j + lane / 16));
-      mma_bf16(out[j], pa, b[0], b[1]);
-      mma_bf16(out[j + 1], pa, b[2], b[3]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -396,6 +289,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n}\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"((uint32_t)pred)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n}\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)), "r"((uint32_t)pred)
       : "memory");
 }
 
@@ -500,6 +405,11 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Shared memory of the forward block, in bytes from a 1024-aligned base:
@@ -878,329 +788,590 @@ gated_bias_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// K2 pass A, bf16: one block per (head, 64 query rows, batch chunk),
-// looping over the chunk's batch elements and, for each, over the 64-key
-// tiles twice. The first sweep takes D = rowsum(W * dW' * m) as the TPU
-// kernel's r = sum(dw * w), from the exact f32 W (the FlashAttention-2
-// identity D = rowsum(dO * O) would read the forward's O, whose weights
-// were rounded to bf16 for the p @ v product: off by more than the
-// reference allows in dgate, which cancels D against the row's sum). The
-// second computes dS, dq, dgate and the partial dbias. Lane layout as in
-// K1. The K, V and bias tiles of the next (batch element, sweep, key tile)
-// step are copied into the other half of a double buffer with cp.async
-// while this step computes; the bias comes padded to rows of ldbias (a
-// multiple of 8) elements so that its tiles load in 16 bytes.
-template <int kDim, bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ bias, int ldbias,
-                             const float* __restrict__ gate,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dq,
-                             float* __restrict__ dgate,
-                             float* __restrict__ dbias_part, int ldb,
-                             int batch, int num_heads, int t, int d, float scale, Dropout dr) {
-  constexpr int ld = kDim + 8;
-  constexpr int kSteps = kDim / 16;
-  constexpr int kOut = kDim / 8;
-  constexpr int ldp = kBlockK + 8;
-  constexpr int kTileKV = kBlockK * ld;   // elements of a K or V tile
-  constexpr int kTileP = kBlockQ * ldp;   // elements of a bias tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kBlockQ * ld;
-  __nv_bfloat16* ks = dos + kBlockQ * ld;  // two K tiles, then two V tiles, then two bias tiles
-  __nv_bfloat16* vs = ks + 2 * kTileKV;
-  __nv_bfloat16* pbs = vs + 2 * kTileKV;
+// ---------------------------------------------------------------------------
+// K2, bfloat16: TMA ring, wgmma (every product), one warpgroup a block
 
-  const int h = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int b0 = blockIdx.z * batch / gridDim.z, b1 = (blockIdx.z + 1) * batch / gridDim.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int rq = 16 * warp + g;
-  const int row[2] = {q0 + rq, q0 + rq + 8};
-  const __nv_bfloat16* bias_h = bias + (size_t)h * t * ldbias;
-  float* part = dbias_part + ((size_t)blockIdx.z * num_heads + h) * t * ldb;
-  const int tiles = (t + kBlockK - 1) / kBlockK;
-  const int steps = (b1 - b0) * 2 * tiles;  // per batch element: the D sweep, then the dS sweep
+constexpr int kBwdThreads = 128;  // one warpgroup: 64 query rows (pass A) or keys (pass B)
+constexpr int kStagesA = 2;       // ring depth of pass A
+constexpr int kStagesB = 2;       // and of pass B
 
-  // the K, V and bias tiles of step `st` into buffer st % 2
-  auto prefetch = [&](int st) {
-    const int buf = st & 1, k0 = (st % tiles) * kBlockK;
-    const size_t head = (size_t)((b0 + st / (2 * tiles)) * num_heads + h) * t * d;
-    load_tile_async<kDim>(ks + buf * kTileKV, k + head, k0, t, d);
-    load_tile_async<kDim>(vs + buf * kTileKV, v + head, k0, t, d);
-    for (int i = tid; i < kBlockQ * (kBlockK / 8); i += kWarps * 32) {
-      const int r = i / (kBlockK / 8), c = (i % (kBlockK / 8)) * 8;
-      const bool valid = q0 + r < t && k0 + c < ldbias;
-      cp_async_16(pbs + buf * kTileP + r * ldp + c,
-                  valid ? bias_h + (size_t)(q0 + r) * ldbias + k0 + c : bias_h, valid);
-    }
-    cp_async_commit();
-  };
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8 and receives, per matrix, row l / 4 and columns
+// 2 (l % 4), + 1 (kTrans: rows 2 (l % 4), + 1 of column l / 4).
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  if (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(smem)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(smem)));
+}
 
-  uint32_t qf[kSteps][4], df[kSteps][4];
-  float gt[2], ls[2], dl[2], dg[2];
-  float dqa[kOut][4];
-  uint32_t s1 = 0, s2 = 0;
-  prefetch(0);
-  for (int st = 0; st < steps; ++st) {
-    const int b = b0 + st / (2 * tiles), kt = st % tiles, k0 = kt * kBlockK, buf = st & 1;
-    const bool d_sweep = st % (2 * tiles) < tiles;
-    const int bh = b * num_heads + h;
-    const size_t head = (size_t)bh * t * d;
-    if (d_sweep && kt == 0) {  // a new batch element: its q and dO rows, gate and lse
-      load_tile<kDim>(qs, q + head, q0, t, d);
-      load_tile<kDim>(dos, dout + head, q0, t, d);
-      __syncthreads();
-      load_a_fragments<kDim>(qf, qs, rq, c2);
-      load_a_fragments<kDim>(df, dos, rq, c2);
+// The 64 x 64 bias tile of a ring stage (64 rows of 128 bytes, 128B-
+// swizzled: 16-byte chunk k of row r at chunk k ^ (r % 8)) in the lane's
+// accumulator layout: br[2 j + i] holds the bf16 pair of entries 4 j + 2 i
+// and + 1 (row 16 warp + 8 i + lane / 4, columns 8 j + 2 (lane % 4), + 1).
+// Pass A's rows are the tile's rows (query rows); pass B's are its columns
+// (keys), read transposed: its accumulator rows are keys, its columns query
+// rows.
+template <bool kTrans>
+__device__ __forceinline__ void bias_fragments(uint32_t (&br)[16], const unsigned char* tile,
+                                               int warp, int lane) {
+  const int m = lane / 8, r = lane % 8, i = m % 2;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const bool valid = row[i] < t;
-        gt[i] = valid ? gate[(size_t)bh * t + row[i]] : 0.f;
-        ls[i] = valid ? lse[(size_t)bh * t + row[i]] : 0.f;
-        dl[i] = 0.f;  // this lane's share of D
-      }
-      if (kDrop) dropout_streams(dr.seed, b, h, s1, s2);
-    }
-    if (!d_sweep && kt == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) dg[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-    }
-    if (st + 1 < steps) {
-      prefetch(st + 1);
-      cp_async_wait<1>();  // this step's tiles have landed; the next step's are in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt_s = ks + buf * kTileKV;
-    const __nv_bfloat16* pb_s = pbs + buf * kTileP;
-
-    float s[8][4], dp[8][4];
-    mma_rows_by_tile<kDim>(s, qf, kt_s, g, c2);              // q k^T
-    mma_rows_by_tile<kDim>(dp, df, vs + buf * kTileKV, g, c2);  // dO v^T
-    if (d_sweep) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + 8 * j + c2;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float2 pb = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(pb_s + (rq + 8 * i) * ldp + 8 * j + c2));
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (col + e < t && row[i] < t) {
-              const float w = expf(s[j][2 * i + e] * scale + gt[i] * (e == 0 ? pb.x : pb.y) - ls[i]);
-              dl[i] += w * dp[j][2 * i + e] * dropout_keep<kDrop>(s1, s2, row[i], col + e, dr);
-            }
-          }
-        }
-      }
-      if (kt == tiles - 1) {  // D of the rows: the 4 lanes of a row group hold its columns
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 1);
-          dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 2);
-          if (c2 == 0 && row[i] < t) delta[(size_t)bh * t + row[i]] = dl[i];
-        }
-      }
-      __syncthreads();  // this step's buffer is no longer read
-      continue;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = k0 + 8 * j + c2;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {  // row i: accumulator entries 2 i, 2 i + 1
-        const float2 pb = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(pb_s + (rq + 8 * i) * ldp + 8 * j + c2));
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pbe = e == 0 ? pb.x : pb.y;
-          float ds = 0.f;
-          if (col + e < t && row[i] < t) {
-            const float w = expf(s[j][2 * i + e] * scale + gt[i] * pbe - ls[i]);
-            ds = w * (dp[j][2 * i + e] * dropout_keep<kDrop>(s1, s2, row[i], col + e, dr) - dl[i]);
-            dg[i] += ds * pbe;
-          }
-          s[j][2 * i + e] = ds;
-        }
-      }
-    }
-    // the partial dbias: the pairs the chunk's earlier batch elements left
-    // (this lane wrote them) are all requested before the dS k product, and
-    // stored with this element's gate * dS added after it
-    float2 prev[8][2];
-    if (b != b0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int col = k0 + 8 * j + c2;
-          prev[j][i] = row[i] < t && col < t
-                           ? *reinterpret_cast<const float2*>(part + (size_t)row[i] * ldb + col)
-                           : make_float2(0.f, 0.f);
-        }
-    }
-    mma_acc_by_tile<kDim>(dqa, s, kt_s, lane);  // dS k
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = k0 + 8 * j + c2;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (row[i] < t && col < t) {  // col + 1 < ldb; past t its contribution is 0
-          float2 c = make_float2(gt[i] * s[j][2 * i], gt[i] * s[j][2 * i + 1]);
-          if (b != b0) c = make_float2(prev[j][i].x + c.x, prev[j][i].y + c.y);
-          *reinterpret_cast<float2*>(part + (size_t)row[i] * ldb + col) = c;
-        }
-      }
-    }
-
-    if (kt == tiles - 1) {  // the batch element is done: dgate and dq
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 1);
-        dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 2);
-        if (row[i] >= t) continue;
-        if (c2 == 0) dgate[(size_t)bh * t + row[i]] = dg[i];
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) {
-          const int col = 8 * j + c2;
-          if (col < d) {
-            *reinterpret_cast<__nv_bfloat162*>(dq + head + (size_t)row[i] * d + col) =
-                __floats2bfloat162_rn(dqa[j][2 * i] * scale, dqa[j][2 * i + 1] * scale);
-          }
-        }
-      }
-    }
-    __syncthreads();  // this step's buffer and q, dO tiles are no longer read
+  for (int jb = 0; jb < 8; jb += 2) {
+    const int j = jb + m / 2;
+    const int row = kTrans ? 8 * j + r : 16 * warp + 8 * i + r;
+    const int chunk = kTrans ? 2 * warp + i : j;
+    ldmatrix_x4<kTrans>(br + 2 * jb, tile + row * 128 + ((chunk ^ r) * 16));
   }
 }
 
-// K2 pass B, bf16: one block per (batch, head, 64 keys). Lane (g, c) of warp
-// w owns keys 16 w + g and 16 w + g + 8; the "columns" of its score tiles are
-// query rows.
-template <int kDim, bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const __nv_bfloat16* __restrict__ bias, int ldbias,
-                               const float* __restrict__ gate,
-                               const __nv_bfloat16* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               const float* __restrict__ delta,
-                               __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv,
-                               int num_heads, int t, int d, float scale, Dropout dr) {
-  constexpr int ld = kDim + 8;
-  constexpr int kSteps = kDim / 16;
-  constexpr int kOut = kDim / 8;
-  constexpr int ldp = kBlockK + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kBlockK * ld;
-  __nv_bfloat16* qs = vs + kBlockK * ld;
-  __nv_bfloat16* dos = qs + kBlockQ * ld;
-  __nv_bfloat16* pt = dos + kBlockQ * ld;  // bias tile, (64 queries, ldp)
-  float* lse_s = reinterpret_cast<float*>(pt + kBlockQ * ldp);
-  float* delta_s = lse_s + kBlockQ;
-  float* gate_s = delta_s + kBlockQ;
+__device__ __forceinline__ float bias_value(const uint32_t (&br)[16], int j, int i, int e) {
+  const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&br[2 * j + i]);
+  return e == 0 ? __low2float(p) : __high2float(p);
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / num_heads, h = bh % num_heads;
-  const int k0 = blockIdx.y * kBlockK;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  const int rk = 16 * warp + g;
-  const int key[2] = {k0 + rk, k0 + rk + 8};
-  const size_t head = (size_t)bh * t * d;
-  const __nv_bfloat16* bias_h = bias + (size_t)h * t * ldbias;
-
-  load_tile<kDim>(ks, k + head, k0, t, d);
-  load_tile<kDim>(vs, v + head, k0, t, d);
-  __syncthreads();
-  uint32_t kf[kSteps][4], vf[kSteps][4];
-  load_a_fragments<kDim>(kf, ks, rk, c2);
-  load_a_fragments<kDim>(vf, vs, rk, c2);
-  uint32_t s1 = 0, s2 = 0;
-  if (kDrop) dropout_streams(dr.seed, b, h, s1, s2);
-  float dka[kOut][4], dva[kOut][4];
+// a = A . B^T over the head dim, A and B K-major tiles of 64 rows: A's
+// descriptors per 64-column half, B's tile of kDim / 64 halves of 64 rows x
+// 128 bytes. Issued, not committed.
+template <int kDim>
+__device__ __forceinline__ void issue_rows_by_tile(float (&a)[32], const uint64_t (&ad)[kDim / 64],
+                                                   const unsigned char* b_tile) {
 #pragma unroll
-  for (int j = 0; j < kOut; ++j) {
-    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
-    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+  for (int st = 0; st < kDim / 16; ++st) {
+    const uint64_t bd = sw128_desc(b_tile + (st / 4) * 64 * 128);
+    if (st == 0)
+      wgmma_ss_first(a, ad[0], bd);
+    else
+      wgmma_ss(a, ad[st / 4] + 2 * (st % 4), bd + 2 * (st % 4), 1u);
   }
+}
 
-  for (int q0 = 0; q0 < t; q0 += kBlockQ) {
-    __syncthreads();  // the previous query tile is no longer read
-    load_tile<kDim>(qs, q + head, q0, t, d);
-    load_tile<kDim>(dos, dout + head, q0, t, d);
-    for (int i = tid; i < kBlockQ * kBlockK; i += kWarps * 32) {
-      const int qi = i / kBlockK, kj = i % kBlockK;
-      const bool valid = q0 + qi < t && k0 + kj < t;
-      pt[qi * ldp + kj] = valid ? bias_h[(size_t)(q0 + qi) * ldbias + k0 + kj] : __float2bfloat16(0.f);
-    }
-    if (tid < kBlockQ) {
-      const bool valid = q0 + tid < t;
-      const size_t at = (size_t)bh * t + q0 + tid;
-      lse_s[tid] = valid ? lse[at] : 0.f;
-      delta_s[tid] = valid ? delta[at] : 0.f;
-      gate_s[tid] = valid ? gate[at] : 0.f;
-    }
-    __syncthreads();
+// acc[hf] += P (64 x 64, bf16 in registers: the A layout) . B (64 x kDim:
+// the tile's 64 rows along K, MN-major), issued, not committed
+template <int kDim>
+__device__ __forceinline__ void issue_acc_by_tile(float (&acc)[kDim / 64][32], const uint32_t (&p)[16],
+                                                  const unsigned char* b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // 16 rows of the tile per step
+#pragma unroll
+    for (int hf = 0; hf < kDim / 64; ++hf)
+      wgmma_rs(acc[hf], p + 4 * kk, sw128_mn_desc(b_tile + hf * 64 * 128) + 128 * kk);
+}
 
-    float st[8][4], dpt[8][4];
-    mma_rows_by_tile<kDim>(st, kf, qs, g, c2);    // k q^T
-    mma_rows_by_tile<kDim>(dpt, vf, dos, g, c2);  // v dO^T
+// an accumulator tile rounded to bf16 in the A layout of the next product
+__device__ __forceinline__ void pack_a(uint32_t (&p)[16], const float (&s)[32]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const int qi = 8 * j + c2 + (e & 1);
-        const int qrow = q0 + qi;
-        float wd = 0.f, ds = 0.f;
-        if (qrow < t && key[i] < t) {
-          const float pb = __bfloat162float(pt[qi * ldp + rk + 8 * i]);
-          const float w = expf(st[j][e] * scale + gate_s[qi] * pb - lse_s[qi]);
-          const float keep = dropout_keep<kDrop>(s1, s2, qrow, key[i], dr);
-          wd = w * keep;
-          ds = w * (dpt[j][e] * keep - delta_s[qi]);
-        }
-        st[j][e] = wd;
-        dpt[j][e] = ds;
+    for (int e = 0; e < 4; ++e) p[4 * kk + e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// Bits of a packed keep mask (the layout pass A writes): keep[(bh, key
+// block kb, row r, word w)] holds bit k % 32 = keep(r, 64 kb + 32 w + k % 32)
+// for r < round_up(t, 64); zero past t in either direction.
+__device__ __forceinline__ size_t keep_word(int bh, int kb, int tiles, int r) {
+  return (((size_t)bh * tiles + kb) * (tiles * 64) + r) * 2;
+}
+
+// pass A's lane keep bits (keep_bits' layout) as the two packed words of
+// row `i` of the lane: word w holds keys 32 w .. 32 w + 31 of the tile; each
+// lane holds 16 of a row's 64 bits, so the four lanes of the row group are
+// or-ed together
+__device__ __forceinline__ void packed_words(uint32_t (&wd)[2][2], uint32_t keep, int c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          x |= ((keep >> (4 * (4 * w + jj) + 2 * i + e)) & 1u) << (8 * jj + 2 * c + e);
+      x |= __shfl_xor_sync(0xffffffffu, x, 1);
+      x |= __shfl_xor_sync(0xffffffffu, x, 2);
+      wd[i][w] = x;
+    }
+}
+
+// Shared memory of a pass A block from a 1024-aligned base: Q and dO
+// (kDim / 64 halves of 64 rows x 128 bytes each), the ring (K, V, the 64 x
+// 64 bias tile per stage), the barriers, then with dropout the lane keep
+// bits of a batch element (one word per lane and key tile).
+template <int kDim>
+struct BwdALayout {
+  static constexpr uint32_t kTileBytes = 64 * kDim * 2;
+  static constexpr uint32_t kBiasBytes = 64 * kBlockK * 2;
+  static constexpr uint32_t kStageBytes = 2 * kTileBytes + kBiasBytes;
+  static constexpr uint32_t kRing = 2 * kTileBytes;
+  static constexpr uint32_t kBars = kRing + kStagesA * kStageBytes;
+  static constexpr uint32_t kBits = kBars + 128;
+  static size_t smem(int t, bool drop) {
+    return kBits + (drop ? (size_t)(t + 63) / 64 * kBwdThreads * 4 : 0) + 1024;
+  }
+};
+
+// The scores of one tile in base 2 (x = s c1 + g2 bias - l2, keys past t
+// masked when kTail) and their weights W = 2^x, in place.
+template <bool kTail>
+__device__ __forceinline__ void tile_weights_bwd(float (&s)[32], const uint32_t (&br)[16],
+                                                 float c1, const float (&g2)[2],
+                                                 const float (&l2)[2], int col0, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * i + e];
+        const float w = ex2(fmaf(x, c1, g2[i] * bias_value(br, j, i, e)) - l2[i]);
+        x = kTail && col0 + 8 * j + e >= t ? 0.f : w;
       }
+}
+
+// K2 pass A, bf16: one block (a warpgroup) per (head, 64 query rows, batch
+// chunk), looping over the chunk's batch elements and, for each, twice over
+// the 64-key tiles. Per tile: s = Q K^T and dW' = dO V^T on wgmma, W = 2^(s
+// c1 + g2 bias - l2) in registers. The first sweep hashes the keep mask
+// (while the products run), keeps the lane's bits in shared memory, writes
+// the packed mask for pass B, and sums D = rowsum(W * dW' * m), the TPU
+// kernel's r, from the exact f32 W. The second reads the bits back, makes
+// dS = W (dW' m - D) and adds dS K (dS rounded to bf16 in the accumulator's
+// registers, the K tile MN-major), dgate and gate * dS into the chunk's f32
+// d pos_bias slice. Q and dO come by TMA once per batch element; K, V and
+// the bias tile through a ring of kStagesA stages behind full / empty
+// mbarriers, refilled by thread 0. Lane layout as in K1. Writes rows[bh, r]
+// = (gate log2 e, lse log2 e, D, 0) for r < round_up(t, 64) ((0, inf, 0, 0)
+// past t: W = 0 there in pass B).
+template <int kDim, bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, kDim == 64 ? 3 : 1)
+attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const __grid_constant__ CUtensorMap bias_map,
+                             const float* __restrict__ gate, const float* __restrict__ lse,
+                             float4* __restrict__ rows, uint32_t* __restrict__ keep_out,
+                             __nv_bfloat16* __restrict__ dq, float* __restrict__ dgate,
+                             float* __restrict__ dbias_part, int ldb, int batch, int num_heads,
+                             int t, int d, float scale, Dropout dr) {
+  using L = BwdALayout<kDim>;
+  constexpr int kHalves = kDim / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kStagesA;
+  uint32_t* lane_bits = reinterpret_cast<uint32_t*>(base + L::kBits);
+  auto stage = [&](int slot) { return base + L::kRing + slot * L::kStageBytes; };
+
+  const int h = blockIdx.x, q0 = blockIdx.y * kBlockQ;
+  const int b0 = blockIdx.z * batch / gridDim.z, b1 = (blockIdx.z + 1) * batch / gridDim.z;
+  const int tiles = (t + kBlockK - 1) / kBlockK, tp = tiles * kBlockK;
+  const int per_b = 2 * tiles;  // loads of a batch element: the D sweep, then the dS sweep
+  const int loads = (b1 - b0) * per_b;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const bool producer = tid == 0;
+  float* part = dbias_part + ((size_t)blockIdx.z * num_heads + h) * t * ldb;
+
+  auto load = [&](int n) {  // the K, V and bias tiles of load n (thread 0)
+    const int slot = n % kStagesA, j = n % tiles, bh = (b0 + n / per_b) * num_heads + h;
+    unsigned char* st = stage(slot);
+    mbar_expect_tx(&full[slot], L::kStageBytes, producer);
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      tma_load_3d(st + hf * 64 * 128, &k_map, &full[slot], 64 * hf, j * kBlockK, bh, producer);
+      tma_load_3d(st + L::kTileBytes + hf * 64 * 128, &v_map, &full[slot], 64 * hf, j * kBlockK,
+                  bh, producer);
     }
-    mma_acc_by_tile<kDim>(dva, st, dos, lane);  // (W m)^T dO
-    mma_acc_by_tile<kDim>(dka, dpt, qs, lane);  // dS^T q
+    tma_load_3d(st + 2 * L::kTileBytes, &bias_map, &full[slot], j * kBlockK, q0, h, producer);
+  };
+  auto load_q = [&](int e) {  // Q and dO of batch element b0 + e (thread 0)
+    const int bh = (b0 + e) * num_heads + h;
+    mbar_expect_tx(q_bar, 2 * L::kTileBytes, producer);
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      tma_load_3d(base + hf * 64 * 128, &q_map, q_bar, 64 * hf, q0, bh, producer);
+      tma_load_3d(base + L::kTileBytes + hf * 64 * 128, &do_map, q_bar, 64 * hf, q0, bh, producer);
+    }
+  };
+  if (producer) {
+    mbar_init(q_bar, 1);
+    for (int i = 0; i < kStagesA; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // one arrive per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  load_q(0);
+  for (int n = 0; n < kStagesA && n < loads; ++n) load(n);
+  auto release = [&](int n) {  // as in K1
+    const int slot = n % kStagesA;
+    __syncwarp();
+    mbar_arrive(&empty[slot], lane == 0);
+    if (n + kStagesA < loads) {
+      mbar_wait(&empty[slot], (n / kStagesA) & 1, producer);
+      load(n + kStagesA);
+    }
+  };
+
+  const int r_tile = 16 * warp + g;
+  const int row[2] = {q0 + r_tile, q0 + r_tile + 8};
+  const float c1 = scale * kLog2e;
+  uint64_t qd[kHalves], dod[kHalves];
+#pragma unroll
+  for (int hf = 0; hf < kHalves; ++hf) {
+    qd[hf] = sw128_desc(base + hf * 64 * 128);
+    dod[hf] = sw128_desc(base + L::kTileBytes + hf * 64 * 128);
+  }
+  float s[32], dp[32], dqa[kHalves][32];
+  uint32_t br[16], p[16];
+
+  for (int e = 0; e < b1 - b0; ++e) {
+    const int b = b0 + e, bh = b * num_heads + h;
+    float gt[2], g2[2], l2[2], dl[2] = {0.f, 0.f}, dg[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool valid = row[i] < t;
+      gt[i] = valid ? gate[(size_t)bh * t + row[i]] : 0.f;
+      g2[i] = gt[i] * kLog2e;
+      l2[i] = valid ? lse[(size_t)bh * t + row[i]] * kLog2e : 0.f;
+    }
+    uint32_t s1 = 0, s2 = 0;
+    if (kDrop) dropout_streams(dr.seed, b, h, s1, s2);
+    mbar_wait(q_bar, e & 1);
+
+    // first sweep: D, the keep bits
+    for (int j = 0; j < tiles; ++j) {
+      const int n = e * per_b + j, slot = n % kStagesA, k0 = j * kBlockK;
+      unsigned char* st = stage(slot);
+      mbar_wait(&full[slot], (n / kStagesA) & 1);
+      wgmma_fence();
+      issue_rows_by_tile<kDim>(s, qd, st);
+      issue_rows_by_tile<kDim>(dp, dod, st + L::kTileBytes);
+      wgmma_commit();
+      const uint32_t keep = kDrop ? keep_bits(s1, s2, row, k0, c, dr.threshold) : 0u;
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      bias_fragments<false>(br, st + 2 * L::kTileBytes, warp, lane);
+      if (k0 + kBlockK <= t)
+        tile_weights_bwd<false>(s, br, c1, g2, l2, k0 + 2 * c, t);
+      else
+        tile_weights_bwd<true>(s, br, c1, g2, l2, k0 + 2 * c, t);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x / 2) % 2;
+        const float dpm = !kDrop ? dp[x] : (keep >> x) & 1u ? dp[x] * dr.keep_scale : 0.f;
+        dl[i] = fmaf(s[x], dpm, dl[i]);
+      }
+      if (kDrop) {
+        lane_bits[j * kBwdThreads + tid] = keep;
+        uint32_t wd[2][2];
+        packed_words(wd, keep, c);
+        // lane c stores word c % 2 of row c / 2; keys and rows past t as 0
+        const int i = c / 2, w = c % 2, n_keys = t - k0 - 32 * w;
+        uint32_t word = c == 0 ? wd[0][0] : c == 1 ? wd[0][1] : c == 2 ? wd[1][0] : wd[1][1];
+        word &= n_keys >= 32 ? 0xffffffffu : n_keys <= 0 ? 0u : (1u << n_keys) - 1u;
+        keep_out[keep_word(bh, j, tiles, row[i]) + w] = row[i] < t ? word : 0u;
+      }
+      release(n);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // D of the rows: the 4 lanes of a row group hold its columns
+      dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 1);
+      dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 2);
+      if (c == 0)
+        rows[(size_t)bh * tp + row[i]] = row[i] < t ? make_float4(g2[i], l2[i], dl[i], 0.f)
+                                                    : make_float4(0.f, INFINITY, 0.f, 0.f);
+    }
+
+    // second sweep: dS, dq, dgate, the partial d pos_bias
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dqa[hf][x] = 0.f;
+    for (int j = 0; j < tiles; ++j) {
+      const int n = e * per_b + tiles + j, slot = n % kStagesA, k0 = j * kBlockK;
+      unsigned char* st = stage(slot);
+      mbar_wait(&full[slot], (n / kStagesA) & 1);
+      wgmma_fence();
+      issue_rows_by_tile<kDim>(s, qd, st);
+      issue_rows_by_tile<kDim>(dp, dod, st + L::kTileBytes);
+      wgmma_commit();
+      const uint32_t keep = kDrop ? lane_bits[j * kBwdThreads + tid] : 0u;
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      bias_fragments<false>(br, st + 2 * L::kTileBytes, warp, lane);
+      if (k0 + kBlockK <= t)
+        tile_weights_bwd<false>(s, br, c1, g2, l2, k0 + 2 * c, t);
+      else
+        tile_weights_bwd<true>(s, br, c1, g2, l2, k0 + 2 * c, t);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int jj = x / 4, i = (x / 2) % 2, e2 = x % 2;
+        const float dpm = !kDrop ? dp[x] : (keep >> x) & 1u ? dp[x] * dr.keep_scale : 0.f;
+        const float ds = s[x] * (dpm - dl[i]);
+        dg[i] = fmaf(ds, bias_value(br, jj, i, e2), dg[i]);
+        s[x] = ds;
+      }
+      pack_a(p, s);
+      // the pairs the chunk's earlier batch elements left (this lane wrote
+      // them), requested while dS K runs
+      float2 prev[8][2];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int col = k0 + 8 * jj + 2 * c;
+          const bool ok = e > 0 && row[i] < t && col < t;  // no branch near the wgmma
+          const float2 x =
+              *reinterpret_cast<const float2*>(part + (ok ? (size_t)row[i] * ldb + col : 0));
+          prev[jj][i] = ok ? x : make_float2(0.f, 0.f);
+        }
+      fence_regs(p);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) fence_regs(dqa[hf]);
+      wgmma_fence();
+      issue_acc_by_tile<kDim>(dqa, p, st);  // dq += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(p);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) fence_regs(dqa[hf]);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int col = k0 + 8 * jj + 2 * c;
+          if (row[i] < t && col < t)  // col + 1 < ldb; past t dS is 0
+            *reinterpret_cast<float2*>(part + (size_t)row[i] * ldb + col) =
+                make_float2(fmaf(gt[i], s[4 * jj + 2 * i], prev[jj][i].x),
+                            fmaf(gt[i], s[4 * jj + 2 * i + 1], prev[jj][i].y));
+        }
+      release(n);
+    }
+
+    const size_t head = (size_t)bh * t * d;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // the batch element is done: dgate and dq
+      dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 1);
+      dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 2);
+      if (row[i] >= t) continue;
+      if (c == 0) dgate[(size_t)bh * t + row[i]] = dg[i];
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * hf + 8 * jj + 2 * c;
+          if (col < d)
+            *reinterpret_cast<__nv_bfloat162*>(dq + head + (size_t)row[i] * d + col) =
+                __floats2bfloat162_rn(dqa[hf][4 * jj + 2 * i] * scale,
+                                      dqa[hf][4 * jj + 2 * i + 1] * scale);
+        }
+    }
+    if (e + 1 < b1 - b0) {
+      __syncthreads();  // no warp reads this element's Q and dO any more
+      load_q(e + 1);
+    }
+  }
+}
+
+// Shared memory of a pass B block from a 1024-aligned base: K and V, staged
+// once, then per ring stage Q, dO, the 64 x 64 bias tile, the 64 rows'
+// (gate log2 e, lse log2 e, D, 0) and their packed keep words, then the
+// barriers.
+template <int kDim>
+struct BwdBLayout {
+  static constexpr uint32_t kTileBytes = 64 * kDim * 2;
+  static constexpr uint32_t kBiasBytes = 64 * kBlockK * 2;
+  static constexpr uint32_t kRowsBytes = 64 * 16;
+  static constexpr uint32_t kBitsBytes = 64 * 8;
+  static constexpr uint32_t kBias = 2 * kTileBytes;  // offsets within a stage
+  static constexpr uint32_t kRows = kBias + kBiasBytes;
+  static constexpr uint32_t kBitsAt = kRows + kRowsBytes;
+  static constexpr uint32_t kStageBytes = (kBitsAt + kBitsBytes + 1023) / 1024 * 1024;
+  static constexpr uint32_t kRing = 2 * kTileBytes;
+  static constexpr uint32_t kBars = kRing + kStagesB * kStageBytes;
+  static constexpr size_t kSmem = kBars + (1 + 2 * kStagesB) * sizeof(uint64_t) + 1024;
+};
+
+// K2 pass B, bf16: one block (a warpgroup) per (batch, head, 64 keys), K and
+// V staged once, looping over the query tiles (FlashAttention-2 style
+// without dq) whose Q, dO, bias tile, row values and packed keep words come
+// through the ring. Per tile: s^T = K Q^T and dW'^T = V dO^T on wgmma, then
+// dv += (W m)^T dO and dk += dS^T Q with W m and dS^T rounded to bf16 in
+// registers and Q, dO MN-major. Lane (g, c) of warp w owns keys 16 w + g and
+// + 8; the columns of its tiles are query rows, whose gate, lse and D come
+// from pass A's rows, the bias transposed from the swizzled tile, and the
+// keep bits from pass A's packed mask: no hash.
+template <int kDim, bool kDrop>
+__global__ void __launch_bounds__(kBwdThreads, kDim == 64 ? 2 : 1)
+attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const __grid_constant__ CUtensorMap bias_map,
+                               const float4* __restrict__ rows,
+                               const uint32_t* __restrict__ keep_in,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int num_heads, int t, int d, float scale, Dropout dr) {
+  using L = BwdBLayout<kDim>;
+  constexpr int kHalves = kDim / 64;
+  constexpr uint32_t kLoadBytes = L::kBitsAt + (kDrop ? L::kBitsBytes : 0);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + kStagesB;
+  auto stage = [&](int slot) { return base + L::kRing + slot * L::kStageBytes; };
+
+  const int bh = blockIdx.x, h = bh % num_heads, kb = blockIdx.y, k0 = kb * kBlockK;
+  const int tiles = (t + kBlockQ - 1) / kBlockQ, tp = tiles * kBlockQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
+  const bool producer = tid == 0;
+
+  auto load = [&](int n) {  // query tile n (thread 0)
+    const int slot = n % kStagesB, r0 = n * kBlockQ;
+    unsigned char* st = stage(slot);
+    mbar_expect_tx(&full[slot], kLoadBytes, producer);
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      tma_load_3d(st + hf * 64 * 128, &q_map, &full[slot], 64 * hf, r0, bh, producer);
+      tma_load_3d(st + L::kTileBytes + hf * 64 * 128, &do_map, &full[slot], 64 * hf, r0, bh,
+                  producer);
+    }
+    tma_load_3d(st + L::kBias, &bias_map, &full[slot], k0, r0, h, producer);
+    bulk_load(st + L::kRows, rows + (size_t)bh * tp + r0, L::kRowsBytes, &full[slot], producer);
+    if (kDrop)
+      bulk_load(st + L::kBitsAt, keep_in + keep_word(bh, kb, tiles, r0), L::kBitsBytes,
+                &full[slot], producer);
+  };
+  if (producer) {
+    mbar_init(kv_bar, 1);
+    for (int i = 0; i < kStagesB; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  mbar_expect_tx(kv_bar, 2 * L::kTileBytes, producer);
+#pragma unroll
+  for (int hf = 0; hf < kHalves; ++hf) {
+    tma_load_3d(base + hf * 64 * 128, &k_map, kv_bar, 64 * hf, k0, bh, producer);
+    tma_load_3d(base + L::kTileBytes + hf * 64 * 128, &v_map, kv_bar, 64 * hf, k0, bh, producer);
+  }
+  for (int n = 0; n < kStagesB && n < tiles; ++n) load(n);
+  auto release = [&](int n) {
+    const int slot = n % kStagesB;
+    __syncwarp();
+    mbar_arrive(&empty[slot], lane == 0);
+    if (n + kStagesB < tiles) {
+      mbar_wait(&empty[slot], (n / kStagesB) & 1, producer);
+      load(n + kStagesB);
+    }
+  };
+
+  const float c1 = scale * kLog2e;
+  // the lane's keys within the block: 16 warp + g + 8 i, bit 16 (warp % 2) + g + 8 i of word warp / 2
+  const int bit0 = 16 * (warp % 2) + g, word = warp / 2;
+  uint64_t kd[kHalves], vd[kHalves];
+  float dka[kHalves][32], dva[kHalves][32];
+#pragma unroll
+  for (int hf = 0; hf < kHalves; ++hf) {
+    kd[hf] = sw128_desc(base + hf * 64 * 128);
+    vd[hf] = sw128_desc(base + L::kTileBytes + hf * 64 * 128);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) dka[hf][x] = dva[hf][x] = 0.f;
+  }
+  float st_[32], dpt[32];
+  uint32_t br[16], pw[16], pds[16];
+  mbar_wait(kv_bar, 0);
+
+  for (int n = 0; n < tiles; ++n) {
+    const int slot = n % kStagesB;
+    unsigned char* st = stage(slot);
+    mbar_wait(&full[slot], (n / kStagesB) & 1);
+    wgmma_fence();
+    issue_rows_by_tile<kDim>(st_, kd, st);                    // K Q^T
+    issue_rows_by_tile<kDim>(dpt, vd, st + L::kTileBytes);    // V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st_);
+    fence_regs(dpt);
+    bias_fragments<true>(br, st + L::kBias, warp, lane);
+    const float4* rs = reinterpret_cast<const float4*>(st + L::kRows);
+    const uint32_t* bits = reinterpret_cast<const uint32_t*>(st + L::kBitsAt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * c + e;  // query row r0 + col
+        const float4 rv = rs[col];  // (gate log2 e, lse log2 e, D): W = 0 past t
+        const uint32_t kw = kDrop ? bits[2 * col + word] : 0u;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + e;
+          const float w = ex2(fmaf(st_[x], c1, rv.x * bias_value(br, j, i, e)) - rv.y);
+          const bool kept = !kDrop || ((kw >> (bit0 + 8 * i)) & 1u);
+          const float m = kDrop ? (kept ? dr.keep_scale : 0.f) : 1.f;
+          st_[x] = w * m;                    // W m
+          dpt[x] = w * (dpt[x] * m - rv.z);  // dS
+        }
+      }
+    pack_a(pw, st_);
+    pack_a(pds, dpt);
+    fence_regs(pw);
+    fence_regs(pds);
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      fence_regs(dka[hf]);
+      fence_regs(dva[hf]);
+    }
+    wgmma_fence();
+    issue_acc_by_tile<kDim>(dva, pw, st + L::kTileBytes);  // (W m)^T dO
+    issue_acc_by_tile<kDim>(dka, pds, st);                 // dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pw);
+    fence_regs(pds);
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      fence_regs(dka[hf]);
+      fence_regs(dva[hf]);
+    }
+    release(n);
   }
 
+  const size_t head = (size_t)bh * t * d;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (key[i] >= t) continue;
+    const int key = k0 + 16 * warp + g + 8 * i;
+    if (key >= t) continue;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int col = 8 * j + c2;
-      if (col < d) {
-        const size_t at = head + (size_t)key[i] * d + col;
-        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-            __floats2bfloat162_rn(dka[j][2 * i] * scale, dka[j][2 * i + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+    for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * hf + 8 * j + 2 * c;
+        if (col < d) {
+          const size_t at = head + (size_t)key * d + col;
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+              __floats2bfloat162_rn(dka[hf][4 * j + 2 * i] * scale,
+                                    dka[hf][4 * j + 2 * i + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(dva[hf][4 * j + 2 * i], dva[hf][4 * j + 2 * i + 1]);
+        }
       }
-    }
   }
 }
 
@@ -1891,28 +2062,46 @@ extern "C" int gated_bias_attention_fwd_bf16_occupancy(int d, int* smem) {
   return err != cudaSuccess ? -(int)err : blocks;
 }
 
-// Pass A's shared memory. bf16 (dim 64 or 128): the q and dO tiles, two K,
-// two V and two bias tiles. f32: the q, dO, K and V tiles and the dS tile.
-static size_t pass_a_smem_bf16(int dim) {
-  return sizeof(__nv_bfloat16) * ((size_t)(2 * kBlockQ + 4 * kBlockK) * (dim + 8) +
-                                  2 * (size_t)kBlockQ * (kBlockK + 8));
-}
-
+// Pass A's float32 shared memory: the q, dO, K and V tiles and the dS tile.
 static size_t pass_a_smem_f32(int d) {
   return sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
                           (size_t)kBlockQ * (kBlockK + 1));
 }
 
+// K2's bf16 tensor maps: q, k, v and dO (d, t, b h) in boxes of 64 columns
+// by 64 rows, the bias (t keys, t rows, h) in rows of ldbias, boxes of 64 x
+// 64; rows and keys past t read as zeros.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, bias;
+};
+
+static int encode_bwd_maps(BwdMaps& m, const void* q, const void* k, const void* v,
+                           const void* dout, const void* bias, int ldbias, int b, int h, int t,
+                           int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  const size_t mat = (size_t)t * d;
+  int rc;
+  if ((rc = encode_3d(encode, &m.q, q, d, t, b * h, d, mat, 64, kBlockQ)) != 0 ||
+      (rc = encode_3d(encode, &m.k, k, d, t, b * h, d, mat, 64, kBlockK)) != 0 ||
+      (rc = encode_3d(encode, &m.v, v, d, t, b * h, d, mat, 64, kBlockK)) != 0 ||
+      (rc = encode_3d(encode, &m.dout, dout, d, t, b * h, d, mat, 64, kBlockQ)) != 0 ||
+      (rc = encode_3d(encode, &m.bias, bias, t, t, h, ldbias, (size_t)t * ldbias, kBlockK,
+                      kBlockQ)) != 0)
+    return rc;
+  return 0;
+}
+
 template <bool kDrop>
-static int pass_a_blocks_per_sm(int d, int is_bf16) {
+static int pass_a_blocks_per_sm(int d, int is_bf16, int t) {
   int blocks = 0;
   cudaError_t err;
   if (is_bf16) {
     auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64, kDrop>
                           : attention_bwd_dq_bf16_kernel<128, kDrop>;
-    const size_t smem = pass_a_smem_bf16(d <= 64 ? 64 : 128);
+    const size_t smem = d <= 64 ? BwdALayout<64>::smem(t, kDrop) : BwdALayout<128>::smem(t, kDrop);
     if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return -(int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_a, kWarps * 32, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pass_a, kBwdThreads, smem);
   } else {
     auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4, kDrop>
                           : attention_bwd_dq_f32_kernel<8, kDrop>;
@@ -1923,130 +2112,181 @@ static int pass_a_blocks_per_sm(int d, int is_bf16) {
   return err != cudaSuccess ? -(int)err : blocks;
 }
 
-// Blocks of pass A (the instance with dropout != 0 or without) that one SM
-// of the current device holds at once (its registers and shared memory
-// decide), or minus the CUDA error. The plan that splits the batch into
-// chunks counts the card's resident blocks so.
-extern "C" int gated_bias_attention_bwd_a_blocks_per_sm(int d, int is_bf16, int dropout) {
-  return dropout ? pass_a_blocks_per_sm<true>(d, is_bf16) : pass_a_blocks_per_sm<false>(d, is_bf16);
+// Blocks of pass A (the instance with dropout != 0 or without, at sequence
+// length t: the bf16 instance with dropout keeps a word per lane and key
+// tile in shared memory) that one SM of the current device holds at once
+// (its registers and shared memory decide), or minus the CUDA error. The
+// plan that splits the batch into chunks counts the card's resident blocks
+// so.
+extern "C" int gated_bias_attention_bwd_a_blocks_per_sm(int d, int is_bf16, int dropout, int t) {
+  return dropout ? pass_a_blocks_per_sm<true>(d, is_bf16, t)
+                 : pass_a_blocks_per_sm<false>(d, is_bf16, t);
 }
 
-template <bool kDrop>
-static cudaError_t launch_pass_a(const void* q, const void* k, const void* v, const void* bias,
-                                 int ldbias, const float* gate, const void* out, const void* dout,
-                                 const float* lse, float* delta, void* dq, float* dgate,
-                                 float* part, int b, int h, int t, int d, int is_bf16, int chunks,
-                                 int ldb, Dropout dr, cudaStream_t s) {
-  const dim3 grid(h, (t + kBlockQ - 1) / kBlockQ, chunks);
-  const float scale = 1.0f / sqrtf((float)d);
-  cudaError_t err;
-  if (is_bf16) {
-    using bf16 = __nv_bfloat16;
-    auto pass_a = d <= 64 ? attention_bwd_dq_bf16_kernel<64, kDrop>
-                          : attention_bwd_dq_bf16_kernel<128, kDrop>;
-    const size_t smem = pass_a_smem_bf16(d <= 64 ? 64 : 128);
-    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return err;
-    pass_a<<<grid, kWarps * 32, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), ldbias, gate, static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dq), dgate, part, ldb, b, h, t, d, scale, dr);
-  } else {
-    auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4, kDrop>
-                          : attention_bwd_dq_f32_kernel<8, kDrop>;
-    const size_t smem = pass_a_smem_f32(d);
-    if ((err = allow_smem(pass_a, smem)) != cudaSuccess) return err;
-    pass_a<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), ldbias, gate, static_cast<const float*>(out),
-        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), dgate, part,
-        ldb, b, h, t, d, scale, dr);
-  }
-  return cudaGetLastError();
-}
-
-// K2 pass A and the sum, for the backward of gated_bias_attention_fwd's
-// training forward with the same dropout arguments (dropout == 0: the
-// instance without the mask replay). Inputs: q, k, v, bias (h, t, ldbias)
-// with ldbias >= t a multiple of 8 and zeros past t, gate, out, dout (out's
-// cotangent), lse; outputs: delta (b, h, t) float32 (D, for pass B),
-// dq in q's type, dgate (b, h, t) and dbias (h, t, t) in float32; scratch:
-// dbias_part (chunks, h, t, ldb) float32 with ldb >= t, ldb % 4 == 0 (rows
-// 16-byte aligned). The batch is split into `chunks` <= b chunks of
-// consecutive elements, chunk z holding z b / chunks .. (z + 1) b / chunks - 1.
-// Launches pass A, then the sum, on the same stream. Returns the first CUDA
-// error (0 on success).
-extern "C" int gated_bias_attention_bwd_a(const void* q, const void* k, const void* v,
-                                          const void* bias, int ldbias, const void* gate,
-                                          const void* out,
-                                          const void* dout, const void* lse, void* delta, void* dq,
-                                          void* dgate, void* dbias_part, void* dbias, int b,
-                                          int h, int t, int d, int is_bf16, int chunks, int ldb,
-                                          int dropout, uint32_t seed, uint32_t threshold,
-                                          float keep_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout dr{seed, threshold, keep_scale};
-  float* part = static_cast<float*>(dbias_part);
-  auto launch = dropout ? launch_pass_a<true> : launch_pass_a<false>;
-  cudaError_t err = launch(q, k, v, bias, ldbias, static_cast<const float*>(gate), out, dout,
-                           static_cast<const float*>(lse), static_cast<float*>(delta), dq,
-                           static_cast<float*>(dgate), part, b, h, t, d, is_bf16, chunks, ldb,
-                           dr, s);
+template <int kDim, bool kDrop>
+static int launch_pass_a_bf16(const BwdMaps& m, const float* gate, const float* lse, void* rows,
+                              void* keep, void* dq, float* dgate, float* part, int b, int h,
+                              int t, int d, int chunks, int ldb, Dropout dr, cudaStream_t s) {
+  auto kernel = attention_bwd_dq_bf16_kernel<kDim, kDrop>;
+  const size_t smem = BwdALayout<kDim>::smem(t, kDrop);
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)h * t * t;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  dbias_sum_kernel<<<blocks, 256, 0, s>>>(part, static_cast<float*>(dbias), chunks, h * t, t,
-                                          ldb);
+  const dim3 grid(h, (t + kBlockQ - 1) / kBlockQ, chunks);
+  kernel<<<grid, kBwdThreads, smem, s>>>(
+      m.q, m.k, m.v, m.dout, m.bias, gate, lse, static_cast<float4*>(rows),
+      static_cast<uint32_t*>(keep), static_cast<__nv_bfloat16*>(dq), dgate, part, ldb, b, h, t, d,
+      1.0f / sqrtf((float)d), dr);
   return (int)cudaGetLastError();
 }
 
 template <bool kDrop>
-static cudaError_t launch_pass_b(const void* q, const void* k, const void* v, const void* bias,
-                                 int ldbias, const float* gate, const void* dout,
-                                 const float* lse, const float* delta, void* dk, void* dv, int b,
-                                 int h, int t, int d, int is_bf16, Dropout dr, cudaStream_t s) {
-  const dim3 grid(b * h, (t + kBlockK - 1) / kBlockK);
-  const float scale = 1.0f / sqrtf((float)d);
-  cudaError_t err;
-  if (is_bf16) {
-    using bf16 = __nv_bfloat16;
-    const int dim = d <= 64 ? 64 : 128;
-    auto pass_b = d <= 64 ? attention_bwd_dkdv_bf16_kernel<64, kDrop>
-                          : attention_bwd_dkdv_bf16_kernel<128, kDrop>;
-    const size_t smem = sizeof(bf16) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (dim + 8) +
-                                        (size_t)kBlockQ * (kBlockK + 8)) +
-                        sizeof(float) * 3 * kBlockQ;
-    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return err;
-    pass_b<<<grid, kWarps * 32, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), ldbias, gate, static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, t, d, scale, dr);
-  } else {
-    auto pass_b = d <= 64 ? attention_bwd_dkdv_f32_kernel<4, kDrop>
-                          : attention_bwd_dkdv_f32_kernel<8, kDrop>;
-    const size_t smem = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
-                                         2 * (size_t)kBlockK * (kBlockQ + 1) + 3 * kBlockQ);
-    if ((err = allow_smem(pass_b, smem)) != cudaSuccess) return err;
-    pass_b<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(bias), ldbias, gate, static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), h, t, d, scale, dr);
-  }
-  return cudaGetLastError();
+static int launch_pass_a_f32(const void* q, const void* k, const void* v, const void* bias,
+                             int ldbias, const float* gate, const void* out, const void* dout,
+                             const float* lse, float* delta, void* dq, float* dgate, float* part,
+                             int b, int h, int t, int d, int chunks, int ldb, Dropout dr,
+                             cudaStream_t s) {
+  auto pass_a = d <= 64 ? attention_bwd_dq_f32_kernel<4, kDrop>
+                        : attention_bwd_dq_f32_kernel<8, kDrop>;
+  const size_t smem = pass_a_smem_f32(d);
+  const cudaError_t err = allow_smem(pass_a, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(h, (t + kBlockQ - 1) / kBlockQ, chunks);
+  pass_a<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), ldbias, gate, static_cast<const float*>(out),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), dgate, part, ldb, b,
+      h, t, d, 1.0f / sqrtf((float)d), dr);
+  return (int)cudaGetLastError();
 }
 
-// K2 pass B: dk, dv in q's type from q, k, v, bias (rows of ldbias), gate,
-// dout, lse and the delta that pass A wrote, with the same dropout
-// arguments. Returns the CUDA error of the launch (0 on success).
-extern "C" int gated_bias_attention_bwd_b(const void* q, const void* k, const void* v,
-                                          const void* bias, int ldbias, const void* gate,
-                                          const void* dout,
-                                          const void* lse, const void* delta, void* dk, void* dv,
-                                          int b, int h, int t, int d, int is_bf16, int dropout,
-                                          uint32_t seed, uint32_t threshold, float keep_scale,
-                                          void* stream) {
-  auto launch = dropout ? launch_pass_b<true> : launch_pass_b<false>;
-  return (int)launch(q, k, v, bias, ldbias, static_cast<const float*>(gate), dout,
-                     static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, b,
-                     h, t, d, is_bf16, Dropout{seed, threshold, keep_scale},
-                     static_cast<cudaStream_t>(stream));
+// K2 pass A, for the backward of gated_bias_attention_fwd's training
+// forward with the same dropout arguments (dropout == 0: the instance
+// without the mask), one launch. Inputs: q, k, v and dout (out's
+// cotangent), (b, h, t, d); bias (h, t, ldbias) with ldbias >= t a multiple
+// of 8 and zeros past t; gate and lse (b, h, t) float32. Outputs: dq in q's
+// type, dgate (b, h, t) float32, the chunks' partial dbias slices
+// dbias_part (chunks, h, t, ldb) float32 with ldb >= t, ldb % 4 == 0 (rows
+// 16-byte aligned), which gated_bias_attention_dbias_sum adds, and for pass
+// B, in bf16: `rows` (b h, tp, 4) float32, tp = round_up(t, 64), (gate log2
+// e, lse log2 e, D, 0) and (0, inf, 0, 0) past t, and with dropout `keep`,
+// the packed keep mask (b h, tp / 64 key blocks, tp rows, 2) uint32 (bit k
+// of word w of row r in key block kb: key 64 kb + 32 w + k; zero past t),
+// which the instance without the mask leaves alone; in f32: `delta`, D (b,
+// h, t), from `out`. The batch is split into `chunks` <= b chunks of
+// consecutive elements, chunk z holding z b / chunks .. (z + 1) b / chunks
+// - 1. Returns 0 or the error: a CUDA error, -1 when the driver has no
+// cuTensorMapEncodeTiled, -1000 - the driver's error when a tensor map is
+// refused.
+extern "C" int gated_bias_attention_bwd_a_bf16(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* bias, int ldbias,
+                                               const void* gate, const void* lse, void* rows,
+                                               void* keep, void* dq, void* dgate,
+                                               void* dbias_part, int b, int h, int t, int d,
+                                               int chunks, int ldb, int dropout, uint32_t seed,
+                                               uint32_t threshold, float keep_scale,
+                                               void* stream) {
+  BwdMaps maps;
+  const int rc = encode_bwd_maps(maps, q, k, v, dout, bias, ldbias, b, h, t, d);
+  if (rc != 0) return rc;
+  auto launch = d <= 64 ? (dropout ? launch_pass_a_bf16<64, true> : launch_pass_a_bf16<64, false>)
+                        : (dropout ? launch_pass_a_bf16<128, true>
+                                   : launch_pass_a_bf16<128, false>);
+  return launch(maps, static_cast<const float*>(gate), static_cast<const float*>(lse), rows, keep,
+                dq, static_cast<float*>(dgate), static_cast<float*>(dbias_part), b, h, t, d,
+                chunks, ldb, Dropout{seed, threshold, keep_scale},
+                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gated_bias_attention_bwd_a_f32(const void* q, const void* k, const void* v,
+                                              const void* bias, int ldbias, const void* gate,
+                                              const void* out, const void* dout, const void* lse,
+                                              void* delta, void* dq, void* dgate,
+                                              void* dbias_part, int b, int h, int t, int d,
+                                              int chunks, int ldb, int dropout, uint32_t seed,
+                                              uint32_t threshold, float keep_scale,
+                                              void* stream) {
+  auto launch = dropout ? launch_pass_a_f32<true> : launch_pass_a_f32<false>;
+  return launch(q, k, v, bias, ldbias, static_cast<const float*>(gate), out, dout,
+                static_cast<const float*>(lse), static_cast<float*>(delta), dq,
+                static_cast<float*>(dgate), static_cast<float*>(dbias_part), b, h, t, d, chunks,
+                ldb, Dropout{seed, threshold, keep_scale}, static_cast<cudaStream_t>(stream));
+}
+
+// dbias (h, t, t) float32 = the `chunks` partial slices of pass A (either
+// type) added in chunk order, one launch of dbias_sum_kernel: the same bit
+// for bit from call to call. Returns 0 or the CUDA error.
+extern "C" int gated_bias_attention_dbias_sum(const void* dbias_part, void* dbias, int h, int t,
+                                              int chunks, int ldb, void* stream) {
+  const size_t n = (size_t)h * t * t;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  dbias_sum_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dbias_part), static_cast<float*>(dbias), chunks, h * t, t, ldb);
+  return (int)cudaGetLastError();
+}
+
+template <int kDim, bool kDrop>
+static int launch_pass_b_bf16(const BwdMaps& m, const void* rows, const void* keep, void* dk,
+                              void* dv, int b, int h, int t, int d, Dropout dr, cudaStream_t s) {
+  auto kernel = attention_bwd_dkdv_bf16_kernel<kDim, kDrop>;
+  const size_t smem = BwdBLayout<kDim>::kSmem;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * h, (t + kBlockK - 1) / kBlockK);
+  kernel<<<grid, kBwdThreads, smem, s>>>(
+      m.q, m.k, m.v, m.dout, m.bias, static_cast<const float4*>(rows),
+      static_cast<const uint32_t*>(keep), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), h, t, d, 1.0f / sqrtf((float)d), dr);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+static int launch_pass_b_f32(const void* q, const void* k, const void* v, const void* bias,
+                             int ldbias, const float* gate, const void* dout, const float* lse,
+                             const float* delta, void* dk, void* dv, int b, int h, int t, int d,
+                             Dropout dr, cudaStream_t s) {
+  auto pass_b = d <= 64 ? attention_bwd_dkdv_f32_kernel<4, kDrop>
+                        : attention_bwd_dkdv_f32_kernel<8, kDrop>;
+  const size_t smem = sizeof(float) * ((size_t)(2 * kBlockQ + 2 * kBlockK) * (d + 1) +
+                                       2 * (size_t)kBlockK * (kBlockQ + 1) + 3 * kBlockQ);
+  const cudaError_t err = allow_smem(pass_b, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * h, (t + kBlockK - 1) / kBlockK);
+  pass_b<<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), ldbias, gate, static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), h, t, d, 1.0f / sqrtf((float)d), dr);
+  return (int)cudaGetLastError();
+}
+
+// K2 pass B: dk, dv in q's type, one launch, from q, k, v, dout, bias
+// (rows of ldbias) as pass A read them and what pass A wrote: bf16 `rows`
+// and, with dropout, `keep` (no hash: only the keep scale); f32 `delta`,
+// with gate and lse, replaying the mask from the same dropout arguments as
+// pass A. Returns 0 or the error, as pass A.
+extern "C" int gated_bias_attention_bwd_b_bf16(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* bias, int ldbias,
+                                               const void* rows, const void* keep, void* dk,
+                                               void* dv, int b, int h, int t, int d, int dropout,
+                                               float keep_scale, void* stream) {
+  BwdMaps maps;
+  const int rc = encode_bwd_maps(maps, q, k, v, dout, bias, ldbias, b, h, t, d);
+  if (rc != 0) return rc;
+  auto launch = d <= 64 ? (dropout ? launch_pass_b_bf16<64, true> : launch_pass_b_bf16<64, false>)
+                        : (dropout ? launch_pass_b_bf16<128, true>
+                                   : launch_pass_b_bf16<128, false>);
+  return launch(maps, rows, keep, dk, dv, b, h, t, d, Dropout{0u, 0u, keep_scale},
+                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gated_bias_attention_bwd_b_f32(const void* q, const void* k, const void* v,
+                                              const void* bias, int ldbias, const void* gate,
+                                              const void* dout, const void* lse,
+                                              const void* delta, void* dk, void* dv, int b, int h,
+                                              int t, int d, int dropout, uint32_t seed,
+                                              uint32_t threshold, float keep_scale,
+                                              void* stream) {
+  auto launch = dropout ? launch_pass_b_f32<true> : launch_pass_b_f32<false>;
+  return launch(q, k, v, bias, ldbias, static_cast<const float*>(gate), dout,
+                static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, b, h, t,
+                d, Dropout{seed, threshold, keep_scale}, static_cast<cudaStream_t>(stream));
 }

@@ -157,14 +157,20 @@ def _library() -> ctypes.CDLL:
         dropout = [i32, u32, u32, ctypes.c_float]  # on, seed, threshold, keep scale
         lib.gated_bias_attention_fwd.argtypes = ([ptr] * 4 + [i32] + [ptr] * 3 + [i32] * 6
                                                  + dropout + [ptr])
-        lib.gated_bias_attention_bwd_a.argtypes = ([ptr] * 4 + [i32] + [ptr] * 9 + [i32] * 7
-                                                   + dropout + [ptr])
-        lib.gated_bias_attention_bwd_b.argtypes = ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 5
-                                                   + dropout + [ptr])
-        lib.gated_bias_attention_bwd_a_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.gated_bias_attention_bwd_a_bf16.argtypes = ([ptr] * 5 + [i32] + [ptr] * 7 + [i32] * 6
+                                                        + dropout + [ptr])
+        lib.gated_bias_attention_bwd_a_f32.argtypes = ([ptr] * 4 + [i32] + [ptr] * 8 + [i32] * 6
+                                                       + dropout + [ptr])
+        lib.gated_bias_attention_dbias_sum.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
+        lib.gated_bias_attention_bwd_b_bf16.argtypes = ([ptr] * 5 + [i32] + [ptr] * 4 + [i32] * 5
+                                                        + [ctypes.c_float, ptr])
+        lib.gated_bias_attention_bwd_b_f32.argtypes = ([ptr] * 4 + [i32] + [ptr] * 6 + [i32] * 4
+                                                       + dropout + [ptr])
+        lib.gated_bias_attention_bwd_a_blocks_per_sm.argtypes = [i32] * 4
         lib.gated_bias_attention_fwd_bf16_occupancy.argtypes = [i32, ctypes.POINTER(i32)]
-        for fn in (lib.gated_bias_attention_fwd,
-                   lib.gated_bias_attention_bwd_a, lib.gated_bias_attention_bwd_b,
+        for fn in (lib.gated_bias_attention_fwd, lib.gated_bias_attention_bwd_a_bf16,
+                   lib.gated_bias_attention_bwd_a_f32, lib.gated_bias_attention_dbias_sum,
+                   lib.gated_bias_attention_bwd_b_bf16, lib.gated_bias_attention_bwd_b_f32,
                    lib.gated_bias_attention_bwd_a_blocks_per_sm,
                    lib.gated_bias_attention_fwd_bf16_occupancy):
             fn.restype = ctypes.c_int
@@ -288,6 +294,35 @@ def flash_attention_gated_bias_reference(
     return (torch.matmul(p.to(v.dtype).float(), v.float()) / total).to(q.dtype)
 
 
+KEY_BLOCK = 64  # keys per block of K2's pass B, and per packed keep-mask block
+
+
+def pack_keep_bits(keep: torch.Tensor) -> torch.Tensor:
+    """The keep mask (B, H, T, T) (nonzero: kept) in the packed layout K2's
+    pass A writes for pass B, as int32 (B, H, KB, TP, 2) with KB =
+    ceil(T / 64) key blocks and TP = 64 KB rows: bit k of word w of row r in
+    key block kb is keep[..., r, 64 kb + 32 w + k]; bits past T, in either
+    direction, are 0."""
+    b, h, t, _ = keep.shape
+    kb = -(-t // KEY_BLOCK)
+    tp = kb * KEY_BLOCK
+    bits = torch.zeros((b, h, tp, tp), dtype=torch.int64, device=keep.device)
+    bits[:, :, :t, :t] = (keep != 0).long()
+    bits = bits.view(b, h, tp, kb, 2, 32).permute(0, 1, 3, 2, 4, 5)
+    weights = torch.tensor([1 << k for k in range(32)], dtype=torch.int64, device=keep.device)
+    words = (bits * weights).sum(dim=-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def unpack_keep_bits(packed: torch.Tensor, t: int) -> torch.Tensor:
+    """`pack_keep_bits`' inverse: the bool keep mask (B, H, T, T)."""
+    b, h, kb, tp, _ = packed.shape
+    words = packed.long() & _U32
+    shifts = torch.arange(32, device=packed.device)
+    bits = (words[..., None] >> shifts) & 1  # (B, H, KB, TP, 2, 32)
+    return bits.permute(0, 1, 3, 2, 4, 5).reshape(b, h, tp, tp)[:, :, :t, :t].bool()
+
+
 def _need_seed(seed: Optional[int]) -> int:
     if seed is None:
         raise ValueError("dropout_rate > 0 requires a seed")
@@ -409,27 +444,30 @@ def _forward_train(q, k, v, pos_bias, gate, rate: float, seed: int):
 
 
 BLOCK_Q = 64  # query rows per block of K2's pass A
-MAX_CHUNKS = 8  # each chunk of pass A holds an (H, T, T) float32 slice in scratch
+# pass A's partial d pos_bias slices, (S, H, T, T) float32, take at most
+# this share of the card's memory (2.5 GB on an 80 GB card: every path's
+# shapes take S = B under it; WavLM-Base at T 1499, B 64 would need 6.9 GB)
+SCRATCH_SHARE = 32
 
 
-def pass_a_chunks(batch: int, heads: int, t: int, sms: int, per_sm: int) -> int:
+def pass_a_chunks(batch: int, heads: int, t: int, sms: int, per_sm: int, memory: int) -> int:
     """S, the number of batch chunks of K2's pass A, whose grid is (heads,
     ceil(t / 64), S) blocks on `sms` multiprocessors that hold `per_sm`
-    blocks each at once. At least the fewest chunks that fill two waves of
-    the multiprocessors (at most one chunk per batch element); among those,
-    the S up to `MAX_CHUNKS` whose rounds of resident blocks times the batch
-    elements of its largest chunk (the blocks' walk, in batch elements) is
-    least, and the fewest chunks among equals, since each chunk adds a slice
-    to the scratch and the sum."""
+    blocks each at once, on a card of `memory` bytes. At most as many
+    chunks as batch elements, and as many as the chunks' (heads, t, t)
+    float32 slices fit in 1 / SCRATCH_SHARE of the memory; among those, the
+    S whose rounds of resident blocks times the batch elements of its
+    largest chunk (the blocks' walk, in batch elements) is least, and the
+    most chunks among equals. One element a chunk always walks least, so S
+    = B wherever the slices fit, and the walk decides below that cap."""
     blocks = heads * -(-t // BLOCK_Q)
     slots = sms * per_sm
-    fewest = max(1, min(batch, -(-2 * sms // blocks)))
-    most = max(fewest, min(batch, MAX_CHUNKS))
+    most = max(1, min(batch, memory // SCRATCH_SHARE // (4 * heads * t * t)))
 
     def walk(s: int) -> int:
         return -(-blocks * s // slots) * -(-batch // s)
 
-    return min(range(fewest, most + 1), key=lambda s: (walk(s), s))
+    return min(range(1, most + 1), key=lambda s: (walk(s), -s))
 
 
 def chunk_bounds(batch: int, chunks: int) -> List[Tuple[int, int]]:
@@ -439,67 +477,106 @@ def chunk_bounds(batch: int, chunks: int) -> List[Tuple[int, int]]:
     return [(z * batch // chunks, (z + 1) * batch // chunks) for z in range(chunks)]
 
 
-_blocks_per_sm = {}  # (device, type, head dim, dropout) -> pass A blocks one multiprocessor holds
+# (device, type, head dim, dropout, T) -> pass A blocks one multiprocessor holds
+_blocks_per_sm = {}
 
 
 def _pass_a_plan(q: torch.Tensor, rate: float) -> int:
     """`pass_a_chunks` for q (B, H, T, D) on its card, for pass A's instance
-    at dropout rate `rate` (with the mask replay or without)."""
+    at dropout rate `rate` (with the mask or without)."""
     b, h, t, d = q.shape
-    key = (q.device, q.dtype, d, rate > 0.0)
+    key = (q.device, q.dtype, d, rate > 0.0, t)
     if key not in _blocks_per_sm:
         with torch.cuda.device(q.device):
             per_sm = _library().gated_bias_attention_bwd_a_blocks_per_sm(
-                d, int(q.dtype == torch.bfloat16), int(rate > 0.0))
+                d, int(q.dtype == torch.bfloat16), int(rate > 0.0), t)
         if per_sm <= 0:
             raise RuntimeError(f"K2 pass A occupancy query failed: CUDA error {-per_sm}")
         _blocks_per_sm[key] = per_sm
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return pass_a_chunks(b, h, t, sms, _blocks_per_sm[key])
+    card = torch.cuda.get_device_properties(q.device)
+    return pass_a_chunks(b, h, t, card.multi_processor_count, _blocks_per_sm[key],
+                         card.total_memory)
+
+
+def _raise_on(rc: int, entry: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: error {rc}")
 
 
 def _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
-    """K2's pass A and the sum of its partial slices: (dq, f32 dpos_bias,
-    f32 dgate, f32 D (B, H, T) for pass B)."""
+    """K2's pass A, one launch: (dq, the chunks' partial d pos_bias slices
+    (S, H, T, ldb) float32, f32 dgate, what pass B reads of the rows, the
+    packed keep mask or None). The rows: in bfloat16 (B H, TP, 4) float32
+    (gate log2 e, lse log2 e, D, 0), TP = T rounded up to 64; in float32 D
+    (B, H, T), from `out`, which only that instance reads. The packed mask
+    (`pack_keep_bits`' layout) only in bfloat16 at a rate above 0: pass B
+    reads it and hashes nothing."""
     threshold, keep = dropout_constants(rate)
+    dropout = [int(rate > 0.0), int(seed) & _U32, threshold, keep, _stream(q)]
     b, h, t, d = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
-    dgate, delta = torch.empty((b, h, t), **f32), torch.empty((b, h, t), **f32)
-    dbias = torch.empty((h, t, t), **f32)
+    dgate = torch.empty((b, h, t), **f32)
     chunks = _pass_a_plan(q, rate)
     ldb = -(-t // 4) * 4  # rows of the partial slices start on 16-byte boundaries
     part = torch.empty((chunks, h, t, ldb), **f32)
-    rc = _library().gated_bias_attention_bwd_a(
+    common = [dq.data_ptr(), dgate.data_ptr(), part.data_ptr(), b, h, t, d, chunks, ldb]
+    if q.dtype == torch.bfloat16:
+        tp = -(-t // KEY_BLOCK) * KEY_BLOCK
+        rows = torch.empty((b * h, tp, 4), **f32)
+        bits = (torch.empty((b, h, tp // KEY_BLOCK, tp, 2), dtype=torch.int32, device=q.device)
+                if rate > 0.0 else None)
+        _raise_on(_library().gated_bias_attention_bwd_a_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), pos_bias.data_ptr(),
+            pos_bias.stride(1), gate.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+            None if bits is None else bits.data_ptr(), *common, *dropout),
+            "gated_bias_attention_bwd_a_bf16")
+        return dq, part, dgate, rows, bits
+    delta = torch.empty((b, h, t), **f32)
+    _raise_on(_library().gated_bias_attention_bwd_a_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
-        gate.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dgate.data_ptr(), part.data_ptr(), dbias.data_ptr(), b, h, t, d,
-        int(q.dtype == torch.bfloat16), chunks, ldb, int(rate > 0.0), int(seed) & _U32,
-        threshold, keep, _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"gated_bias_attention_bwd_a launch failed: CUDA error {rc}")
-    return dq, dbias, dgate, delta
+        gate.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *common, *dropout), "gated_bias_attention_bwd_a_f32")
+    return dq, part, dgate, delta, None
 
 
-def _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate: float, seed: int):
-    """K2's pass B: (dk, dv) in q's type."""
+def _dbias_sum(part: torch.Tensor, t: int) -> torch.Tensor:
+    """d pos_bias (H, T, T) float32: pass A's partial slices (S, H, T, ldb)
+    added in chunk order, one launch."""
+    chunks, h, _, ldb = part.shape
+    dbias = torch.empty((h, t, t), dtype=torch.float32, device=part.device)
+    _raise_on(_library().gated_bias_attention_dbias_sum(
+        part.data_ptr(), dbias.data_ptr(), h, t, chunks, ldb, _stream(part)),
+        "gated_bias_attention_dbias_sum")
+    return dbias
+
+
+def _bwd_pass_b(q, k, v, pos_bias, gate, lse, rows, bits, dout, rate: float, seed: int):
+    """K2's pass B from what pass A returned (`rows`, `bits`), one launch:
+    (dk, dv) in q's type. The bfloat16 instance reads the mask from `bits`;
+    the float32 one replays it from the seed with gate and lse."""
     threshold, keep = dropout_constants(rate)
     b, h, t, d = q.shape
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    rc = _library().gated_bias_attention_bwd_b(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
-        gate.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, t, d, int(q.dtype == torch.bfloat16), int(rate > 0.0),
-        int(seed) & _U32, threshold, keep, _stream(q))
-    if rc != 0:
-        raise RuntimeError(f"gated_bias_attention_bwd_b launch failed: CUDA error {rc}")
+    if q.dtype == torch.bfloat16:
+        _raise_on(_library().gated_bias_attention_bwd_b_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), pos_bias.data_ptr(),
+            pos_bias.stride(1), rows.data_ptr(), None if bits is None else bits.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, t, d, int(rate > 0.0), keep, _stream(q)),
+            "gated_bias_attention_bwd_b_bf16")
+    else:
+        _raise_on(_library().gated_bias_attention_bwd_b_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(), pos_bias.stride(1),
+            gate.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, t, d, int(rate > 0.0), int(seed) & _U32, threshold, keep,
+            _stream(q)), "gated_bias_attention_bwd_b_f32")
     return dk, dv
 
 
 def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
     """K2: (dq, dk, dv in q's type, f32 dpos_bias (H, T, T), f32 dgate);
-    rate 0 takes the instances without the mask replay."""
+    three launches (pass A, the sum of its slices, pass B); rate 0 takes the
+    instances without the mask."""
     pos_bias = padded_bias(pos_bias, q.dtype)
     _check_cuda(q, k, v, pos_bias, gate, out, dout)
     b, h, t, d = q.shape
@@ -508,8 +585,10 @@ def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
         return (torch.empty_like(q), torch.empty_like(q), torch.empty_like(q),
                 torch.zeros((h, t, t), **f32), torch.empty((b, h, t), **f32))
     with torch.cuda.device(q.device):
-        dq, dbias, dgate, delta = _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout, rate, seed)
-        dk, dv = _bwd_pass_b(q, k, v, pos_bias, gate, lse, delta, dout, rate, seed)
+        dq, part, dgate, rows, bits = _bwd_pass_a(q, k, v, pos_bias, gate, out, lse, dout,
+                                                  rate, seed)
+        dbias = _dbias_sum(part, t)
+        dk, dv = _bwd_pass_b(q, k, v, pos_bias, gate, lse, rows, bits, dout, rate, seed)
     instance_launches["bwd" if rate > 0.0 else "bwd_rate0"] += 1
     return dq, dk, dv, dbias, dgate
 

@@ -22,15 +22,17 @@ from diarizen_tpu.ops.flash_attention import (
     flash_attention_gated_bias_trainable as jax_trainable,
 )
 from diarizen_tpu_torch.ops.flash_attention import (
-    MAX_CHUNKS,
+    SCRATCH_SHARE,
     chunk_bounds,
     dropout_constants,
     dropout_mask,
     flash_attention_gated_bias,
     flash_attention_gated_bias_reference,
     flash_attention_gated_bias_trainable,
+    pack_keep_bits,
     pass_a_chunks,
     softmax_mode_scope,
+    unpack_keep_bits,
 )
 
 
@@ -45,6 +47,28 @@ def test_dropout_mask_matches_jax_bit_for_bit(seed, rate):
     kept = float((full > 0).float().mean())
     assert abs(kept - (1 - rate)) < 0.02
     assert dropout_constants(rate)[0] == int(rate * (2**32 - 1))
+
+
+@pytest.mark.parametrize("t", [37, 70])
+def test_packed_keep_mask_matches_jax_bit_for_bit(t):
+    """The packed keep mask K2's pass A writes and pass B reads instead of
+    hashing: `pack_keep_bits` of the port's mask holds the JAX package's
+    `_dropout_mask` bit for bit in (B, H, KB, TP, 2) words (bit k of word w
+    of row r in key block j: key 64 j + 32 w + k), zero past T in both
+    directions (T 70: a ragged last word and key block); `unpack_keep_bits`
+    gives the mask back."""
+    b, h, rate, seed = 2, 3, 0.1, 20240917
+    packed = pack_keep_bits(dropout_mask(seed, b, h, t, t, rate))
+    kb = -(-t // 64)
+    assert tuple(packed.shape) == (b, h, kb, 64 * kb, 2) and packed.dtype == torch.int32
+    words = packed.numpy().view(np.uint32)
+    want = np.stack([np.stack([np.asarray(_dropout_mask(jnp.int32(seed), bi, hi, (t, t), rate)) > 0
+                               for hi in range(h)]) for bi in range(b)])
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1  # (B, H, KB, TP, 2, 32)
+    full = bits.transpose(0, 1, 3, 2, 4, 5).reshape(b, h, 64 * kb, 64 * kb).astype(bool)
+    np.testing.assert_array_equal(full[:, :, :t, :t], want)
+    assert not full[:, :, t:].any() and not full[:, :, :, t:].any()
+    np.testing.assert_array_equal(unpack_keep_bits(packed, t).numpy(), want)
 
 
 def _arrays(b, h, t, d, seed=0):
@@ -102,44 +126,59 @@ def test_cpu_wrappers_take_the_plain_version():
         dropout_constants(1.0)
 
 
+H100_MEMORY = 80 * 10**9  # bytes, the card the plan's cases are computed for
+
+
 @pytest.mark.parametrize("b,h,t,sms,per_sm", [(16, 12, 399, 132, 2), (1, 12, 399, 132, 2),
                                               (5, 12, 399, 132, 2), (13, 12, 399, 132, 2),
                                               (2, 3, 37, 132, 2), (64, 12, 799, 132, 2),
-                                              (16, 12, 399, 132, 1), (7, 1, 64, 8, 3)])
+                                              (16, 12, 399, 132, 1), (7, 1, 64, 8, 3),
+                                              (16, 12, 399, 132, 3), (64, 2, 399, 132, 3),
+                                              (64, 5, 399, 132, 3), (64, 12, 1499, 132, 3)])
 def test_pass_a_plan_puts_each_batch_element_in_one_chunk(b, h, t, sms, per_sm):
     """K2's pass A splits the batch into S chunks of consecutive elements: each
-    element in exactly one chunk, no chunk empty, S <= B; the grid of
-    (heads, ceil(t / 64), S) blocks fills two waves where the batch allows,
-    and no S the plan may take walks fewer batch elements per block slot."""
-    s = pass_a_chunks(b, h, t, sms, per_sm)
+    element in exactly one chunk, no chunk empty, S <= B; the chunks'
+    float32 slices fit 1 / SCRATCH_SHARE of the card's memory, and no S the
+    plan may take walks fewer batch elements per block slot."""
+    s = pass_a_chunks(b, h, t, sms, per_sm, H100_MEMORY)
     bounds = chunk_bounds(b, s)
     assert 1 <= s <= b and len(bounds) == s
     assert bounds[0][0] == 0 and bounds[-1][1] == b
     assert all(b0 < b1 for b0, b1 in bounds)
     assert all(bounds[z][1] == bounds[z + 1][0] for z in range(s - 1))
+    slice_bytes = 4 * h * t * t
+    most = min(b, max(1, H100_MEMORY // SCRATCH_SHARE // slice_bytes))
+    assert s <= most
     blocks = h * -(-t // 64)
-    assert blocks * s >= 2 * sms or s == b
-    fewest = min(b, -(-2 * sms // blocks))
-    assert s <= max(fewest, MAX_CHUNKS)
 
     def walk(n):  # rounds of resident blocks x batch elements of the largest chunk
         return -(-blocks * n // (sms * per_sm)) * max(b1 - b0 for b0, b1 in chunk_bounds(b, n))
 
-    assert all(walk(s) < walk(n) or (walk(s) == walk(n) and s <= n)
-               for n in range(fewest, min(b, max(fewest, MAX_CHUNKS)) + 1))
-    if (b, h, t, sms, per_sm) == (16, 12, 399, 132, 2):  # WavLM-Base training on an H100
-        assert s == 6 and blocks * s == 504 and walk(s) == 6 and walk(4) == 8
+    assert all(walk(s) < walk(n) or (walk(s) == walk(n) and s >= n) for n in range(1, most + 1))
+    # B chunks of one element each walk least, so S = B wherever the slices
+    # fit: WavLM-Base training and the MC batch (B 64 = 8 utterances x 8
+    # channels) at H 2 and H 5; at T 1499 the cap (23 slices) bites and the
+    # walk picks 22 of them
+    assert walk(b) == min(walk(n) for n in range(1, b + 1))
+    if sms == 132 and per_sm == 3:
+        assert s == {399: b, 1499: 22}[t]
+    assert (s == b) == (b * slice_bytes <= H100_MEMORY // SCRATCH_SHARE)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 def test_chunked_dbias_partials_sum_to_the_autograd_dbias(rate):
-    """d pos_bias summed per chunk of the plan (each chunk's batch elements
-    alone: the cotangent zeroed elsewhere) and then over the chunks in plan
-    order equals the plain version's autograd d pos_bias over the batch."""
+    """d pos_bias summed per chunk (each chunk's batch elements alone: the
+    cotangent zeroed elsewhere) and then over the chunks in chunk order
+    equals the plain version's autograd d pos_bias over the batch, for the
+    plan's chunks (one element each where the scratch holds every slice)
+    and for chunks of unequal sizes (what the plan takes under the scratch
+    cap)."""
     b, h, t = 5, 2, 21
     inputs, do = _arrays(b, h, t, 8, seed=5)
-    chunks = chunk_bounds(b, pass_a_chunks(b, h, t, sms=2, per_sm=2))
-    assert len(chunks) == 2 and chunks == [(0, 2), (2, 5)]
+    plan = chunk_bounds(b, pass_a_chunks(b, h, t, sms=2, per_sm=2, memory=H100_MEMORY))
+    assert plan == [(z, z + 1) for z in range(b)]
+    unequal = chunk_bounds(b, 2)
+    assert unequal == [(0, 2), (2, 5)]
 
     def dbias(cotangent):
         leaves = [torch.from_numpy(a).double().requires_grad_() for a in inputs]
@@ -148,9 +187,10 @@ def test_chunked_dbias_partials_sum_to_the_autograd_dbias(rate):
         return leaves[3].grad
 
     total = dbias(do)
-    summed = torch.zeros_like(total)
-    for b0, b1 in chunks:
-        part = np.zeros_like(do)
-        part[b0:b1] = do[b0:b1]
-        summed = summed + dbias(part)
-    torch.testing.assert_close(summed, total, rtol=1e-5, atol=1e-6)
+    for chunks in (plan, unequal):
+        summed = torch.zeros_like(total)
+        for b0, b1 in chunks:
+            part = np.zeros_like(do)
+            part[b0:b1] = do[b0:b1]
+            summed = summed + dbias(part)
+        torch.testing.assert_close(summed, total, rtol=1e-5, atol=1e-6)
