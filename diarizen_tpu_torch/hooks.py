@@ -35,7 +35,13 @@ class ProgressHook:
 
 class TimingHook:
     """Wall-clock per stage -> `.timings` {step_name: seconds}; also computes
-    audio-seconds/s when `audio_duration` is set."""
+    audio-seconds/s when `audio_duration` is set.
+
+    It times the gaps between hook calls. On `DiarizationPipeline`'s fused
+    route (the default) a file's device work is only enqueued before its one
+    host wait, so the segmentation and embedding seconds here are enqueue
+    time, not device time: each stage's host time and the stream time of
+    segmentation and embeddings are in `diarizen_tpu_torch.tracing.records()`."""
 
     def __init__(self):
         self.timings: Dict[str, float] = {}

@@ -17,6 +17,8 @@ default), so that a file's device work is enqueued without a host wait, or on
 the host in numpy (`fused_stitch=False`, and any file the fused route cannot
 plan); the two routes give identical results. `stream` pipelines files: the
 next file's device work is enqueued before this file's host stages run.
+Every file leaves host spans at the stage boundaries and a record of them
+(`tracing.py`).
 
 In a process group (`parallel/distributed.py`; of one process too) every
 process segments the whole file, embeds a strided shard of its windows,
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 from scipy.ndimage import median_filter
 
+from diarizen_tpu_torch import tracing
 from diarizen_tpu_torch.core.segments import Annotation, SlidingWindow, SlidingWindowFeature
 from diarizen_tpu_torch.infer.fused import FusedStitch, make_fused_stitch
 from diarizen_tpu_torch.infer.sliding import (
@@ -240,7 +243,9 @@ class EmbeddingInference:
         `batch_size` and runs the file again."""
         while True:
             try:
-                return self.collect(self.dispatch(wave, starts, weights, hook))
+                dispatched = self.dispatch(wave, starts, weights, hook)
+                with tracing.span("diarize.wait"):
+                    return self.collect(dispatched)
             except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
                 self.batch_size = halve_batch_or_raise(e, self.batch_size,
                                                        "embedding inference")
@@ -281,6 +286,13 @@ class DiarizationPipeline:
     # order (read by return_embeddings; per file in stream mode it is racy:
     # use __call__ when centroids are needed)
     _last_centroids: Optional[np.ndarray] = field(default=None, init=False, repr=False)
+    # this instance's identity in `tracing.records()` and the files it has
+    # taken; `dataclasses.replace` gives the copy an identity of its own
+    _trace_id: int = field(default_factory=tracing.new_pipeline_id, init=False, repr=False,
+                           compare=False)
+    _files_taken: int = field(default=0, init=False, repr=False, compare=False)
+    # `tracing.StageEvents` no file in flight holds, reused file after file
+    _free_events: list = field(default_factory=list, init=False, repr=False, compare=False)
 
     def __call__(
         self,
@@ -295,7 +307,12 @@ class DiarizationPipeline:
         each stage ("segmentation", "speaker_counting", "embeddings",
         "clustering", "discrete_diarization") and, with `artifact=None`,
         after each batch inside segmentation and embedding; see
-        `hooks.ProgressHook`, `TimingHook`, `ArtifactHook`.
+        `hooks.ProgressHook`, `TimingHook`, `ArtifactHook`. On the fused
+        route (the default) a file's device work is only enqueued before
+        its one host wait, so `TimingHook`'s segmentation and embedding
+        seconds are enqueue time; the host time of each stage and the
+        stream time of segmentation and embeddings are in the file's
+        `tracing.records()` entry.
 
         `return_embeddings=True` also returns the speaker centroids, row i
         for `annotation.labels()[i]`, zero rows for speakers without one."""
@@ -343,7 +360,8 @@ class DiarizationPipeline:
                 yield self._finish_file(prev, num_speakers, hook)
                 done += 1
                 if trim_every and done % trim_every == 0:
-                    _trim_host_memory()
+                    with tracing.span("diarize.trim", prev["record"]):
+                        _trim_host_memory()
             prev = cur
         if prev is not None:
             yield self._finish_file(prev, num_speakers, hook)
@@ -355,13 +373,23 @@ class DiarizationPipeline:
         if waveform.ndim == 1:
             waveform = waveform[None]
         waveform = waveform[0:1]  # channel 0
+        record = tracing.FileRecord(self._trace_id, self._files_taken,
+                                    waveform.shape[-1] / self.seg_inference.sample_rate)
+        self._files_taken += 1
+        with tracing.span("diarize.dispatch", record):
+            state = self._enqueue_file(waveform, uri, hook)
+        state["record"] = record
+        return state
+
+    def _enqueue_file(self, waveform, uri, hook) -> dict:
         # one copy of the waveform to the device for both models
         prepared = self.seg_inference.prepare_wave(waveform)
         try:
             state = self._try_dispatch_fused(prepared, uri, hook)
             if state is not None:
                 return state
-            seg_dev = self.seg_inference.dispatch(prepared[0], prepared[1], hook=hook)
+            with tracing.span("diarize.segment"):
+                seg_dev = self.seg_inference.dispatch(prepared[0], prepared[1], hook=hook)
             return {"uri": uri, "prepared": prepared, "seg_dev": seg_dev}
         except Exception as e:  # noqa: BLE001 - only a device OOM is retried
             if not is_oom_error(e):
@@ -370,7 +398,8 @@ class DiarizationPipeline:
             # route, whose two stages halve their own batches until they fit
             self.seg_inference.batch_size = halve_batch_or_raise(
                 e, self.seg_inference.batch_size, "segmentation inference")
-            segmentations = self.seg_inference(waveform, hook=hook, prepared=prepared)
+            with tracing.span("diarize.segment"):
+                segmentations = self.seg_inference(waveform, hook=hook, prepared=prepared)
             return {"uri": uri, "prepared": prepared, "segmentations": segmentations}
 
     # ---- the device-side stitch route (infer/fused.py) ----------------
@@ -400,7 +429,8 @@ class DiarizationPipeline:
         """Enqueue the file's WHOLE device chain (segmentation -> stitch ->
         embeddings -> copies to pinned host memory behind one event) with no
         host wait; returns the file's state, or None where the fused route
-        does not apply (a layout that is not affine, an empty file)."""
+        does not apply (a layout that is not affine, an empty file). Timing
+        events between the stages time them on the stream (`tracing`)."""
         if not self._use_fused():
             return None
         wave, starts = prepared
@@ -408,18 +438,29 @@ class DiarizationPipeline:
         plan = fused.plan(len(starts))
         if plan is None:
             return None
-        seg_dev = self.seg_inference.dispatch(wave, starts, hook=hook)
+        stream = torch.cuda.current_stream(wave.device) if wave.is_cuda else None
+        events = tracing.StageEvents.take(self._free_events, stream)
+        events.mark(0)
+        with tracing.span("diarize.segment"):
+            seg_dev = self.seg_inference.dispatch(wave, starts, hook=hook)
         if seg_dev is None:
             return None
-        binarized, counts, weights = fused.stitch(seg_dev, plan)
-        emb_dev = self.emb_inference.dispatch(wave, starts, weights, hook=hook)
+        with tracing.span("diarize.stitch"):
+            binarized, counts, weights = fused.stitch(seg_dev, plan)
+        events.mark(1)
+        with tracing.span("diarize.embed"):
+            emb_dev = self.emb_inference.dispatch(wave, starts, weights, hook=hook)
+        events.mark(2)
         # the copies are queued right behind this file's own kernels: in
         # stream mode the next file's work is enqueued after them
-        return {"uri": uri, "prepared": prepared,
-                "fetch": HostFetch([binarized, counts, emb_dev])}
+        return {"uri": uri, "prepared": prepared, "events": events,
+                "fetch": HostFetch([binarized, counts, emb_dev], stream)}
 
     def _finish_fused(self, state, num_speakers, hook) -> Annotation:
-        binary, count_data, embeddings = state["fetch"].wait()  # THE one host wait per file
+        with tracing.span("diarize.wait"):
+            binary, count_data, embeddings = state["fetch"].wait()  # THE one host wait per file
+        # already reached: no second wait
+        state["events"].read(state["record"], self._free_events)
         segmentations = self.seg_inference.to_feature(binary.astype(np.float32))
         if hook is not None:
             hook("segmentation", segmentations)
@@ -449,36 +490,45 @@ class DiarizationPipeline:
     # ---- the host route -----------------------------------------------
 
     def _collect_segmentations(self, state) -> SlidingWindowFeature:
-        return self.seg_inference.to_feature(
-            self.seg_inference.collect(state["seg_dev"]))
+        with tracing.span("diarize.wait", state["record"]):
+            data = self.seg_inference.collect(state["seg_dev"])
+        return self.seg_inference.to_feature(data)
 
     def _finish_file(self, state, num_speakers, hook) -> Annotation:
-        if "fetch" in state:
-            return self._finish_fused(state, num_speakers, hook)
-        segmentations = state.get("segmentations")
-        if segmentations is None:
-            segmentations = self._collect_segmentations(state)
-        return self._finish_from_segmentations(
-            state["prepared"], segmentations, state["uri"], num_speakers, hook)
+        """A file's host stages; keeps its record for `tracing.records()`."""
+        record = state["record"]
+        with tracing.span("diarize.finish", record):
+            if "fetch" in state:
+                annotation = self._finish_fused(state, num_speakers, hook)
+            else:
+                segmentations = state.get("segmentations")
+                if segmentations is None:
+                    segmentations = self._collect_segmentations(state)
+                annotation = self._finish_from_segmentations(
+                    state["prepared"], segmentations, state["uri"], num_speakers, hook)
+        tracing.finished(record)
+        return annotation
 
     def _finish_from_segmentations(self, prepared, segmentations, uri, num_speakers,
                                    hook) -> Annotation:
-        if self.apply_median_filtering:
-            segmentations.data = median_filter(
-                segmentations.data, size=(1, 11, 1), mode="reflect"
-            )
-        binarized = segmentations  # powerset output is already binary
-        if hook is not None:
-            hook("segmentation", binarized)
+        with tracing.span("diarize.stitch"):
+            if self.apply_median_filtering:
+                segmentations.data = median_filter(
+                    segmentations.data, size=(1, 11, 1), mode="reflect"
+                )
+            binarized = segmentations  # powerset output is already binary
+            if hook is not None:
+                hook("segmentation", binarized)
 
-        count = speaker_count(binarized, receptive_field_window(self.eend_cfg),
-                              warm_up=(0.0, 0.0))
+            count = speaker_count(binarized, receptive_field_window(self.eend_cfg),
+                                  warm_up=(0.0, 0.0))
         if hook is not None:
             hook("speaker_counting", count)
 
         if count.data.size == 0 or np.nanmax(count.data) == 0:
             return self._no_speech(uri)  # no speech at all
-        embeddings = self.get_embeddings(binarized, prepared, hook=hook)
+        with tracing.span("diarize.embed"):
+            embeddings = self.get_embeddings(binarized, prepared, hook=hook)
         return self._cluster_and_reconstruct(
             segmentations, count, embeddings, uri, num_speakers, hook)
 
@@ -492,39 +542,40 @@ class DiarizationPipeline:
             hook("embeddings", embeddings)
 
         max_clusters = num_speakers or self.max_speakers
-        hard_clusters, _, centroids = self.clustering(
-            embeddings, binarized.data,
-            min_clusters=num_speakers or self.min_speakers, max_clusters=max_clusters,
-        )
+        with tracing.span("diarize.cluster"):
+            hard_clusters, _, centroids = self.clustering(
+                embeddings, binarized.data,
+                min_clusters=num_speakers or self.min_speakers, max_clusters=max_clusters,
+            )
         # every process clustered the same gathered embeddings; process 0's
         # assignment is kept so that ties cannot diverge (a copy without a group)
         hard_clusters = broadcast_from_host(hard_clusters)
         if hook is not None:
             hook("clustering", hard_clusters)
+        with tracing.span("diarize.reconstruct"):
+            count.data = np.minimum(count.data, max_clusters).astype(np.int8)
+            inactive = np.sum(binarized.data, axis=1) == 0
+            hard_clusters[inactive] = -2
+            discrete = reconstruct(segmentations, hard_clusters, count)
+            if hook is not None:
+                hook("discrete_diarization", discrete)
 
-        count.data = np.minimum(count.data, max_clusters).astype(np.int8)
-        inactive = np.sum(binarized.data, axis=1) == 0
-        hard_clusters[inactive] = -2
-        discrete = reconstruct(segmentations, hard_clusters, count)
-        if hook is not None:
-            hook("discrete_diarization", discrete)
-
-        result = Binarize(onset=0.5, offset=0.5, min_duration_on=0.0,
-                          min_duration_off=0.0)(discrete)
-        result.uri = uri
-        labels = result.labels()  # sorted cluster ids
-        result = result.rename_labels(
-            {label: f"SPEAKER_{i:02d}" for i, label in enumerate(labels)}
-        )
-        # centroids aligned to the renamed labels() order, zero rows for
-        # speakers beyond the centroid count
-        dim = centroids.shape[1] if centroids is not None and centroids.ndim == 2 else 0
-        aligned = np.zeros((len(labels), dim))
-        for i, label in enumerate(labels):
-            if centroids is not None and 0 <= int(label) < centroids.shape[0]:
-                aligned[i] = centroids[int(label)]
-        self._last_centroids = aligned
-        return result
+            result = Binarize(onset=0.5, offset=0.5, min_duration_on=0.0,
+                              min_duration_off=0.0)(discrete)
+            result.uri = uri
+            labels = result.labels()  # sorted cluster ids
+            result = result.rename_labels(
+                {label: f"SPEAKER_{i:02d}" for i, label in enumerate(labels)}
+            )
+            # centroids aligned to the renamed labels() order, zero rows for
+            # speakers beyond the centroid count
+            dim = centroids.shape[1] if centroids is not None and centroids.ndim == 2 else 0
+            aligned = np.zeros((len(labels), dim))
+            for i, label in enumerate(labels):
+                if centroids is not None and 0 <= int(label) < centroids.shape[0]:
+                    aligned[i] = centroids[int(label)]
+            self._last_centroids = aligned
+            return result
 
     def get_embeddings(self, binarized: SlidingWindowFeature,
                        prepared: Tuple[torch.Tensor, np.ndarray],

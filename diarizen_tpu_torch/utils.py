@@ -65,9 +65,10 @@ class HostFetch:
     """Device tensors on their way to the host: copies into pinned buffers
     queued behind the work that produces them, and one recorded event.
     `wait()` is the single host wait; it returns the numpy arrays. On the
-    CPU there is nothing to copy or to wait for."""
+    CPU there is nothing to copy or to wait for. `stream`: the tensors'
+    device's current stream where the caller has it already."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor]):
+    def __init__(self, tensors: Sequence[torch.Tensor], stream=None):
         self.event: Optional[torch.cuda.Event] = None
         if tensors and tensors[0].device.type == "cuda":
             self.host = []
@@ -75,7 +76,7 @@ class HostFetch:
                 buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 self.host.append(buf.copy_(t, non_blocking=True))
             self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(tensors[0].device))
+            self.event.record(stream or torch.cuda.current_stream(tensors[0].device))
         else:
             self.host = list(tensors)
 
