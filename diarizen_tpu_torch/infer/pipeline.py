@@ -396,8 +396,7 @@ class DiarizationPipeline:
                 raise
             # out of device memory while enqueueing: this file takes the host
             # route, whose two stages halve their own batches until they fit
-            self.seg_inference.batch_size = halve_batch_or_raise(
-                e, self.seg_inference.batch_size, "segmentation inference")
+            self.seg_inference.halve_batch(e)
             with tracing.span("diarize.segment"):
                 segmentations = self.seg_inference(waveform, hook=hook, prepared=prepared)
             return {"uri": uri, "prepared": prepared, "segmentations": segmentations}

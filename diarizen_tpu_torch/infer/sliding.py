@@ -15,25 +15,49 @@ mesh's data axis, parameters replicated, as the JAX package's
 `SlidingInference(mesh=)` shards each window batch: data rank p runs windows
 p, p + n_data, ..., the model ranks of one data index the same ones, and
 the shards are gathered back in window order on every rank.
+
+On a CUDA device, outside a mesh and a process group, a batch's forward and
+its multilabel mapping replay a captured CUDA graph (`BatchGraph`), so that
+the host enqueues a batch in a handful of launches instead of the forward's
+hundreds. A batch has 8, 16, 24 or 32 rows at the default `batch_size`
+(`batch_row_spans`, `tail_size`), so an instance holds a few graphs, one per
+row count, `soft`, compute type and the forward's process-wide switches
+(K1's softmax schedule, `set_fused_ln`, `set_conv_chain`), sharing one
+memory pool. A key's first batch runs eagerly and is then captured; the
+graphs are dropped when the model's parameters or buffers move or change
+in place, and when an out-of-memory error halves `batch_size`
+(`halve_batch`). The gather of a batch's windows into the graph's input and
+the copy of its output stay outside the graph: the waveform is another
+tensor for every file. A file's record (`tracing.py`) counts its batches of
+each kind.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Tuple, Union
+import functools
+import itertools
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from diarizen_tpu_torch import tracing
 from diarizen_tpu_torch.core.segments import SlidingWindow, SlidingWindowFeature
 from diarizen_tpu_torch.models.sincnet_eend import (
     SINCNET_KERNELS,
     SINCNET_STRIDES,
     SincNetEendConfig,
 )
+from diarizen_tpu_torch.models.wavlm import use_conv_chain, use_fused_ln
+from diarizen_tpu_torch.ops import conv_chain, flash_attention, fused_ln
 from diarizen_tpu_torch.ops.aggregate import aggregate
 from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
-from diarizen_tpu_torch.parallel.distributed import gather_window_shards, process_window_shard
+from diarizen_tpu_torch.parallel.distributed import (
+    gather_window_shards,
+    in_group,
+    process_window_shard,
+)
 from diarizen_tpu_torch.utils import halve_batch_or_raise, resolve_device, to_device_async
 
 
@@ -72,6 +96,66 @@ def gather_rows(source: torch.Tensor, starts: torch.Tensor, length: int, pad: in
     return rows
 
 
+def state_stamp(model: nn.Module) -> list:
+    """(address, version) of every parameter and buffer of `model`: it
+    changes when one is replaced, moved or changed in place. A walk of the
+    modules' own dicts: `parameters()` and `buffers()` build every name and
+    cost twice as much, on every file."""
+    stamp, stack = [], [model]
+    while stack:
+        module = stack.pop()
+        for t in itertools.chain(module._parameters.values(), module._buffers.values()):
+            if t is not None:
+                stamp.append((t.data_ptr(), t._version))
+        stack.extend(module._modules.values())
+    return stamp
+
+
+def launch_counters() -> list:
+    """(dict, key) of every kernel launch counter a segmentation forward can
+    move: K1's by instance, and K3's, K4's and K5's module globals (a
+    module's `vars()` is its globals)."""
+    k1 = flash_attention.instance_launches
+    return [(k1, name) for name in k1] + [(vars(fused_ln), "launches"),
+                                          (vars(fused_ln), "acc_launches"),
+                                          (vars(conv_chain), "launches")]
+
+
+class BatchGraph:
+    """`forward(chunks)` at one batch shape captured as a CUDA graph:
+    `chunks` is its static input, `out` its static output. A capture runs
+    nothing, so the kernel launches it counts (`launch_counters`) are taken
+    back out of the counters and added on every replay instead. Capture a
+    shape only after the forward has run eagerly at it: that run builds the
+    kernels, uploads the constants and sets up the libraries' handles."""
+
+    __slots__ = ("graph", "chunks", "out", "launches")
+
+    def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor], chunks: torch.Tensor,
+                 pool: tuple):
+        self.chunks = chunks.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        counters = launch_counters()
+        before = [box[key] for box, key in counters]
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.out = forward(self.chunks)
+        finally:
+            self.launches = [(box, key, box[key] - n)
+                             for (box, key), n in zip(counters, before) if box[key] != n]
+            for (box, key), n in zip(counters, before):
+                box[key] = n
+
+    def __call__(self, chunks: torch.Tensor) -> torch.Tensor:
+        """The forward of `chunks` (this graph's shape), in `out`: valid
+        until the next replay."""
+        self.chunks.copy_(chunks)
+        self.graph.replay()
+        for box, key, n in self.launches:
+            box[key] += n
+        return self.out
+
+
 class SlidingInference:
     """Callable: (waveform (C, num_samples), sample_rate) ->
     SlidingWindowFeature (num_chunks, num_frames, K), for a segmentation
@@ -101,6 +185,11 @@ class SlidingInference:
         self.window_size = round(self.duration * self.sample_rate)
         self.step_size = round(self.step * self.sample_rate)
         self._frames_per_chunk = cfg.num_frames(self.window_size)
+        # the captured batch graphs by key (`_graph_key`), their memory pool,
+        # and the parameters' and buffers' addresses and versions they read
+        self._graphs: Dict[tuple, BatchGraph] = {}
+        self._graph_pool = None
+        self._graph_stamp: Optional[list] = None
 
     def num_chunks(self, num_samples: int) -> Tuple[int, bool]:
         if num_samples >= self.window_size:
@@ -135,7 +224,15 @@ class SlidingInference:
         splitting the two lets a caller overlap this file's device work with
         another file's host stages (`DiarizationPipeline.stream`). On a
         mesh this rank's data-axis shard of the windows runs, and the
-        gather waits for the device."""
+        gather waits for the device.
+
+        On a CUDA device outside a mesh and a process group each batch
+        replays the CUDA graph of its row count (module docstring): the
+        first batch of a shape runs eagerly and is then captured, and the
+        graphs are captured again after the parameters move or change and
+        after `halve_batch`. The file's record, where this runs inside one
+        of its spans, counts the batches that replayed a graph and those
+        that ran eagerly."""
         if self.mesh is None or self.mesh.device_mesh is None or len(starts) == 0:
             return self._dispatch(wave, starts, hook, soft)
         group = self.mesh.data_group
@@ -154,14 +251,67 @@ class SlidingInference:
         starts_dev = to_device_async(np.asarray(starts, np.int64), self.device)
         out = torch.zeros((total, self._frames_per_chunk, self.powerset.num_classes),
                           dtype=torch.float32 if soft else torch.uint8, device=self.device)
+        key = self._graph_key(wave, soft)
+        forward = functools.partial(self._forward, soft=soft)
+        replayed = eager = 0
         for off, blen, pad in batch_row_spans(
                 total, self.batch_size, lambda n: tail_size(n, self.batch_size)):
             chunks = gather_rows(wave, starts_dev[off: off + blen], self.window_size, pad)
-            scores = self.model(chunks, compute_dtype=self.compute_dtype)
-            out[off: off + blen] = self.powerset.to_multilabel(scores, soft=soft)[:blen]
+            shape_key = None if key is None else key + (len(chunks),)
+            graph = self._graphs.get(shape_key)
+            if graph is not None:
+                multilabel = graph(chunks)
+                replayed += 1
+            else:
+                multilabel = forward(chunks)
+                eager += 1
+                if shape_key is not None:
+                    self._capture(shape_key, forward, chunks)
+            out[off: off + blen] = multilabel[:blen]
             if hook is not None:
                 hook("segmentation", None, total=total, completed=min(off + blen + pad, total))
+        record = tracing.current()
+        if record is not None:
+            record.seg_graph_batches += replayed
+            record.seg_eager_batches += eager
         return out
+
+    def _forward(self, chunks: torch.Tensor, soft: bool) -> torch.Tensor:
+        scores = self.model(chunks, compute_dtype=self.compute_dtype)
+        return self.powerset.to_multilabel(scores, soft=soft)
+
+    def _graph_key(self, wave: torch.Tensor, soft: bool) -> Optional[tuple]:
+        """The key of this call's batch graphs, less the row count; None
+        where the forward runs eagerly: off CUDA, and on a mesh or in a
+        process group, where a model axis puts collectives inside the
+        forward. Drops the graphs when a parameter or buffer has moved or
+        changed in place since they were captured."""
+        if not wave.is_cuda or self.mesh is not None or in_group():
+            return None
+        stamp = state_stamp(self.model)
+        if stamp != self._graph_stamp:
+            self.drop_graphs()
+            self._graph_stamp = stamp
+        return (soft, self.compute_dtype, flash_attention.softmax_mode(), use_fused_ln(),
+                use_conv_chain())
+
+    def _capture(self, key: tuple, forward: Callable, chunks: torch.Tensor) -> None:
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        self._graphs[key] = BatchGraph(forward, chunks, self._graph_pool)
+
+    def drop_graphs(self) -> None:
+        """Forget the captured batch graphs; their memory pool goes with
+        the last of them."""
+        self._graphs.clear()
+        self._graph_pool = None
+
+    def halve_batch(self, exc: BaseException) -> None:
+        """After a device out-of-memory error: halve `batch_size` and drop
+        the graphs, whose shapes it changes (anything else is re-raised,
+        `utils.halve_batch_or_raise`)."""
+        self.batch_size = halve_batch_or_raise(exc, self.batch_size, "segmentation inference")
+        self.drop_graphs()
 
     @staticmethod
     def collect(dispatched: Optional[torch.Tensor]) -> Optional[np.ndarray]:
@@ -180,8 +330,7 @@ class SlidingInference:
                 data = self.collect(self.dispatch(wave, starts, hook, soft))
                 break
             except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
-                self.batch_size = halve_batch_or_raise(e, self.batch_size,
-                                                       "segmentation inference")
+                self.halve_batch(e)
         if data is None:
             return np.zeros((0, self._frames_per_chunk, self.powerset.num_classes), np.float32)
         return data

@@ -724,12 +724,16 @@ class WavLM(nn.Module):
         gates = torch.sigmoid(gru.float().reshape(b, t, total_heads, 2, 4).sum(-1))
         const = attn.gru_rel_pos_const.float().reshape(1, 1, total_heads)
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # (B, T, Ht)
-        gate = gate.transpose(1, 2)[:, heads].contiguous()  # (B, nh, T)
+        # the heads' indices on the device once: a list index would copy
+        # them from pageable host memory in every forward
+        index = device_constant(("wavlm.heads", tuple(heads)),
+                                lambda: np.asarray(heads, np.int64), x.device)
+        gate = gate.transpose(1, 2).index_select(1, index).contiguous()  # (B, nh, T)
 
         if heads and heads == list(range(heads[0], heads[0] + nh)):
             pos = position_bias[heads[0]:heads[0] + nh]  # a view, no copy
         else:
-            pos = position_bias[heads]
+            pos = position_bias.index_select(0, index)
         pos = pos[..., :t]  # (nh, T, T), rows of the padded stride
         # the layer's seed is drawn on every rank, one without heads too:
         # the host generator then stays in step across the model axis

@@ -27,10 +27,13 @@ enters `record_function`, which costs microseconds even with no profiler.
 
 Every file the pipeline finishes leaves a `FileRecord`: the pipeline
 instance and the file's sequence number in it, its spans on the host clock
-(`time.perf_counter_ns`), its audio seconds and, on the fused route on a
-CUDA device, the stream milliseconds of its segmentation (with the device
-stitch) and of its embeddings: `StageEvents` between the stages' enqueues.
-`records()` returns the most recent `KEEP`; nothing is written anywhere.
+(`time.perf_counter_ns`), its audio seconds, how many of its segmentation
+batches replayed a captured CUDA graph and how many ran eagerly
+(`infer/sliding.py`, counted on the thread's current file) and, on the fused
+route on a CUDA device, the stream milliseconds of its segmentation (with
+the device stitch) and of its embeddings: `StageEvents` between the stages'
+enqueues. `records()` returns the most recent `KEEP`; nothing is written
+anywhere.
 """
 
 from __future__ import annotations
@@ -56,6 +59,11 @@ def records() -> List["FileRecord"]:
     return list(_records)
 
 
+def current() -> Optional["FileRecord"]:
+    """The record of the file whose span this thread is inside, or None."""
+    return getattr(_current, "record", None)
+
+
 def new_pipeline_id() -> int:
     """A process-unique identity for a pipeline instance."""
     return next(_pipeline_ids)
@@ -64,13 +72,17 @@ def new_pipeline_id() -> int:
 @dataclass
 class FileRecord:
     """One file served: `spans` holds (name, start ns, end ns) in the order
-    they closed; the stream milliseconds (`StageEvents`) are None off the
-    fused route or off CUDA."""
+    they closed; `seg_graph_batches` and `seg_eager_batches` the
+    segmentation batches that replayed a CUDA graph and those that ran the
+    forward eagerly; the stream milliseconds (`StageEvents`) are None off
+    the fused route or off CUDA."""
 
     pipeline: int
     file: int
     audio_s: float
     spans: List[Tuple[str, int, int]] = field(default_factory=list)
+    seg_graph_batches: int = 0
+    seg_eager_batches: int = 0
     seg_stream_ms: Optional[float] = None
     embed_stream_ms: Optional[float] = None
 
@@ -98,7 +110,7 @@ class span:
         self.record = record
 
     def __enter__(self) -> "span":
-        self.outer = getattr(_current, "record", None)
+        self.outer = current()
         if self.record is None:
             self.record = self.outer
         _current.record = self.record
