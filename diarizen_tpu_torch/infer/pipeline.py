@@ -441,7 +441,7 @@ class DiarizationPipeline:
         events = tracing.StageEvents.take(self._free_events, stream)
         events.mark(0)
         with tracing.span("diarize.segment"):
-            seg_dev = self.seg_inference.dispatch(wave, starts, hook=hook)
+            seg_dev = self.seg_inference.dispatch(wave, starts, hook=hook, events=events)
         if seg_dev is None:
             return None
         with tracing.span("diarize.stitch"):

@@ -17,16 +17,19 @@ p, p + n_data, ..., the model ranks of one data index the same ones, and
 the shards are gathered back in window order on every rank.
 
 On a CUDA device, outside a mesh and a process group, a batch's forward and
-its multilabel mapping replay a captured CUDA graph (`BatchGraph`), so that
+its multilabel mapping replay captured CUDA graphs (`BatchGraph`), so that
 the host enqueues a batch in a handful of launches instead of the forward's
-hundreds. A batch has 8, 16, 24 or 32 rows at the default `batch_size`
-(`batch_row_spans`, `tail_size`), so an instance holds a few graphs, one per
-row count, `soft`, compute type and the forward's process-wide switches
-(K1's softmax schedule, `set_fused_ln`, `set_conv_chain`), sharing one
-memory pool. A key's first batch runs eagerly and is then captured; the
-graphs are dropped when the model's parameters or buffers move or change
-in place, and when an out-of-memory error halves `batch_size`
-(`halve_batch`). The gather of a batch's windows into the graph's input and
+hundreds: one graph for a model's whole forward, or one a stage for a model
+that runs in stages (WavLM + Conformer's `inference_stages`: extractor,
+encoder, back end, each a call of the model's forward), with the file's
+timing events recorded between them, outside the graphs. A batch has 8, 16,
+24 or 32 rows at the default `batch_size` (`batch_row_spans`, `tail_size`),
+so an instance holds a few `BatchGraph`s, one per row count, `soft`,
+compute type and the forward's process-wide switches (K1's softmax
+schedule, `set_fused_ln`, `set_conv_chain`), sharing one memory pool. A
+key's first batch runs eagerly and is then captured; the graphs are
+dropped when the model's parameters or buffers move or change in place,
+and when an out-of-memory error halves `batch_size` (`halve_batch`). The gather of a batch's windows into the graph's input and
 the copy of its output stay outside the graph: the waveform is another
 tensor for every file. A file's record (`tracing.py`) counts its batches of
 each kind.
@@ -122,38 +125,47 @@ def launch_counters() -> list:
 
 
 class BatchGraph:
-    """`forward(chunks)` at one batch shape captured as a CUDA graph:
-    `chunks` is its static input, `out` its static output. A capture runs
-    nothing, so the kernel launches it counts (`launch_counters`) are taken
-    back out of the counters and added on every replay instead. Capture a
-    shape only after the forward has run eagerly at it: that run builds the
-    kernels, uploads the constants and sets up the libraries' handles."""
+    """The forward at one batch shape captured as CUDA graphs, one a stage
+    of the forward (`SlidingInference._stages`), each reading the last
+    one's static output: `chunks` is the first's static input, `outs` the
+    stages' static outputs. A capture runs nothing, so the kernel launches it
+    counts (`launch_counters`) are taken back out of the counters and added
+    on every replay instead. Capture a shape only after the forward has run
+    eagerly at it: that run builds the kernels, uploads the constants and
+    sets up the libraries' handles."""
 
-    __slots__ = ("graph", "chunks", "out", "launches")
+    __slots__ = ("graphs", "chunks", "outs", "launches")
 
-    def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor], chunks: torch.Tensor,
-                 pool: tuple):
+    def __init__(self, stages: list, chunks: torch.Tensor, pool: tuple):
         self.chunks = chunks.clone()
-        self.graph = torch.cuda.CUDAGraph()
+        self.graphs, self.outs = [], []
         counters = launch_counters()
         before = [box[key] for box, key in counters]
+        x = self.chunks
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
-                self.out = forward(self.chunks)
+            for stage in stages:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    x = stage(x)
+                self.graphs.append(graph)
+                self.outs.append(x)  # the next stage's static input
         finally:
             self.launches = [(box, key, box[key] - n)
                              for (box, key), n in zip(counters, before) if box[key] != n]
             for (box, key), n in zip(counters, before):
                 box[key] = n
 
-    def __call__(self, chunks: torch.Tensor) -> torch.Tensor:
-        """The forward of `chunks` (this graph's shape), in `out`: valid
-        until the next replay."""
+    def __call__(self, chunks: torch.Tensor, events=tracing.NO_EVENTS) -> torch.Tensor:
+        """The forward of `chunks` (this graph's shape): the last stage's
+        static output, valid until the next replay. `events.mark_batch(s)`
+        before stage s."""
         self.chunks.copy_(chunks)
-        self.graph.replay()
+        for s, graph in enumerate(self.graphs):
+            events.mark_batch(s)
+            graph.replay()
         for box, key, n in self.launches:
             box[key] += n
-        return self.out
+        return self.outs[-1]
 
 
 class SlidingInference:
@@ -216,7 +228,8 @@ class SlidingInference:
 
     @torch.inference_mode()
     def dispatch(self, wave: torch.Tensor, starts: np.ndarray,
-                 hook: Optional[Callable] = None, soft: bool = False) -> Optional[torch.Tensor]:
+                 hook: Optional[Callable] = None, soft: bool = False,
+                 events=tracing.NO_EVENTS) -> Optional[torch.Tensor]:
         """Enqueue every batch; returns the multilabel activity
         (num_chunks, num_frames, K) ON THE DEVICE, without waiting for it
         (None for no chunks): hard as uint8, or with `soft` the float32
@@ -232,9 +245,11 @@ class SlidingInference:
         graphs are captured again after the parameters move or change and
         after `halve_batch`. The file's record, where this runs inside one
         of its spans, counts the batches that replayed a graph and those
-        that ran eagerly."""
+        that ran eagerly. A model that runs in stages (`inference_stages`)
+        marks each batch's stage boundaries on `events`
+        (`tracing.StageEvents`, the pipeline's for this file)."""
         if self.mesh is None or self.mesh.device_mesh is None or len(starts) == 0:
-            return self._dispatch(wave, starts, hook, soft)
+            return self._dispatch(wave, starts, hook, soft, events)
         group = self.mesh.data_group
         shard = process_window_shard(len(starts), group=group)
         local = self._dispatch(wave, np.asarray(starts)[shard], hook, soft)
@@ -244,7 +259,7 @@ class SlidingInference:
         return torch.from_numpy(gather_window_shards(local, len(starts), group)).to(self.device)
 
     def _dispatch(self, wave: torch.Tensor, starts: np.ndarray, hook: Optional[Callable],
-                  soft: bool) -> Optional[torch.Tensor]:
+                  soft: bool, events=tracing.NO_EVENTS) -> Optional[torch.Tensor]:
         total = len(starts)
         if total == 0:
             return None
@@ -252,21 +267,27 @@ class SlidingInference:
         out = torch.zeros((total, self._frames_per_chunk, self.powerset.num_classes),
                           dtype=torch.float32 if soft else torch.uint8, device=self.device)
         key = self._graph_key(wave, soft)
-        forward = functools.partial(self._forward, soft=soft)
+        stages = self._stages(soft)
+        if len(stages) == 1:  # no boundary inside the forward to time
+            events = tracing.NO_EVENTS
         replayed = eager = 0
         for off, blen, pad in batch_row_spans(
                 total, self.batch_size, lambda n: tail_size(n, self.batch_size)):
             chunks = gather_rows(wave, starts_dev[off: off + blen], self.window_size, pad)
             shape_key = None if key is None else key + (len(chunks),)
             graph = self._graphs.get(shape_key)
+            events.batch()
             if graph is not None:
-                multilabel = graph(chunks)
+                multilabel = graph(chunks, events)
                 replayed += 1
             else:
-                multilabel = forward(chunks)
+                multilabel = chunks
+                for s, stage in enumerate(stages):
+                    events.mark_batch(s)
+                    multilabel = stage(multilabel)
                 eager += 1
                 if shape_key is not None:
-                    self._capture(shape_key, forward, chunks)
+                    self._capture(shape_key, stages, chunks)
             out[off: off + blen] = multilabel[:blen]
             if hook is not None:
                 hook("segmentation", None, total=total, completed=min(off + blen + pad, total))
@@ -277,8 +298,26 @@ class SlidingInference:
         return out
 
     def _forward(self, chunks: torch.Tensor, soft: bool) -> torch.Tensor:
+        """The batch forward in one piece, what its stages give in turn."""
         scores = self.model(chunks, compute_dtype=self.compute_dtype)
         return self.powerset.to_multilabel(scores, soft=soft)
+
+    def _stages(self, soft: bool) -> list:
+        """The batch forward, scores to multilabel, as functions applied in
+        turn: the model's `inference_stages` where it has them (WavLM +
+        Conformer: extractor, encoder, back end), else its whole forward."""
+        def stage(name):
+            kwargs = {"compute_dtype": self.compute_dtype}
+            if name is not None:
+                kwargs["stage"] = name
+            return functools.partial(self.model, **kwargs)
+
+        stages = [stage(n) for n in getattr(self.model, "inference_stages", None) or (None,)]
+        back_end = stages[-1]
+
+        def to_multilabel(x):
+            return self.powerset.to_multilabel(back_end(x), soft=soft)
+        return stages[:-1] + [to_multilabel]
 
     def _graph_key(self, wave: torch.Tensor, soft: bool) -> Optional[tuple]:
         """The key of this call's batch graphs, less the row count; None
@@ -295,10 +334,10 @@ class SlidingInference:
         return (soft, self.compute_dtype, flash_attention.softmax_mode(), use_fused_ln(),
                 use_conv_chain())
 
-    def _capture(self, key: tuple, forward: Callable, chunks: torch.Tensor) -> None:
+    def _capture(self, key: tuple, stages: list, chunks: torch.Tensor) -> None:
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        self._graphs[key] = BatchGraph(forward, chunks, self._graph_pool)
+        self._graphs[key] = BatchGraph(stages, chunks, self._graph_pool)
 
     def drop_graphs(self) -> None:
         """Forget the captured batch graphs; their memory pool goes with

@@ -3,8 +3,10 @@ diarizen_tpu/models/eend.py).
 
 Waveforms -> WavLM hidden states summed with learned layer weights (float32)
 -> Linear + LayerNorm -> Conformer -> Linear -> log-softmax over the powerset
-classes. Key layout as the reference's `pytorch_model.bin`: `wavlm_model.*`,
-`weight_sum.weight` (1, L), `proj`, `lnorm`, `conformer.*`, `classifier`.
+classes; `forward(..., stage=)` runs the inference forward in three parts,
+cut after WavLM's feature projection and after the weighted sum. Key layout
+as the reference's `pytorch_model.bin`: `wavlm_model.*`, `weight_sum.weight`
+(1, L), `proj`, `lnorm`, `conformer.*`, `classifier`.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ class EendConfig:
 
 
 class EendModel(nn.Module):
+    # the inference forward's parts, in order (`forward(..., stage=)`)
+    inference_stages = ("extract", "encode", "back_end")
+
     def __init__(self, cfg: EendConfig):
         super().__init__()
         self.cfg = cfg
@@ -71,21 +76,42 @@ class EendModel(nn.Module):
         self.classifier = nn.Linear(cfg.attention_in, cfg.num_powerset_classes)
 
     def forward(self, waveforms: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
-                train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                stage: Optional[str] = None) -> torch.Tensor:
         """(B, C, num_samples) or (B, num_samples) -> float32 log-powerset
         scores (B, F, P).
 
         `train=True` is the training forward (differentiable attention
         kernels, GradMultiply, BatchNorm on batch statistics, which moves the
         running ones); with a host `generator` it also draws dropout, layer
-        drop and the attention-dropout seeds."""
+        drop and the attention-dropout seeds.
+
+        `stage` (inference) runs one of `inference_stages` on the output of
+        the one before: "extract" the waveforms through WavLM's extractor
+        and feature projection (`WavLM.extract`), "encode" that through its
+        transformer to the float32 weighted sum of the hidden states
+        (`WavLM.encode`), "back_end" that through the projection, the
+        Conformer and the classifier to the scores. In turn they give the
+        whole forward exactly; the serving path replays each as its own
+        CUDA graph and times it on the stream (`infer/sliding.py`)."""
+        if stage == "encode":
+            return self.wavlm_model.encode(waveforms, self.weight_sum.weight.reshape(-1))
+        if stage == "back_end":
+            return self._back_end(waveforms, compute_dtype)
         if waveforms.dim() == 3:
             waveforms = waveforms[:, self.cfg.selected_channel]
+        if stage == "extract":
+            return self.wavlm_model.extract(waveforms, compute_dtype)
+        if stage is not None:
+            raise ValueError(f"unknown stage {stage!r}; the stages are {self.inference_stages}")
         rng = (TrainRandom(generator, waveforms.device, self.wavlm_model.mesh)
                if (train and generator is not None) else None)
         feat = self.wavlm_model(waveforms, self.weight_sum.weight.reshape(-1), compute_dtype,
                                 train=train, rng=rng)
+        return self._back_end(feat, compute_dtype, train, rng)
+
+    def _back_end(self, feat: torch.Tensor, compute_dtype: torch.dtype, train: bool = False,
+                  rng: Optional[TrainRandom] = None) -> torch.Tensor:
         x = layer_norm(self.lnorm, linear(self.proj, feat.to(compute_dtype)))
         x = self.conformer(x, train=train, rng=rng)
         return torch.log_softmax(linear(self.classifier, x).float(), dim=-1)

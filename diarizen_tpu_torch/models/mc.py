@@ -191,6 +191,8 @@ class McEendModel(EendModel):
     walk, then the weighted sum of the hidden states, the Conformer and the
     powerset head as in `EendModel`."""
 
+    inference_stages = None  # the forward runs in one piece
+
     def __init__(self, cfg: McEendConfig):
         super().__init__(cfg)
         self.channel_fusions = make_fusions(cfg.wavlm.embed_dim, cfg.fusion)

@@ -21,7 +21,9 @@ per-head mask on the attention output before `out_proj`, the `attn_layer`
 scale after it, `ff_interm` after the feed-forward GELU and `ff_layer` on the
 feed-forward output; with gates the fused-LN and conv-chain routes are off.
 `hidden_states` returns the num_layers + 1 hidden states that the distill
-loss reads, where `forward` returns their weighted sum.
+loss reads, where `forward` returns their weighted sum. `extract` and
+`encode` are the inference forward in two stages, split after the feature
+projection (the EEND model's `forward(..., stage=)`).
 
 On a mesh's model axis (`parallel/mesh.py`, `shard_model_` sets `mesh`) each
 rank holds whole heads of every layer's remaining heads and a block of its
@@ -511,7 +513,26 @@ class WavLM(nn.Module):
         each layer's output (a layer dropped in training repeats its input)."""
         return self._encode(waveforms, compute_dtype, train, rng, gates, None)
 
+    def extract(self, waveforms: torch.Tensor,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The inference forward's first stage: (B, num_samples) -> (B, F, D)
+        in the compute type, the waveform's norm, the conv stack with its
+        norms and GELUs, and the feature projection. `encode` of it is
+        `forward`."""
+        return self._extract(waveforms, compute_dtype, False, None, None)
+
+    def encode(self, features: torch.Tensor, layer_weights: torch.Tensor) -> torch.Tensor:
+        """The inference forward's second stage: `extract`'s output through
+        the positional conv and the transformer layers -> float32 (B, F, D),
+        the hidden states' sum weighted by `layer_weights`."""
+        return self._transform(features, False, None, None, layer_weights)
+
     def _encode(self, waveforms, compute_dtype, train, rng, gates, layer_weights):
+        gates = gates or {}
+        x = self._extract(waveforms, compute_dtype, train, rng, gates.get("conv"))
+        return self._transform(x, train, rng, gates.get("layers"), layer_weights)
+
+    def _extract(self, waveforms, compute_dtype, train, rng, conv_gates):
         cfg = self.cfg
         if cfg.num_frames(waveforms.shape[-1]) < 1:
             raise ValueError(
@@ -522,15 +543,16 @@ class WavLM(nn.Module):
             waveforms = F.layer_norm(waveforms.float(), waveforms.shape[-1:], eps=1e-5)
 
         gen = rng.device if (train and rng is not None) else None
-        gates = gates or {}
-        x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype), train,
-                                    gates.get("conv"))
+        x = self._feature_extractor(waveforms[:, None, :].to(compute_dtype), train, conv_gates)
         if train:
             x = grad_multiply(x, FEATURE_GRAD_MULT)
         fp = self.encoder.feature_projection
         x = linear(fp.projection, layer_norm(fp.layer_norm, x))
-        x = dropout(x, cfg.projection_dropout, gen)
+        return dropout(x, cfg.projection_dropout, gen)
 
+    def _transform(self, x, train, rng, layer_gates, layer_weights):
+        cfg = self.cfg
+        gen = rng.device if (train and rng is not None) else None
         transformer = self.encoder.transformer
         x = x + self._pos_conv(x)
         if not cfg.layer_norm_first:
@@ -542,7 +564,6 @@ class WavLM(nn.Module):
         if layer_weights is not None:
             w = layer_weights.float()
             acc = w[0] * x.float()
-        layer_gates = gates.get("layers")
         self.layers_run = []
         for i, layer in enumerate(transformer.layers):
             folded = None  # acc after a K4 that took the update into its pass

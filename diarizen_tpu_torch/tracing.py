@@ -32,8 +32,10 @@ batches replayed a captured CUDA graph and how many ran eagerly
 (`infer/sliding.py`, counted on the thread's current file) and, on the fused
 route on a CUDA device, the stream milliseconds of its segmentation (with
 the device stitch) and of its embeddings: `StageEvents` between the stages'
-enqueues. `records()` returns the most recent `KEEP`; nothing is written
-anywhere.
+enqueues; and, for a segmentation model that runs in stages (WavLM +
+Conformer), those of the extractor and of the encoder, from timing events at
+the stage boundaries of every batch, summed over the file's batches.
+`records()` returns the most recent `KEEP`; nothing is written anywhere.
 """
 
 from __future__ import annotations
@@ -75,7 +77,8 @@ class FileRecord:
     they closed; `seg_graph_batches` and `seg_eager_batches` the
     segmentation batches that replayed a CUDA graph and those that ran the
     forward eagerly; the stream milliseconds (`StageEvents`) are None off
-    the fused route or off CUDA."""
+    the fused route or off CUDA, and `seg_extract_ms` and `seg_encode_ms`
+    also for a segmentation model without stages."""
 
     pipeline: int
     file: int
@@ -85,6 +88,8 @@ class FileRecord:
     seg_eager_batches: int = 0
     seg_stream_ms: Optional[float] = None
     embed_stream_ms: Optional[float] = None
+    seg_extract_ms: Optional[float] = None
+    seg_encode_ms: Optional[float] = None
 
     def ms(self, name: str) -> float:
         """Host milliseconds inside the spans called `name`, summed."""
@@ -133,22 +138,28 @@ class span:
 class StageEvents:
     """Three CUDA timing events on a file's stream: `mark(0)` before the
     segmentation's enqueue, `mark(1)` after the device stitch's, `mark(2)`
-    after the embeddings'. Once the host has waited for work queued behind
-    the last mark (the file's `HostFetch`), `read(record, free)` stores the
-    two stages' milliseconds without another wait and hands the events back
-    to `free`, the pipeline's list that `take` draws from: at most the files
-    in flight hold events, and none is made or destroyed per file.
+    after the embeddings'; and for every segmentation batch that runs in
+    stages three more, `batch()` then `mark_batch(0)` before its extractor,
+    `mark_batch(1)` before its encoder and `mark_batch(2)` before its back
+    end. Once the host has waited for work queued behind the last mark (the
+    file's `HostFetch`), `read(record, free)` stores the stages'
+    milliseconds without another wait and hands the events back to `free`,
+    the pipeline's list that `take` draws from; a batch's events go back to
+    this object's own spares. So at most the files in flight hold events,
+    and once the longest file has run, none is made or destroyed per file.
 
     An event's time is when the stream reaches it, so a stage's milliseconds
     span the card's work and any stretch in which the card waited for the
     host to enqueue more of the stage: while the host's launches set the
     pace they read the host's pace, not the card's busy time."""
 
-    __slots__ = ("events", "stream")
+    __slots__ = ("events", "stream", "batches", "spare")
 
     def __init__(self):
         self.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         self.stream = None
+        self.batches: list = []  # the file's batches' events, in order
+        self.spare: list = []
 
     @staticmethod
     def take(free: list, stream) -> "StageEvents":
@@ -163,10 +174,23 @@ class StageEvents:
     def mark(self, stage: int) -> None:
         self.events[stage].record(self.stream)
 
+    def batch(self) -> None:
+        """Starts the events of the next segmentation batch."""
+        self.batches.append(self.spare.pop() if self.spare else
+                            [torch.cuda.Event(enable_timing=True) for _ in range(3)])
+
+    def mark_batch(self, boundary: int) -> None:
+        self.batches[-1][boundary].record(self.stream)
+
     def read(self, record: FileRecord, free: list) -> None:
         first, between, last = self.events
         record.seg_stream_ms = first.elapsed_time(between)
         record.embed_stream_ms = between.elapsed_time(last)
+        if self.batches:
+            record.seg_extract_ms = sum(a.elapsed_time(b) for a, b, _ in self.batches)
+            record.seg_encode_ms = sum(b.elapsed_time(c) for _, b, c in self.batches)
+            self.spare.extend(self.batches)
+            self.batches.clear()
         free.append(self)
 
 
@@ -174,6 +198,12 @@ class _NoEvents:
     """`StageEvents` off CUDA: nothing recorded, nothing read."""
 
     def mark(self, stage: int) -> None:
+        pass
+
+    def batch(self) -> None:
+        pass
+
+    def mark_batch(self, boundary: int) -> None:
         pass
 
     def read(self, record: FileRecord, free: list) -> None:

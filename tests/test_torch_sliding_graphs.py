@@ -5,8 +5,11 @@ engages, and a file's record counts every batch. On a card (the tests named
 `test_card_*` skip without one): graph replay against the eager forward bit
 for bit at every row count, graphs reused across files, captured again
 after a switch flips or a parameter changes, and K1's launch counters the
-same either way (K3, K4 and K5 too). This file imports nothing of JAX, so on the machine with
-the card it runs without the suite's conftest:
+same either way (K3, K4 and K5 too); a pre-LN model with WavLM-Large's
+extractor (a LayerNorm after every conv, the waveform normalised) in its
+three stage graphs, with the file's stage events read. This file imports
+nothing of JAX, so on the machine with the card it runs without the suite's
+conftest:
 
     python -m pytest --noconftest -q tests/test_torch_sliding_graphs.py
 """
@@ -51,6 +54,29 @@ def tiny_eend() -> EendModel:
         wavlm=wavlm, conformer=ConformerConfig(dim=32, ffn_hidden=64, num_heads=4, num_layers=1),
         wavlm_layer_num=n + 1, wavlm_feat_dim=64, attention_in=32))
     sd = random_state_dict(model, 0)
+    sd["classifier.weight"] = sd["classifier.weight"] * 100.0
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def tiny_pre_ln_eend() -> EendModel:
+    """WavLM-Large's kind of model at the same geometry: the waveform
+    normalised, a LayerNorm after every conv of uneven widths, pre-LN
+    layers keeping 3, 1 and 4 of 4 heads, one layer with its attention
+    removed, a feed-forward width a layer."""
+    n = 4
+    wavlm = WavLMConfig(
+        extractor_mode="layer_norm",
+        conv_layers=((24, 10, 5), (12, 3, 2), (20, 3, 2), (16, 3, 2), (10, 3, 2),
+                     (18, 2, 2), (14, 2, 2)),
+        embed_dim=64, num_layers=n, use_attention=(True, True, False, True),
+        use_feed_forward=(True,) * n, total_num_heads=(4,) * n,
+        remaining_heads=((0, 2, 3), (1,), (), (0, 1, 2, 3)), ff_interm_features=(48, 24, 40, 16),
+        layer_norm_first=True, normalize_waveform=True, layer_drop=0.0)
+    model = EendModel(EendConfig(
+        wavlm=wavlm, conformer=ConformerConfig(dim=32, ffn_hidden=64, num_heads=4, num_layers=1),
+        wavlm_layer_num=n + 1, wavlm_feat_dim=64, attention_in=32))
+    sd = random_state_dict(model, 2)
     sd["classifier.weight"] = sd["classifier.weight"] * 100.0
     model.load_state_dict(sd)
     return model.eval()
@@ -135,6 +161,24 @@ def test_cpu_runs_every_batch_eagerly(cpu_seg, soft):
     assert record.seg_eager_batches == num_batches(len(starts), cpu_seg.batch_size) == 4
     assert not cpu_seg._graphs and cpu_seg._graph_pool is None
     assert torch.equal(out, eager(cpu_seg, wave, starts, soft))
+
+
+def test_cpu_runs_a_staged_model_eagerly():
+    """The pre-LN model runs in its three stages, every batch eagerly,
+    as its one-piece forward does."""
+    seg = SlidingInference(tiny_pre_ln_eend(), batch_size=8, compute_dtype=torch.float32,
+                           device="cpu")
+    assert len(seg._stages(False)) == 3
+    wave, starts = seg.prepare_wave(make_wave(20.3))
+    out, record = counted(seg, wave, starts)
+    assert record.seg_graph_batches == 0
+    assert record.seg_eager_batches == num_batches(len(starts), 8)
+    assert not seg._graphs and seg._graph_pool is None
+    with torch.inference_mode():
+        chunks = gather_rows(wave, torch.as_tensor(starts[:8]), seg.window_size, 0)
+        whole = seg.powerset.to_multilabel(seg.model(chunks, compute_dtype=torch.float32))
+    assert torch.equal(out[:8], whole)
+    assert torch.equal(out, eager(seg, wave, starts))
 
 
 def test_state_stamp_sees_every_change_of_the_weights():
@@ -272,6 +316,35 @@ def test_card_graphs_are_reused_and_recaptured(card_seg):
         assert record.seg_eager_batches >= 1
         assert all(g is not before.get(k) for k, g in seg._graphs.items())
         assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_card_staged_graphs_of_a_pre_ln_model(card, soft):
+    """Three graphs a batch shape (extractor, encoder, back end) replay
+    bit for bit what the eager forward gives; the file's events, recorded
+    between the graphs, read both stages inside the segmentation's span."""
+    seg = SlidingInference(tiny_pre_ln_eend(), batch_size=32, compute_dtype=torch.bfloat16,
+                           device=card)
+    for windows in LAST_ROWS:
+        wave, starts = on_card(seconds_for(windows), seg)
+        want = eager(seg, wave, starts, soft)
+        for _ in range(2):  # the new shapes' eager batches and captures, then replays only
+            events = tracing.StageEvents.take([], torch.cuda.current_stream())
+            record = tracing.FileRecord(-1, 0, 0.0)
+            events.mark(0)
+            with tracing.span("diarize.segment", record):
+                out = seg.dispatch(wave, starts, soft=soft, events=events)
+            events.mark(1)
+            events.mark(2)
+            torch.cuda.synchronize()
+            events.read(record, [])
+            assert torch.equal(out, want), windows
+            assert 0 < record.seg_extract_ms and 0 < record.seg_encode_ms
+            assert record.seg_extract_ms + record.seg_encode_ms < record.seg_stream_ms
+        assert record.seg_eager_batches == 0
+        assert record.seg_graph_batches == num_batches(windows, 32)
+    assert sorted(k[-1] for k in seg._graphs) == [8, 16, 24, 32]
+    assert all(len(g.graphs) == 3 for g in seg._graphs.values())
 
 
 def launch_counts() -> dict:

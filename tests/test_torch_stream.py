@@ -181,8 +181,8 @@ def test_return_embeddings_and_no_speech_reset(pipelines, fused, monkeypatch):
     # a silent file must not hand back the previous file's centroids
     seg = pipe.seg_inference
     monkeypatch.setattr(seg, "dispatch",
-                        lambda wave, starts, hook=None: torch.zeros((len(starts), 399, 4),
-                                                                    dtype=torch.uint8))
+                        lambda wave, starts, hook=None, events=None: torch.zeros(
+                            (len(starts), 399, 4), dtype=torch.uint8))
     ann, centroids = pipe(waves[0], 16000, uri="silent", return_embeddings=True)
     assert ann.uri == "silent" and ann.to_rttm() == ""
     assert centroids.shape == (0, 32)

@@ -223,3 +223,70 @@ def test_spans_records_and_events_alone(monkeypatch):
         tracing.finished(tracing.FileRecord(7, k, 1.0))
     kept = tracing.records()
     assert len(kept) == tracing.KEEP and kept[0].file == 5 and kept[-1].file == tracing.KEEP + 4
+
+
+def test_stage_fields_are_none_off_cuda(small):
+    """Off CUDA no event is recorded: the extractor's and the encoder's
+    stream milliseconds stay None, and the record keeps its other fields."""
+    build, waves = small
+    pipe = build()
+    list(pipe.stream(iter(waves[:2]), 16000, trim_every=0))
+    for r, w in zip(mine(pipe), waves):
+        assert r.seg_extract_ms is r.seg_encode_ms is r.seg_stream_ms is None
+        assert r.audio_s == w.shape[1] / 16000 and r.seg_eager_batches > 0
+        assert r.seg_graph_batches == 0 and r.ms("diarize.dispatch") > 0
+
+
+def test_batch_events_sum_over_a_files_batches(monkeypatch):
+    """Each batch's three events time its extractor and its encoder; a
+    file's record sums them, and the next file reuses the events."""
+    made = []
+
+    class Event:  # a CUDA timing event, on a clock that `record` sets
+        def __init__(self, enable_timing=False):
+            self.t = None
+            made.append(self)
+
+        def record(self, stream):
+            self.t = stream.pop(0)
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    free = []
+    # file 1: mark 0, two batches (extract 2 + 3, encode 5 + 4), marks 1 and 2
+    stream = [0.0, 1.0, 3.0, 8.0, 9.0, 12.0, 16.0, 18.0, 20.0]
+    events = tracing.StageEvents.take(free, stream)
+    events.mark(0)
+    for _ in range(2):
+        events.batch()
+        for boundary in range(3):
+            events.mark_batch(boundary)
+    events.mark(1)
+    events.mark(2)
+    rec = tracing.FileRecord(7, 0, 2.5)
+    events.read(rec, free)
+    assert (rec.seg_extract_ms, rec.seg_encode_ms) == (5.0, 9.0)
+    assert (rec.seg_stream_ms, rec.embed_stream_ms) == (18.0, 2.0) and free == [events]
+    assert len(made) == 9 and events.batches == [] and len(events.spare) == 2
+    # file 2: one batch, on the spare events; no event made
+    stream = [30.0, 31.0, 32.5, 36.0, 37.0, 38.0]
+    again = tracing.StageEvents.take(free, stream)
+    again.mark(0)
+    again.batch()
+    for boundary in range(3):
+        again.mark_batch(boundary)
+    again.mark(1)
+    again.mark(2)
+    rec2 = tracing.FileRecord(7, 1, 1.0)
+    again.read(rec2, free)
+    assert again is events and len(made) == 9
+    assert (rec2.seg_extract_ms, rec2.seg_encode_ms) == (1.5, 3.5)
+    # a file whose model ran in one piece: no batch events, the fields None
+    plain = tracing.StageEvents.take(free, [40.0, 41.0, 42.0])
+    for stage in range(3):
+        plain.mark(stage)
+    rec3 = tracing.FileRecord(7, 2, 1.0)
+    plain.read(rec3, free)
+    assert rec3.seg_extract_ms is rec3.seg_encode_ms is None and rec3.seg_stream_ms == 1.0
