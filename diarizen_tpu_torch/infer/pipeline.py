@@ -32,6 +32,7 @@ same shard.
 from __future__ import annotations
 
 import ctypes
+import functools
 import gc
 import math
 from dataclasses import dataclass, field
@@ -46,6 +47,7 @@ from diarizen_tpu_torch import tracing
 from diarizen_tpu_torch.core.segments import Annotation, SlidingWindow, SlidingWindowFeature
 from diarizen_tpu_torch.infer.fused import FusedStitch, make_fused_stitch
 from diarizen_tpu_torch.infer.sliding import (
+    GraphedBatches,
     SlidingInference,
     batch_row_spans,
     gather_rows,
@@ -65,7 +67,6 @@ from diarizen_tpu_torch.parallel.distributed import (
 )
 from diarizen_tpu_torch.utils import (
     HostFetch,
-    halve_batch_or_raise,
     is_oom_error,
     resolve_device,
     to_device_async,
@@ -155,7 +156,7 @@ def reconstruct(
     )
 
 
-class EmbeddingInference:
+class EmbeddingInference(GraphedBatches):
     """Batched per-chunk masked speaker embeddings.
 
     With `shared_fbank` (the default) the log-mel filterbank is computed ONCE
@@ -164,7 +165,22 @@ class EmbeddingInference:
     own 400 samples, and it applies when the window starts land on the
     160-sample frame hop. Otherwise (`shared_fbank=False`, or a window step
     off the 10 ms grid) each window's waveform is gathered and its fbank
-    computed on its own. Per-window mean normalisation follows either."""
+    computed on its own. Per-window mean normalisation follows either.
+
+    On a CUDA device outside a process group each batch replays a CUDA
+    graph captured at its row count (8, 16, 24 or 32 at batch 32), fbank
+    route, compute type and float32 matmul and convolution precision, as
+    the segmentation's batches do (`infer/sliding.py`, `GraphedBatches`):
+    the per-window fbank, the mean normalisation and the ResNet with its
+    pooling and head run inside the graph, reading two static inputs (the
+    gathered windows and the batch's weights); the whole-file fbank, the
+    gathers, the weights' slice and zero pad and the copy of the output
+    stay outside it. So a batch is enqueued in a handful of launches and
+    `dispatch` returns while the card still has the file's embeddings
+    queued. The graphs have their own memory pool, dropped with them when
+    the ResNet's parameters or buffers change and when `halve_batch` runs."""
+
+    _what = "embedding inference"
 
     def __init__(
         self,
@@ -185,6 +201,7 @@ class EmbeddingInference:
         self.shared_fbank = shared_fbank
         self.embed_dim = model.cfg.embed_dim
         self._frames_per_window = num_fbank_frames(window_size)
+        self._init_graphs()  # keyed by `_graph_key` and the row count
 
     @property
     def min_num_samples(self) -> int:
@@ -198,7 +215,10 @@ class EmbeddingInference:
         """Enqueue every batch: device waveform + (N,) window starts on the
         host + (N, S, F) weights (a device tensor, or a host array that is
         uploaded once) -> (N, S, D) float32 embeddings ON THE DEVICE, without
-        waiting for them (None for no windows). Fetch with `collect`."""
+        waiting for them (None for no windows). Fetch with `collect`. Each
+        batch replays its graph where one applies (class docstring); the
+        file's record, where this runs inside one of its spans, counts the
+        batches that replayed a graph and those that ran eagerly."""
         n = len(starts)
         if n == 0:
             return None
@@ -213,20 +233,46 @@ class EmbeddingInference:
         if not isinstance(weights, torch.Tensor):
             weights = to_device_async(np.asarray(weights), self.device)
         out = torch.zeros((n, self.num_speakers, self.embed_dim), device=self.device)
+        key = self._graph_key(wave, shared)
+        stages = [functools.partial(self._forward, shared)]
+        replayed = eager = 0
         for off, blen, pad in batch_row_spans(
                 n, self.batch_size, lambda m: tail_size(m, self.batch_size)):
             windows = gather_rows(source, starts_dev[off: off + blen], length, pad)
-            if not shared:
-                windows = kaldi_fbank(windows * 32768.0)
-            windows = windows - windows.mean(dim=1, keepdim=True)
             wb = weights[off: off + blen].float()
             if pad:
                 wb = torch.cat([wb, wb.new_zeros((pad,) + tuple(wb.shape[1:]))])
-            emb = self.model(windows.to(self.compute_dtype), wb)
+            emb, from_graph = self._run_batch(
+                None if key is None else key + (len(windows),), stages, (windows, wb))
+            replayed += from_graph
+            eager += not from_graph
             out[off: off + blen] = emb[:blen]
             if hook is not None:
                 hook("embeddings", None, total=n, completed=min(off + blen + pad, n))
+        record = tracing.current()
+        if record is not None:
+            record.emb_graph_batches += replayed
+            record.emb_eager_batches += eager
         return out
+
+    def _forward(self, shared: bool, windows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """A batch's (rows, S, D) embeddings from its gathered windows
+        (fbank frames, or samples without `shared`) and (rows, S, F)
+        weights."""
+        if not shared:
+            windows = kaldi_fbank(windows * 32768.0)
+        windows = windows - windows.mean(dim=1, keepdim=True)
+        return self.model(windows.to(self.compute_dtype), weights)
+
+    def _graph_key(self, wave: torch.Tensor, shared: bool) -> Optional[tuple]:
+        """The key of this call's batch graphs, less the row count; None
+        where the batches run eagerly (`GraphedBatches._graphs_apply`). It
+        holds the float32 precision switches that choose the convolutions'
+        and the fbank's kernels (TF32 or not)."""
+        if not self._graphs_apply(wave):
+            return None
+        return (shared, self.compute_dtype, torch.backends.cudnn.allow_tf32,
+                torch.get_float32_matmul_precision())
 
     def collect(self, dispatched: Optional[torch.Tensor]) -> np.ndarray:
         """The one device-to-host copy of a dispatched result; clustering
@@ -240,15 +286,14 @@ class EmbeddingInference:
                  hook: Optional[Callable] = None) -> np.ndarray:
         """Device waveform + (N,) window starts + (N, S, F) weights ->
         (N, S, D) float64 embeddings. A device out-of-memory error halves
-        `batch_size` and runs the file again."""
+        `batch_size`, drops the graphs and runs the file again."""
         while True:
             try:
                 dispatched = self.dispatch(wave, starts, weights, hook)
                 with tracing.span("diarize.wait"):
                     return self.collect(dispatched)
             except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
-                self.batch_size = halve_batch_or_raise(e, self.batch_size,
-                                                       "embedding inference")
+                self.halve_batch(e)
 
 
 def _trim_host_memory() -> None:
@@ -337,7 +382,12 @@ class DiarizationPipeline:
         File i+1's device work is enqueued BEFORE file i's host stages run,
         so the device's in-order queue always holds work and the host's
         stitching and clustering hide behind it: the throughput mode for
-        scoring a whole test set.
+        scoring a whole test set. On a CUDA device both models replay CUDA
+        graphs a batch (`SlidingInference`, `EmbeddingInference`), so the
+        enqueue takes far less host time than the card takes to run it and
+        returns with file i+1's work still queued; file i's finish then runs
+        while the card works through file i+1, whose one wait, in its own
+        finish, takes what is left.
 
         `hook` is shared by the files in flight, so per-batch progress calls
         interleave; the per-stage artifacts still arrive in file order.

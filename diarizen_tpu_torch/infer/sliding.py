@@ -29,10 +29,13 @@ compute type and the forward's process-wide switches (K1's softmax
 schedule, `set_fused_ln`, `set_conv_chain`), sharing one memory pool. A
 key's first batch runs eagerly and is then captured; the graphs are
 dropped when the model's parameters or buffers move or change in place,
-and when an out-of-memory error halves `batch_size` (`halve_batch`). The gather of a batch's windows into the graph's input and
-the copy of its output stay outside the graph: the waveform is another
-tensor for every file. A file's record (`tracing.py`) counts its batches of
-each kind.
+and when an out-of-memory error halves `batch_size` (`halve_batch`). The
+gather of a batch's windows into the graph's input and the copy of its
+output stay outside the graph: the waveform is another tensor for every
+file. A file's record (`tracing.py`) counts its batches of each kind.
+`GraphedBatches` holds that discipline for this class and for the
+speaker embeddings' `EmbeddingInference` (`infer/pipeline.py`), whose graph
+takes two static inputs, the windows and their weights.
 """
 
 from __future__ import annotations
@@ -126,27 +129,26 @@ def launch_counters() -> list:
 
 class BatchGraph:
     """The forward at one batch shape captured as CUDA graphs, one a stage
-    of the forward (`SlidingInference._stages`), each reading the last
-    one's static output: `chunks` is the first's static input, `outs` the
-    stages' static outputs. A capture runs nothing, so the kernel launches it
-    counts (`launch_counters`) are taken back out of the counters and added
-    on every replay instead. Capture a shape only after the forward has run
-    eagerly at it: that run builds the kernels, uploads the constants and
-    sets up the libraries' handles."""
+    of the forward, each reading the last one's static output: `inputs` are
+    the first stage's static inputs (its arguments, in order), `outs` the
+    stages' static outputs. A capture runs nothing, so the kernel launches
+    it counts (`launch_counters`) are taken back out of the counters and
+    added on every replay instead. Capture a shape only after the forward
+    has run eagerly at it: that run builds the kernels, uploads the
+    constants and sets up the libraries' handles."""
 
-    __slots__ = ("graphs", "chunks", "outs", "launches")
+    __slots__ = ("graphs", "inputs", "outs", "launches")
 
-    def __init__(self, stages: list, chunks: torch.Tensor, pool: tuple):
-        self.chunks = chunks.clone()
+    def __init__(self, stages: list, inputs: tuple, pool: tuple):
+        self.inputs = tuple(t.clone() for t in inputs)
         self.graphs, self.outs = [], []
         counters = launch_counters()
         before = [box[key] for box, key in counters]
-        x = self.chunks
         try:
-            for stage in stages:
+            for s, stage in enumerate(stages):
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=pool):
-                    x = stage(x)
+                    x = stage(*self.inputs) if s == 0 else stage(self.outs[-1])
                 self.graphs.append(graph)
                 self.outs.append(x)  # the next stage's static input
         finally:
@@ -155,11 +157,12 @@ class BatchGraph:
             for (box, key), n in zip(counters, before):
                 box[key] = n
 
-    def __call__(self, chunks: torch.Tensor, events=tracing.NO_EVENTS) -> torch.Tensor:
-        """The forward of `chunks` (this graph's shape): the last stage's
+    def __call__(self, inputs: tuple, events=tracing.NO_EVENTS) -> torch.Tensor:
+        """The forward of `inputs` (this graph's shapes): the last stage's
         static output, valid until the next replay. `events.mark_batch(s)`
         before stage s."""
-        self.chunks.copy_(chunks)
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
         for s, graph in enumerate(self.graphs):
             events.mark_batch(s)
             graph.replay()
@@ -168,11 +171,76 @@ class BatchGraph:
         return self.outs[-1]
 
 
-class SlidingInference:
+class GraphedBatches:
+    """The CUDA graphs of an inference object's batches (`BatchGraph`), by
+    key, for `SlidingInference` and `EmbeddingInference`: a batch replays
+    the graph of its key where there is one; else it runs eagerly and is
+    then captured. The object's graphs share one memory pool of their own
+    and are dropped when a parameter or buffer of its `model` moves or
+    changes in place, and when an out-of-memory error halves its
+    `batch_size` (`halve_batch`)."""
+
+    _what = "inference"  # the stage named in `halve_batch`'s error
+
+    def _init_graphs(self) -> None:
+        # the captured graphs by key, their memory pool, and the parameters'
+        # and buffers' addresses and versions they read
+        self._graphs: Dict[tuple, BatchGraph] = {}
+        self._graph_pool = None
+        self._graph_stamp: Optional[list] = None
+
+    def _graphs_apply(self, x: torch.Tensor) -> bool:
+        """Whether this call's batches (on `x`'s device) may replay graphs:
+        on a CUDA device outside a process group. Drops the graphs when the
+        model's parameters or buffers have changed since their capture."""
+        if not x.is_cuda or in_group():
+            return False
+        stamp = state_stamp(self.model)
+        if stamp != self._graph_stamp:
+            self.drop_graphs()
+            self._graph_stamp = stamp
+        return True
+
+    def _run_batch(self, key: Optional[tuple], stages: list, inputs: tuple,
+                   events=tracing.NO_EVENTS) -> Tuple[torch.Tensor, bool]:
+        """(the batch's output, whether a graph gave it): the stages applied
+        in turn to `inputs`, the first taking them as its arguments, by the
+        graph of `key`, or eagerly and then captured under `key` (None: no
+        graph). `events.mark_batch(s)` before stage s."""
+        graph = None if key is None else self._graphs.get(key)
+        if graph is not None:
+            return graph(inputs, events), True
+        x = inputs
+        for s, stage in enumerate(stages):
+            events.mark_batch(s)
+            x = stage(*x) if s == 0 else stage(x)
+        if key is not None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graphs[key] = BatchGraph(stages, inputs, self._graph_pool)
+        return x, False
+
+    def drop_graphs(self) -> None:
+        """Forget the captured batch graphs; their memory pool goes with
+        the last of them."""
+        self._graphs.clear()
+        self._graph_pool = None
+
+    def halve_batch(self, exc: BaseException) -> None:
+        """After a device out-of-memory error: halve `batch_size` and drop
+        the graphs, whose shapes it changes (anything else is re-raised,
+        `utils.halve_batch_or_raise`)."""
+        self.batch_size = halve_batch_or_raise(exc, self.batch_size, self._what)
+        self.drop_graphs()
+
+
+class SlidingInference(GraphedBatches):
     """Callable: (waveform (C, num_samples), sample_rate) ->
     SlidingWindowFeature (num_chunks, num_frames, K), for a segmentation
     model of any family (its forward takes `compute_dtype=`; the model
     carries its config as `cfg`)."""
+
+    _what = "segmentation inference"
 
     def __init__(
         self,
@@ -197,11 +265,7 @@ class SlidingInference:
         self.window_size = round(self.duration * self.sample_rate)
         self.step_size = round(self.step * self.sample_rate)
         self._frames_per_chunk = cfg.num_frames(self.window_size)
-        # the captured batch graphs by key (`_graph_key`), their memory pool,
-        # and the parameters' and buffers' addresses and versions they read
-        self._graphs: Dict[tuple, BatchGraph] = {}
-        self._graph_pool = None
-        self._graph_stamp: Optional[list] = None
+        self._init_graphs()  # keyed by `_graph_key` and the row count
 
     def num_chunks(self, num_samples: int) -> Tuple[int, bool]:
         if num_samples >= self.window_size:
@@ -274,20 +338,11 @@ class SlidingInference:
         for off, blen, pad in batch_row_spans(
                 total, self.batch_size, lambda n: tail_size(n, self.batch_size)):
             chunks = gather_rows(wave, starts_dev[off: off + blen], self.window_size, pad)
-            shape_key = None if key is None else key + (len(chunks),)
-            graph = self._graphs.get(shape_key)
             events.batch()
-            if graph is not None:
-                multilabel = graph(chunks, events)
-                replayed += 1
-            else:
-                multilabel = chunks
-                for s, stage in enumerate(stages):
-                    events.mark_batch(s)
-                    multilabel = stage(multilabel)
-                eager += 1
-                if shape_key is not None:
-                    self._capture(shape_key, stages, chunks)
+            multilabel, from_graph = self._run_batch(
+                None if key is None else key + (len(chunks),), stages, (chunks,), events)
+            replayed += from_graph
+            eager += not from_graph
             out[off: off + blen] = multilabel[:blen]
             if hook is not None:
                 hook("segmentation", None, total=total, completed=min(off + blen + pad, total))
@@ -323,34 +378,11 @@ class SlidingInference:
         """The key of this call's batch graphs, less the row count; None
         where the forward runs eagerly: off CUDA, and on a mesh or in a
         process group, where a model axis puts collectives inside the
-        forward. Drops the graphs when a parameter or buffer has moved or
-        changed in place since they were captured."""
-        if not wave.is_cuda or self.mesh is not None or in_group():
+        forward."""
+        if self.mesh is not None or not self._graphs_apply(wave):
             return None
-        stamp = state_stamp(self.model)
-        if stamp != self._graph_stamp:
-            self.drop_graphs()
-            self._graph_stamp = stamp
         return (soft, self.compute_dtype, flash_attention.softmax_mode(), use_fused_ln(),
                 use_conv_chain())
-
-    def _capture(self, key: tuple, stages: list, chunks: torch.Tensor) -> None:
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        self._graphs[key] = BatchGraph(stages, chunks, self._graph_pool)
-
-    def drop_graphs(self) -> None:
-        """Forget the captured batch graphs; their memory pool goes with
-        the last of them."""
-        self._graphs.clear()
-        self._graph_pool = None
-
-    def halve_batch(self, exc: BaseException) -> None:
-        """After a device out-of-memory error: halve `batch_size` and drop
-        the graphs, whose shapes it changes (anything else is re-raised,
-        `utils.halve_batch_or_raise`)."""
-        self.batch_size = halve_batch_or_raise(exc, self.batch_size, "segmentation inference")
-        self.drop_graphs()
 
     @staticmethod
     def collect(dispatched: Optional[torch.Tensor]) -> Optional[np.ndarray]:

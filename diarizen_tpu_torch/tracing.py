@@ -28,8 +28,9 @@ enters `record_function`, which costs microseconds even with no profiler.
 Every file the pipeline finishes leaves a `FileRecord`: the pipeline
 instance and the file's sequence number in it, its spans on the host clock
 (`time.perf_counter_ns`), its audio seconds, how many of its segmentation
-batches replayed a captured CUDA graph and how many ran eagerly
-(`infer/sliding.py`, counted on the thread's current file) and, on the fused
+batches and of its embedding batches replayed a captured CUDA graph and how
+many ran eagerly (`infer/sliding.py`, `EmbeddingInference` in
+`infer/pipeline.py`, counted on the thread's current file) and, on the fused
 route on a CUDA device, the stream milliseconds of its segmentation (with
 the device stitch) and of its embeddings: `StageEvents` between the stages'
 enqueues; and, for a segmentation model that runs in stages (WavLM +
@@ -76,9 +77,10 @@ class FileRecord:
     """One file served: `spans` holds (name, start ns, end ns) in the order
     they closed; `seg_graph_batches` and `seg_eager_batches` the
     segmentation batches that replayed a CUDA graph and those that ran the
-    forward eagerly; the stream milliseconds (`StageEvents`) are None off
-    the fused route or off CUDA, and `seg_extract_ms` and `seg_encode_ms`
-    also for a segmentation model without stages."""
+    forward eagerly, `emb_graph_batches` and `emb_eager_batches` the same
+    of the embedding batches; the stream milliseconds (`StageEvents`) are
+    None off the fused route or off CUDA, and `seg_extract_ms` and
+    `seg_encode_ms` also for a segmentation model without stages."""
 
     pipeline: int
     file: int
@@ -86,6 +88,8 @@ class FileRecord:
     spans: List[Tuple[str, int, int]] = field(default_factory=list)
     seg_graph_batches: int = 0
     seg_eager_batches: int = 0
+    emb_graph_batches: int = 0
+    emb_eager_batches: int = 0
     seg_stream_ms: Optional[float] = None
     embed_stream_ms: Optional[float] = None
     seg_extract_ms: Optional[float] = None
