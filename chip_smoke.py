@@ -221,6 +221,7 @@ from diarizen_tpu_torch.models.wavlm import (
     set_fused_ln,
 )
 from diarizen_tpu_torch.ops import conv_chain as k5
+from diarizen_tpu_torch.ops import cuda_build
 from diarizen_tpu_torch.ops import flash_attention as k1
 from diarizen_tpu_torch.ops import fused_ln as k3
 from diarizen_tpu_torch.ops.binarize import binarize_hysteresis
@@ -752,9 +753,19 @@ SCHEDULE_TOLERANCE = {"f32": 2.0**-7, "deferred": 2e-2, "bf16": 2.0**-7}
 GRAD_TOLERANCE = 2e-2  # K2 rounds dS and W * m to bf16 for its products
 
 
+K1_K2 = {n for k in ("k1", "k1_train", "k2") for n in cuda_build.KERNEL_INSTANCES[k]}
+
+
 def launched() -> dict:
     """The instances of K1 and K2 launched since the counters were last reset."""
-    return {name: n for name, n in k1.instance_launches.items() if n}
+    return {name: n for name, n in cuda_build.launches.items() if n and name in K1_K2}
+
+
+def launch_counts(*kernels: str) -> dict:
+    """The launches of `kernels` (keys of `cuda_build.KERNEL_INSTANCES`: "k1"
+    is K1's inference instances) since the counters were last reset."""
+    totals = cuda_build.launch_totals()
+    return {kernel: totals[kernel] for kernel in kernels}
 
 
 # each main path's run (single-file and streamed serving, the training
@@ -843,7 +854,7 @@ def phase_softmax_schedules() -> dict:
                  for m in k1.SOFTMAX_MODES}
         for mode in k1.SOFTMAX_MODES:
             with k1.softmax_mode_scope(mode):
-                k1.reset_launches()
+                cuda_build.reset_launches()
                 got = k1.flash_attention_gated_bias(*args)
                 torch.cuda.synchronize()
                 instances = launched()
@@ -862,7 +873,7 @@ def phase_softmax_schedules() -> dict:
         args = attention_inputs(b, h, t, HEAD_DIM, dtype, gen)
         tolerance = (f32_tolerance if dtype == torch.float32 else SCHEDULE_TOLERANCE)["f32"]
         with k1.softmax_mode_scope("f32"):
-            k1.reset_launches()
+            cuda_build.reset_launches()
             got = k1.flash_attention_gated_bias(*args, dropout_rate=DROPOUT_RATE,
                                                 seed=DROPOUT_SEED)
             torch.cuda.synchronize()
@@ -885,7 +896,7 @@ def phase_softmax_schedules() -> dict:
             mem_s, op_s = attention_bound_s(b, 12, t, HEAD_DIM, 2)
         for mode in k1.SOFTMAX_MODES:
             with k1.softmax_mode_scope(mode):
-                k1.reset_launches()
+                cuda_build.reset_launches()
                 got = k1.flash_attention_gated_bias(*padded)
                 torch.cuda.synchronize()
                 instances = launched()
@@ -926,7 +937,7 @@ def phase_softmax_schedules() -> dict:
         with k1.softmax_mode_scope("deferred"):  # the training forward is f32 whatever is set
             for fn in (k1.flash_attention_gated_bias_trainable,
                        k1.flash_attention_gated_bias_reference):
-                k1.reset_launches()
+                cuda_build.reset_launches()
                 leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
                 o = fn(*leaves, dropout_rate=rate, seed=DROPOUT_SEED)
                 o.backward(do)
@@ -1115,7 +1126,7 @@ class StepRecorder:
     def __call__(self, metrics) -> None:
         torch.cuda.synchronize()
         now = time.perf_counter()
-        counts = (k1.train_launches, k1.bwd_launches)
+        counts = tuple(launch_counts("k1_train", "k2").values())
         self.steps.append({**metrics, "ms": 1e3 * (now - self.last),
                            "k1": counts[0] - self.counts[0], "k2": counts[1] - self.counts[1]})
         self.last, self.counts = now, counts
@@ -1212,12 +1223,13 @@ def phase_training(card: str) -> dict:
                                                max_num_checkpoints=1),
                           recipe_optimizer(model), step_hook=recorder)
         torch.cuda.reset_peak_memory_stats()
-        k1.reset_launches()
+        cuda_build.reset_launches()
         t0 = recorder.last = time.perf_counter()
         val = trainer.train(train_loader, val_loader)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"inference": k1.launches, "train": k1.train_launches, "bwd": k1.bwd_launches}
+        launches = dict(zip(("inference", "train", "bwd"),
+                            launch_counts("k1", "k1_train", "k2").values()))
         instances = path_run("training with validation", launched())
         peak = torch.cuda.max_memory_allocated()
 
@@ -1559,10 +1571,10 @@ def phase_fused_ln_model(eend_sd, eend_cfg, wave) -> None:
     try:
         for fused in (False, True):
             set_fused_ln(fused)
-            k3.launches = k3.acc_launches = 0
+            cuda_build.reset_launches()
             with torch.inference_mode():
                 scores[fused] = model(windows)
-            counts = (k3.launches, k3.acc_launches)
+            counts = tuple(launch_counts("k3", "k4").values())
             wavlm = eend_cfg.wavlm
             expected = (sum(wavlm.use_attention), sum(wavlm.use_feed_forward)) if fused else (0, 0)
             check(counts == expected, f"fused-LN {fused}: K3, K4 launches {counts}, not {expected}")
@@ -1603,11 +1615,10 @@ def phase_stream(card: str, model, eend_cfg, pipeline) -> dict:
     try:
         set_fused_ln(True)
         print(f"stream warm-up: {timed_pass(stream):.3f} s")
-        k1.reset_launches()
-        k3.launches = k3.acc_launches = 0
+        cuda_build.reset_launches()
         streamed = []
         seconds = timed_pass(lambda: streamed.extend(stream()))
-        launches = {"k1": k1.launches, "k3": k3.launches, "k4": k3.acc_launches}
+        launches = launch_counts("k1", "k3", "k4")
         path_run("streamed serving", launched())
         print(f"streamed pass {card}: {SERVING_FILES} x {AUDIO_SECONDS} s in {seconds:.4f} s = "
               f"{SERVING_FILES * AUDIO_SECONDS / seconds:.2f} audio-s/s; launches K1 "
@@ -1806,11 +1817,11 @@ def compare_routes(model, windows, dtype, score_limit: float, flip_limit: float)
     against off. A hard decision can flip only where the top-2 margin is
     below twice the score difference; the scores must agree within
     `score_limit` and at most `flip_limit` of the frames may flip."""
-    before = k5.launches
+    before = cuda_build.launch_totals()["k5"]
     off = route_scores(model, windows, dtype, False)
-    check(k5.launches == before, "the ordinary route launched K5")
+    check(cuda_build.launch_totals()["k5"] == before, "the ordinary route launched K5")
     on = route_scores(model, windows, dtype, True)
-    check(k5.launches - before == -(-len(windows) // BATCH),
+    check(cuda_build.launch_totals()["k5"] - before == -(-len(windows) // BATCH),
           "the conv-chain route did not launch K5 once per batch")
     check_scores(on, off, score_limit, flip_limit,
                  f"base scores {str(dtype)[6:]}, conv-chain route on vs off on "
@@ -1852,11 +1863,6 @@ def run_cli(snap: Path, scp: Path, resnet_ckpt: Path, out: Path) -> float:
     return time.perf_counter() - t0
 
 
-def reset_counts() -> None:
-    k1.reset_launches()
-    k3.launches = k3.acc_launches = k5.launches = 0
-
-
 def phase_snapshots(card: str, resnet_sd) -> dict:
     """Snapshot directory -> RTTM files through `from_pretrained` and the
     wav.scp CLI with VBx clustering, at full width, for WavLM-Base (the
@@ -1890,10 +1896,9 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
             set_conv_chain(True)
             print(f"base CLI warm-up (loading included): "
                   f"{run_cli(snaps['base'], scp, resnet_ckpt, root / 'warm'):.3f} s")
-            reset_counts()
+            cuda_build.reset_launches()
             seconds = run_cli(snaps["base"], scp, resnet_ckpt, root / "base_rttm")
-            launches = {"k1": k1.launches, "k5": k5.launches, "k3": k3.launches,
-                        "k4": k3.acc_launches}
+            launches = launch_counts("k1", "k5", "k3", "k4")
         finally:
             set_conv_chain(None)
         expected = {"k1": SERVING_FILES * batches * wavlm.num_layers,
@@ -1977,9 +1982,9 @@ def phase_snapshots(card: str, resnet_sd) -> dict:
         # ---- Large-s80-md --------------------------------------------------
         print(f"large_s80_md CLI warm-up (loading included): "
               f"{run_cli(snaps['large_s80_md'], scp, resnet_ckpt, root / 'warm_l'):.3f} s")
-        reset_counts()
+        cuda_build.reset_launches()
         seconds = run_cli(snaps["large_s80_md"], scp, resnet_ckpt, root / "large_rttm")
-        large = {"k1": k1.launches, "k5": k5.launches, "k3": k3.launches, "k4": k3.acc_launches}
+        large = launch_counts("k1", "k5", "k3", "k4")
         pipe = pipelines.from_pretrained(snaps["large_s80_md"], embedding_ckpt=resnet_ckpt)
         wavlm = pipe.eend_cfg.wavlm
         expected = {"k1": SERVING_FILES * batches * sum(wavlm.use_attention), "k5": 0, "k3": 0,
@@ -2152,7 +2157,7 @@ def phase_evaluation(card: str, resnet_sd, flac_jobs) -> dict:
         write_rttm(root / "ref.rttm", reference)
 
         # ---- the recipe CLI, bf16, on the FLAC wav.scp ---------------------
-        reset_counts()
+        cuda_build.reset_launches()
         t0 = time.perf_counter()
         hyps = recipe_infer.main([
             "-C", str(root / "conf.toml"), "--exp_dir", str(root / "exp"),
@@ -2161,7 +2166,7 @@ def phase_evaluation(card: str, resnet_sd, flac_jobs) -> dict:
             "--clustering", "AHC", "--ref_rttm", str(root / "ref.rttm")])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        recipe_k1 = k1.launches
+        recipe_k1 = cuda_build.launch_totals()["k1"]
         batches = -(-sum(seg32.num_chunks(waves[0].shape[1])) // BATCH)
         expected = STREAM_FILES * batches * sum(eend_cfg.wavlm.use_attention)
         check(recipe_k1 == expected, f"recipe: expected {expected} K1 launches, got {recipe_k1}")
@@ -2236,10 +2241,10 @@ def phase_evaluation(card: str, resnet_sd, flac_jobs) -> dict:
               f"whole: scores {tuple(want.shape)}")
         check_scores(got.float(), want, 0.1, 0.01,
                      f"whole over {WHOLE_SECONDS} s (T {WHOLE_FRAMES}), bf16 vs f32 scores")
-        reset_counts()
+        cuda_build.reset_launches()
         hard = seg16.whole(short, 16000)
         torch.cuda.synchronize()
-        whole_k1 = k1.launches
+        whole_k1 = cuda_build.launch_totals()["k1"]
         t0 = time.perf_counter()
         seg16.whole(short, 16000)
         torch.cuda.synchronize()
@@ -2282,22 +2287,22 @@ class LaunchRecorder:
         self.reset()
 
     def reset(self) -> None:
-        k1.reset_launches()
+        cuda_build.reset_launches()
         self.counts = (0, 0, 0)
-        self.instances = dict(k1.instance_launches)
+        self.instances = dict(cuda_build.launches)
         self.last = time.perf_counter()
 
     def __call__(self, metrics) -> None:
         torch.cuda.synchronize()
         now = time.perf_counter()
-        counts = (k1.launches, k1.train_launches, k1.bwd_launches)
-        instances = {n: c - self.instances[n] for n, c in k1.instance_launches.items()
+        counts = tuple(launch_counts("k1", "k1_train", "k2").values())
+        instances = {n: c - self.instances[n] for n, c in cuda_build.launches.items()
                      if c != self.instances[n]}
         self.steps.append({**metrics, "ms": 1e3 * (now - self.last), "instances": instances,
                            **dict(zip(("k1", "k1_train", "k2"),
                                       (a - b for a, b in zip(counts, self.counts))))})
         self.last, self.counts = now, counts
-        self.instances = dict(k1.instance_launches)
+        self.instances = dict(cuda_build.launches)
 
 
 def rate0_trainable_kernels(gen) -> list:
@@ -2310,7 +2315,7 @@ def rate0_trainable_kernels(gen) -> list:
                                                 torch.bfloat16, gen)
     results = []
     for fn in (k1.flash_attention_gated_bias_trainable, k1.flash_attention_gated_bias_reference):
-        k1.reset_launches()
+        cuda_build.reset_launches()
         leaves = [x.clone().requires_grad_() for x in (q, k, v, pos, gate)]
         out = fn(*leaves, dropout_rate=0.0)
         out.backward(do)
@@ -2505,7 +2510,7 @@ def phase_pruning(card: str) -> dict:
         with k1.softmax_mode_scope("f32"):  # as the recipe runs it
             for _ in range(2):
                 step(state, wave)
-            k1.reset_launches()
+            cuda_build.reset_launches()
             phase_profile(f"one distill step {card}", lambda: step(state, wave))
             profiled = launched()
         want = {n: 2 * c for n, c in distill_instances.items()}  # the profiler runs it twice
@@ -2544,10 +2549,10 @@ def phase_pruning(card: str) -> dict:
                 errors["f32"] = hidden_errors(pruned.hidden_states(wave),
                                               teacher.hidden_states(wave, gates=masks))
             gated = teacher.hidden_states(wave, torch.bfloat16, gates=masks)
-            k1.reset_launches()
+            cuda_build.reset_launches()
             got = pruned.hidden_states(wave, torch.bfloat16)
             torch.cuda.synchronize()
-            pruned_launches = k1.launches
+            pruned_launches = cuda_build.launch_totals()["k1"]
             errors["bf16"] = hidden_errors(got, gated)
         attention_layers = sum(cfg.use_attention)
         print(f"pruned model against the gated one with compiled masks, {TRAIN_BATCH} x 8 s: "
@@ -2803,12 +2808,12 @@ def phase_multichannel(card: str, resnet_sd) -> dict:
                 "--embedding_ckpt", str(resnet_ckpt), "--num_channels", str(MC_CHANNELS),
                 "--avg_ckpt_num", str(MC_CHECKPOINTS), "--ref_rttm", str(root / "ref.rttm")]
         mc_infer.main(argv + ["--out_dir", str(root / "warmup")])
-        reset_counts()
+        cuda_build.reset_launches()
         t0 = time.perf_counter()
         hyps = mc_infer.main(argv + ["--out_dir", str(root / "out")])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        serving_k1 = k1.launches
+        serving_k1 = cuda_build.launch_totals()["k1"]
         attention_layers = sum(cfg.wavlm.use_attention)
         batches = -(-n_windows // MC_BATCH)
         summary = json.loads((root / "out" / "der.json").read_text())
@@ -2875,7 +2880,7 @@ def phase_multichannel(card: str, resnet_sd) -> dict:
             mc_train_step(state, batch, 0, torch.bfloat16, k)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            reset_counts()
+            cuda_build.reset_launches()
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
@@ -2884,7 +2889,7 @@ def phase_multichannel(card: str, resnet_sd) -> dict:
                 times.append(1e3 * (time.perf_counter() - t0))
             per_k[k] = {"ms": float(np.median(times)),
                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                        "k1_train": k1.train_launches // 3, "k2": k1.bwd_launches // 3}
+                        **{k: n // 3 for k, n in launch_counts("k1_train", "k2").items()}}
             print(f"MC train step {card} at k {k} ({MC_TRAIN_BATCH * k} streams in layers 0-3): "
                   f"{per_k[k]['ms']:.2f} ms/step (median of 3), peak "
                   f"{per_k[k]['peak_gib']:.3f} GiB, K1 training {per_k[k]['k1_train']} and K2 "
@@ -3022,7 +3027,7 @@ def family_recipe(card: str, root: Path, stem: str, waves, flac_jobs, resnet_ckp
             "--avg_ckpt_num", str(EVAL_CHECKPOINTS), "--embedding_ckpt", str(resnet_ckpt),
             "--ref_rttm", str(root / f"{stem}_ref.rttm")]
     recipe_infer.main(argv + ["--out_dir", str(root / f"{stem}_warmup")])
-    reset_counts()
+    cuda_build.reset_launches()
     t0 = time.perf_counter()
     hyps = recipe_infer.main(argv + ["--out_dir", str(root / f"{stem}_out")])
     torch.cuda.synchronize()
@@ -3035,7 +3040,7 @@ def family_recipe(card: str, root: Path, stem: str, waves, flac_jobs, resnet_ckp
           f"{segments}; DER against the f32 reference {100 * summary['der']:.4f}% (false alarm "
           f"{100 * summary['false_alarm']:.4f}%, miss {100 * summary['missed_detection']:.4f}%, "
           f"confusion {100 * summary['confusion']:.4f}%; limit {100 * DER_LIMIT:.1f}%)")
-    check(k1.launches == k3.launches == k3.acc_launches == k5.launches == 0,
+    check(not any(launch_counts("k1", "k3", "k4", "k5").values()),
           f"{stem} serving launched a WavLM kernel")
     check(summary["der"] <= DER_LIMIT, f"{stem} recipe DER {summary['der']} above {DER_LIMIT}")
     timer = StageTimer()
@@ -3112,11 +3117,10 @@ def phase_sserious(card: str) -> dict:
         with torch.inference_mode():
             model(x, torch.bfloat16)
             torch.cuda.synchronize()
-            reset_counts()
+            cuda_build.reset_launches()
             scores16 = model(x, torch.bfloat16)
             torch.cuda.synchronize()
-            counts = {"k1": k1.launches, "k3": k3.launches, "k4": k3.acc_launches,
-                      "k5": k5.launches}
+            counts = launch_counts("k1", "k3", "k4", "k5")
             times = []
             for _ in range(5):
                 t0 = time.perf_counter()
@@ -3159,7 +3163,7 @@ def phase_sserious(card: str) -> dict:
     batch = {"xs": windows[:, None], "target": target}
     train_step(state, batch, 0, torch.bfloat16)  # warm-up: the optimizer's state
     torch.cuda.synchronize()
-    reset_counts()
+    cuda_build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     times, steps = [], []
     for i in range(3):
@@ -3171,7 +3175,7 @@ def phase_sserious(card: str) -> dict:
     # layer drop (0.05 in WavLM-Base's training) skips a layer now and then:
     # one K1 training launch for each attention layer a step computed
     layers = [st["attention_layers"] for st in steps]
-    launches = {"k1": k1.launches, "k1_train": k1.train_launches, "k2": k1.bwd_launches}
+    launches = launch_counts("k1", "k1_train", "k2")
     print(f"SSeRiouSS train step {card}: {BATCH} x 8 s bf16, {step_ms:.2f} ms/step (median of "
           f"3: {', '.join(f'{t:.1f}' for t in times)}), peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
@@ -3320,10 +3324,10 @@ def phase_hf_import(card: str) -> int:
         with strict_float32():
             want = seeded.hidden_states(x)
             f32_err = hidden_errors(imported.hidden_states(x), want)
-        k1.reset_launches()
+        cuda_build.reset_launches()
         got = imported.hidden_states(x, torch.bfloat16)
         torch.cuda.synchronize()
-        launches = k1.launches
+        launches = cuda_build.launch_totals()["k1"]
         bf16_err = hidden_errors(got, want)
     print(f"HF import {card}: WavLM-Base ({size / 2**20:.1f} MiB of safetensors) converted in "
           f"{seconds:.2f} s; imported against seeded f32 hidden states {f32_err:.3e} (limit "
@@ -3376,11 +3380,11 @@ def phase_schedules(card: str) -> None:
         state = create_train_state(model, make(dict(model.named_parameters())))
         for step in range(total):
             lr = state.optimizer.schedules["all"](state.optimizer.state["count"]["all"])
-            k1.reset_launches()
+            cuda_build.reset_launches()
             t0 = time.perf_counter()
             m = train_step(state, batch, seed=0, compute_dtype=torch.bfloat16)
             ms = 1e3 * (time.perf_counter() - t0)
-            counts = (k1.train_launches, k1.bwd_launches)
+            counts = tuple(launch_counts("k1_train", "k2").values())
             print(f"  {name} step {step} {card}: lr {lr:.6e}, formula {formula(step):.6e}; loss "
                   f"{m['loss']:.5f}, {ms:.1f} ms, K1 training {counts[0]}, K2 {counts[1]}")
             check(abs(lr - formula(step)) <= limit * formula(step), f"{name} lr at step {step}")
@@ -3430,10 +3434,10 @@ def phase_data_parallel(card: str, eend_sd, resnet_sd, eend_cfg, wave) -> dict:
         model = EendModel(cfg)
         model.load_state_dict(train_sd)
         state = create_train_state(model, recipe_optimizer(model))
-        k1.reset_launches()
+        cuda_build.reset_launches()
         m = train_step(state, batch, seed=0, compute_dtype=torch.bfloat16)
         return {"rttm": rttm, "loss": m["loss"], "grad_norm": m["grad_norm"],
-                "k1_train": k1.train_launches, "k2": k1.bwd_launches}
+                **launch_counts("k1_train", "k2")}
 
     alone = run()
     calls = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
@@ -3534,17 +3538,16 @@ def tensor_parallel_rank(rank: int, port: int, work: str) -> int:
     out = {"place": (mesh.data_index, mesh.model_index)}
     with strict_float32():  # as the one-process reference ran
         model = split_model()
-        k1.reset_launches()
+        cuda_build.reset_launches()
         with torch.no_grad():
             out["scores"] = model(torch.from_numpy(batch["xs"]).cuda(), torch.float32).cpu()
-        out["k1_forward"] = k1.launches
+        out["k1_forward"] = cuda_build.launch_totals()["k1"]
         recorder = GradRecorder(model)
-        k1.reset_launches()
+        cuda_build.reset_launches()
         dp.model_reduces = 0
         m = train_step(TrainState(model=model, optimizer=recorder), batch, seed=TP_SEED,
                        compute_dtype=torch.float32)
-        out["f32"] = {**m, "k1_train": k1.train_launches, "k2": k1.bwd_launches,
-                      "reduces": dp.model_reduces}
+        out["f32"] = {**m, **launch_counts("k1_train", "k2"), "reduces": dp.model_reduces}
     grads = gather_state(recorder.recorded, model, mesh)
     if rank == 0:
         out["grads"] = {n: g.cpu() for n, g in grads.items()}
@@ -3555,14 +3558,14 @@ def tensor_parallel_rank(rank: int, port: int, work: str) -> int:
     state = TrainState(model=model, optimizer=recipe_optimizer(model))
     out["bf16"] = []
     for _ in range(2):
-        k1.reset_launches()
+        cuda_build.reset_launches()
         dp.model_reduces = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = train_step(state, batch, seed=TP_SEED, compute_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         out["bf16"].append({**m, "ms": 1e3 * (time.perf_counter() - t0),
-                            "k1_train": k1.train_launches, "k2": k1.bwd_launches,
+                            **launch_counts("k1_train", "k2"),
                             "reduces": dp.model_reduces,
                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
     torch.save(out, Path(work) / f"rank{rank}.pt")
@@ -3879,12 +3882,12 @@ def run_phases(flac_jobs) -> int:
     print(f"pipeline warm-up: {time.perf_counter() - t0:.3f} s")
 
     timer = StageTimer()
-    k1.reset_launches()
+    cuda_build.reset_launches()
     t0 = timer.last = time.perf_counter()
     ann = pipeline(wave, 16000, uri="smoke", hook=timer)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = k1.launches
+    launches = cuda_build.launch_totals()["k1"]
     serving_instances = path_run("single-file serving", launched())
 
     num_chunks = sum(seg.num_chunks(wave.shape[1]))

@@ -169,8 +169,9 @@ class EmbeddingInference(GraphedBatches):
 
     On a CUDA device outside a process group each batch replays a CUDA
     graph captured at its row count (8, 16, 24 or 32 at batch 32), fbank
-    route, compute type and float32 matmul and convolution precision, as
-    the segmentation's batches do (`infer/sliding.py`, `GraphedBatches`):
+    route, compute type and the process state the forward reads
+    (`ops.forward_switches`, the TF32 switches among it), as the
+    segmentation's batches do (`infer/sliding.py`, `GraphedBatches`):
     the per-window fbank, the mean normalisation and the ResNet with its
     pooling and head run inside the graph, reading two static inputs (the
     gathered windows and the batch's weights); the whole-file fbank, the
@@ -233,7 +234,7 @@ class EmbeddingInference(GraphedBatches):
         if not isinstance(weights, torch.Tensor):
             weights = to_device_async(np.asarray(weights), self.device)
         out = torch.zeros((n, self.num_speakers, self.embed_dim), device=self.device)
-        key = self._graph_key(wave, shared)
+        key = self._graph_key(wave, shared, self.compute_dtype)
         stages = [functools.partial(self._forward, shared)]
         replayed = eager = 0
         for off, blen, pad in batch_row_spans(
@@ -263,16 +264,6 @@ class EmbeddingInference(GraphedBatches):
             windows = kaldi_fbank(windows * 32768.0)
         windows = windows - windows.mean(dim=1, keepdim=True)
         return self.model(windows.to(self.compute_dtype), weights)
-
-    def _graph_key(self, wave: torch.Tensor, shared: bool) -> Optional[tuple]:
-        """The key of this call's batch graphs, less the row count; None
-        where the batches run eagerly (`GraphedBatches._graphs_apply`). It
-        holds the float32 precision switches that choose the convolutions'
-        and the fbank's kernels (TF32 or not)."""
-        if not self._graphs_apply(wave):
-            return None
-        return (shared, self.compute_dtype, torch.backends.cudnn.allow_tf32,
-                torch.get_float32_matmul_precision())
 
     def collect(self, dispatched: Optional[torch.Tensor]) -> np.ndarray:
         """The one device-to-host copy of a dispatched result; clustering

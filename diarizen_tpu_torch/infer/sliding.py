@@ -25,8 +25,8 @@ encoder, back end, each a call of the model's forward), with the file's
 timing events recorded between them, outside the graphs. A batch has 8, 16,
 24 or 32 rows at the default `batch_size` (`batch_row_spans`, `tail_size`),
 so an instance holds a few `BatchGraph`s, one per row count, `soft`,
-compute type and the forward's process-wide switches (K1's softmax
-schedule, `set_fused_ln`, `set_conv_chain`), sharing one memory pool. A
+compute type and the process state the forward reads
+(`ops.forward_switches`), sharing one memory pool. A
 key's first batch runs eagerly and is then captured; the graphs are
 dropped when the model's parameters or buffers move or change in place,
 and when an out-of-memory error halves `batch_size` (`halve_batch`). The
@@ -55,8 +55,7 @@ from diarizen_tpu_torch.models.sincnet_eend import (
     SINCNET_STRIDES,
     SincNetEendConfig,
 )
-from diarizen_tpu_torch.models.wavlm import use_conv_chain, use_fused_ln
-from diarizen_tpu_torch.ops import conv_chain, flash_attention, fused_ln
+from diarizen_tpu_torch.ops import cuda_build, forward_switches
 from diarizen_tpu_torch.ops.aggregate import aggregate
 from diarizen_tpu_torch.ops.receptive_field import multi_conv_receptive_field_center
 from diarizen_tpu_torch.parallel.distributed import (
@@ -117,24 +116,14 @@ def state_stamp(model: nn.Module) -> list:
     return stamp
 
 
-def launch_counters() -> list:
-    """(dict, key) of every kernel launch counter a segmentation forward can
-    move: K1's by instance, and K3's, K4's and K5's module globals (a
-    module's `vars()` is its globals)."""
-    k1 = flash_attention.instance_launches
-    return [(k1, name) for name in k1] + [(vars(fused_ln), "launches"),
-                                          (vars(fused_ln), "acc_launches"),
-                                          (vars(conv_chain), "launches")]
-
-
 class BatchGraph:
     """The forward at one batch shape captured as CUDA graphs, one a stage
     of the forward, each reading the last one's static output: `inputs` are
     the first stage's static inputs (its arguments, in order), `outs` the
     stages' static outputs. A capture runs nothing, so the kernel launches
-    it counts (`launch_counters`) are taken back out of the counters and
-    added on every replay instead. Capture a shape only after the forward
-    has run eagerly at it: that run builds the kernels, uploads the
+    it counts (`cuda_build.launches`) are taken back out of the registry
+    and added on every replay instead. Capture a shape only after the
+    forward has run eagerly at it: that run builds the kernels, uploads the
     constants and sets up the libraries' handles."""
 
     __slots__ = ("graphs", "inputs", "outs", "launches")
@@ -142,8 +131,7 @@ class BatchGraph:
     def __init__(self, stages: list, inputs: tuple, pool: tuple):
         self.inputs = tuple(t.clone() for t in inputs)
         self.graphs, self.outs = [], []
-        counters = launch_counters()
-        before = [box[key] for box, key in counters]
+        before = dict(cuda_build.launches)
         try:
             for s, stage in enumerate(stages):
                 graph = torch.cuda.CUDAGraph()
@@ -152,10 +140,9 @@ class BatchGraph:
                 self.graphs.append(graph)
                 self.outs.append(x)  # the next stage's static input
         finally:
-            self.launches = [(box, key, box[key] - n)
-                             for (box, key), n in zip(counters, before) if box[key] != n]
-            for (box, key), n in zip(counters, before):
-                box[key] = n
+            self.launches = {name: n - before[name] for name, n in cuda_build.launches.items()
+                             if n != before[name]}
+            cuda_build.launches.update(before)
 
     def __call__(self, inputs: tuple, events=tracing.NO_EVENTS) -> torch.Tensor:
         """The forward of `inputs` (this graph's shapes): the last stage's
@@ -166,8 +153,8 @@ class BatchGraph:
         for s, graph in enumerate(self.graphs):
             events.mark_batch(s)
             graph.replay()
-        for box, key, n in self.launches:
-            box[key] += n
+        for name, n in self.launches.items():
+            cuda_build.launches[name] += n
         return self.outs[-1]
 
 
@@ -178,9 +165,12 @@ class GraphedBatches:
     then captured. The object's graphs share one memory pool of their own
     and are dropped when a parameter or buffer of its `model` moves or
     changes in place, and when an out-of-memory error halves its
-    `batch_size` (`halve_batch`)."""
+    `batch_size` (`halve_batch`). A key holds the call's own parts, the
+    process state the forward reads (`ops.forward_switches`) and the row
+    count."""
 
     _what = "inference"  # the stage named in `halve_batch`'s error
+    mesh = None  # a mesh's model axis puts collectives inside the forward
 
     def _init_graphs(self) -> None:
         # the captured graphs by key, their memory pool, and the parameters'
@@ -200,6 +190,15 @@ class GraphedBatches:
             self.drop_graphs()
             self._graph_stamp = stamp
         return True
+
+    def _graph_key(self, x: torch.Tensor, *call_parts) -> Optional[tuple]:
+        """The key of this call's batch graphs, less the row count: the
+        caller's `call_parts` and `ops.forward_switches()`. None where the
+        batches run eagerly: off CUDA, in a process group
+        (`_graphs_apply`) and on a mesh."""
+        if self.mesh is not None or not self._graphs_apply(x):
+            return None
+        return call_parts + forward_switches()
 
     def _run_batch(self, key: Optional[tuple], stages: list, inputs: tuple,
                    events=tracing.NO_EVENTS) -> Tuple[torch.Tensor, bool]:
@@ -330,7 +329,7 @@ class SlidingInference(GraphedBatches):
         starts_dev = to_device_async(np.asarray(starts, np.int64), self.device)
         out = torch.zeros((total, self._frames_per_chunk, self.powerset.num_classes),
                           dtype=torch.float32 if soft else torch.uint8, device=self.device)
-        key = self._graph_key(wave, soft)
+        key = self._graph_key(wave, soft, self.compute_dtype)
         stages = self._stages(soft)
         if len(stages) == 1:  # no boundary inside the forward to time
             events = tracing.NO_EVENTS
@@ -373,16 +372,6 @@ class SlidingInference(GraphedBatches):
         def to_multilabel(x):
             return self.powerset.to_multilabel(back_end(x), soft=soft)
         return stages[:-1] + [to_multilabel]
-
-    def _graph_key(self, wave: torch.Tensor, soft: bool) -> Optional[tuple]:
-        """The key of this call's batch graphs, less the row count; None
-        where the forward runs eagerly: off CUDA, and on a mesh or in a
-        process group, where a model axis puts collectives inside the
-        forward."""
-        if self.mesh is not None or not self._graphs_apply(wave):
-            return None
-        return (soft, self.compute_dtype, flash_attention.softmax_mode(), use_fused_ln(),
-                use_conv_chain())
 
     @staticmethod
     def collect(dispatched: Optional[torch.Tensor]) -> Optional[np.ndarray]:

@@ -66,58 +66,30 @@ from diarizen_tpu_torch.models.common import (
     layer_norm,
     linear,
 )
-from diarizen_tpu_torch.ops.conv_chain import (
+from diarizen_tpu_torch.ops.conv_chain import (  # noqa: F401 - the switch, public here too
     ConvChainWeights,
     fused_conv_chain,
     num_output_frames,
     pack_weights,
+    set_conv_chain,
+    use_conv_chain,
 )
 from diarizen_tpu_torch.ops.flash_attention import (
     bias_row_stride,
     flash_attention_gated_bias,
     flash_attention_gated_bias_trainable,
 )
-from diarizen_tpu_torch.ops.fused_ln import residual_ln, residual_ln_acc
+from diarizen_tpu_torch.ops.fused_ln import (  # noqa: F401 - the switch, public here too
+    residual_ln,
+    residual_ln_acc,
+    set_fused_ln,
+    use_fused_ln,
+)
 from diarizen_tpu_torch.parallel.distributed import copy_to_group, reduce_from_group
 from diarizen_tpu_torch.parallel.mesh import Mesh
 from diarizen_tpu_torch.utils import device_constant
 
 FEATURE_GRAD_MULT = 0.1  # GradMultiply on the extractor output in train mode
-
-_FUSED_LN_OVERRIDE: Optional[bool] = None
-
-
-def set_fused_ln(enabled: Optional[bool]) -> None:
-    """Override the fused residual + LayerNorm (+ weighted-sum) toggle; None
-    restores the default, which is off as in the JAX package. When on, the
-    post-norm inference forward runs kernels K3 and K4 (`ops/fused_ln.py`)
-    in place of the residual add, the two LayerNorms and the per-layer
-    `acc + w * x` update."""
-    global _FUSED_LN_OVERRIDE
-    _FUSED_LN_OVERRIDE = enabled
-
-
-def use_fused_ln() -> bool:
-    return _FUSED_LN_OVERRIDE if _FUSED_LN_OVERRIDE is not None else False
-
-
-_CONV_CHAIN_OVERRIDE: Optional[bool] = None
-
-
-def set_conv_chain(enabled: Optional[bool]) -> None:
-    """Override the fused conv-chain toggle; None restores the default, which
-    is off (the JAX package wires its kernel into no path). When on, the
-    inference forward runs the extractor's layers 1-6 through kernel K5
-    (`ops/conv_chain.py`) where the extractor is the one it fits: the
-    default 512-channel stack, "group_norm" mode (no norm after layer 0), no
-    conv bias. Any other extractor keeps the ordinary route."""
-    global _CONV_CHAIN_OVERRIDE
-    _CONV_CHAIN_OVERRIDE = enabled
-
-
-def use_conv_chain() -> bool:
-    return _CONV_CHAIN_OVERRIDE if _CONV_CHAIN_OVERRIDE is not None else False
-
 
 DEFAULT_CONV_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     (512, 10, 5),

@@ -19,8 +19,10 @@ tensor cores (six CUDA launches a call, the intermediates in scratch that
 the wrapper allocates); in float32 the six stages run in one launch on the
 CUDA cores. There is no gradient, as the TPU kernel has none.
 
-`launches` counts calls that ran K5 (one per call, whatever
-`CUDA_LAUNCHES` says the call launched on the card).
+`set_conv_chain` is the process-wide switch that WavLM's inference forward
+reads (`models/wavlm.py`). A call that runs K5 counts one launch in
+`cuda_build`'s registry ("k5"), whatever `CUDA_LAUNCHES` says it launched
+on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, library_path
+from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, count, library_path
 
 SOURCE = CSRC_DIR / "conv_chain.cu"
 LIBRARY = library_path(SOURCE)
@@ -43,9 +45,23 @@ RECEPTIVE_FIELD = 79  # input frames under one output frame
 
 CUDA_LAUNCHES = {torch.bfloat16: 6, torch.float32: 1}  # CUDA launches of one call
 
-launches = 0  # K5 calls on the card since the caller last set it to 0
-
 _lib: Optional[ctypes.CDLL] = None
+_CONV_CHAIN_OVERRIDE: Optional[bool] = None
+
+
+def set_conv_chain(enabled: Optional[bool]) -> None:
+    """Override the fused conv-chain toggle; None restores the default, which
+    is off (the JAX package wires its kernel into no path). When on, the
+    inference forward runs the extractor's layers 1-6 through K5 where the
+    extractor is the one it fits (`models/wavlm.py`): the default 512-channel
+    stack, "group_norm" mode (no norm after layer 0), no conv bias. Any other
+    extractor keeps the ordinary route."""
+    global _CONV_CHAIN_OVERRIDE
+    _CONV_CHAIN_OVERRIDE = enabled
+
+
+def use_conv_chain() -> bool:
+    return _CONV_CHAIN_OVERRIDE if _CONV_CHAIN_OVERRIDE is not None else False
 
 
 def build() -> str:
@@ -169,7 +185,6 @@ def fused_conv_chain(x1: torch.Tensor,
     with T1 >= 64 (t_out - 1) + 79 (nothing is padded or copied); anything
     else raises, as does a failed build or launch. A CPU tensor goes to the
     plain version. No gradient: a tensor that requires grad raises."""
-    global launches
     if x1.dim() != 3 or x1.shape[-1] != C:
         raise ValueError(f"x1 must be (B, T1, {C}), got {tuple(x1.shape)}")
     if x1.dtype not in (torch.float32, torch.bfloat16):
@@ -210,7 +225,7 @@ def fused_conv_chain(x1: torch.Tensor,
                                     t1, t_out, span, stream)
             if rc != 0:
                 raise RuntimeError(f"conv_chain_f32 launch failed: CUDA error {rc}")
-    launches += 1
+    count("k5")
     return out
 
 

@@ -48,12 +48,8 @@ one only when handed anything else.
 
 The kernels are compiled with nvcc into `build/diarizen_tpu_torch/` at first
 use and bound through ctypes (a plain C interface; the 32 instances take
-under a minute). The counters count kernel launches, so a run can show that a path
-went through the kernels: `instance_launches` by instance (`INSTANCES`; K2
-one count per backward, which runs pass A, the sum of its partial
-d pos_bias slices, and pass B), `reset_launches()` sets them to 0, and
-`launches` (K1's inference instances), `train_launches` (its training
-instance, log-sum-exp output) and `bwd_launches` (K2) read their sums.
+under a minute). Each launch is counted by instance in `cuda_build`'s
+registry (`KERNEL_INSTANCES` "k1", "k1_train" and "k2").
 `pass_a_chunks` is the plan that splits K2's pass A across the batch.
 """
 
@@ -62,35 +58,15 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, library_path
+from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, count, library_path
 
 SOURCE = CSRC_DIR / "gated_bias_attention.cu"
 LIBRARY = library_path(SOURCE)
-
-# K1 inference by schedule (at a rate above 0 only "fwd_f32", K1's f32
-# instance with the mask and without lse), K1 training at a rate above 0 and
-# at 0, K2 at a rate above 0 and at 0
-INSTANCES = ("fwd_f32", "fwd_deferred", "fwd_bf16", "train", "train_rate0", "bwd", "bwd_rate0")
-instance_launches: Dict[str, int] = dict.fromkeys(INSTANCES, 0)
-_COUNTER_SUMS = {"launches": INSTANCES[:3], "train_launches": INSTANCES[3:5],
-                 "bwd_launches": INSTANCES[5:]}
-
-
-def reset_launches() -> None:
-    """Every launch counter of this module to 0."""
-    instance_launches.update(dict.fromkeys(INSTANCES, 0))
-
-
-def __getattr__(name: str) -> int:
-    """`launches`, `train_launches`, `bwd_launches`: sums of `instance_launches`."""
-    if name in _COUNTER_SUMS:
-        return sum(instance_launches[n] for n in _COUNTER_SUMS[name])
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +409,7 @@ def _forward(q, k, v, pos_bias, gate, mode: str, rate: float, seed: int, lse: bo
             int(rate > 0.0), int(seed) & _U32, threshold, keep, _stream(q))
     if rc != 0:
         raise RuntimeError(f"gated_bias_attention_fwd launch failed: CUDA error {rc}")
-    instance_launches[("train" if rate > 0.0 else "train_rate0") if lse else f"fwd_{mode}"] += 1
+    count(("train" if rate > 0.0 else "train_rate0") if lse else f"fwd_{mode}")
     return out, row_lse
 
 
@@ -589,7 +565,7 @@ def _backward(q, k, v, pos_bias, gate, out, lse, dout, rate: float, seed: int):
                                                   rate, seed)
         dbias = _dbias_sum(part, t)
         dk, dv = _bwd_pass_b(q, k, v, pos_bias, gate, lse, rows, bits, dout, rate, seed)
-    instance_launches["bwd" if rate > 0.0 else "bwd_rate0"] += 1
+    count("bwd" if rate > 0.0 else "bwd_rate0")
     return dq, dk, dv, dbias, dgate
 
 

@@ -21,7 +21,9 @@ and writes y (and acc) once, where the unfused route makes several passes.
 The backward is plain PyTorch math (`_ln_bwd_math`), as the JAX package's
 custom VJP is plain XLA math: it backs eval-mode gradients only.
 
-`launches` counts K3's launches and `acc_launches` K4's.
+`set_fused_ln` is the process-wide switch that WavLM's post-norm inference
+forward reads (`models/wavlm.py`). Each launch is counted in `cuda_build`'s
+registry ("k3", "k4").
 """
 
 from __future__ import annotations
@@ -31,16 +33,27 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, library_path
+from diarizen_tpu_torch.ops.cuda_build import CSRC_DIR, build_library, count, library_path
 
 SOURCE = CSRC_DIR / "residual_layer_norm.cu"
 LIBRARY = library_path(SOURCE)
 MAX_DIM = 1024  # the kernels keep a row in registers: 4 chunks of 8 per lane
 
-launches = 0  # K3 launches since the caller last set it to 0
-acc_launches = 0  # K4 launches
-
 _lib: Optional[ctypes.CDLL] = None
+_FUSED_LN_OVERRIDE: Optional[bool] = None
+
+
+def set_fused_ln(enabled: Optional[bool]) -> None:
+    """Override the fused residual + LayerNorm (+ weighted-sum) toggle; None
+    restores the default, which is off as in the JAX package. When on, the
+    post-norm inference forward runs K3 and K4 in place of the residual add,
+    the two LayerNorms and the per-layer `acc + w * x` update."""
+    global _FUSED_LN_OVERRIDE
+    _FUSED_LN_OVERRIDE = enabled
+
+
+def use_fused_ln() -> bool:
+    return _FUSED_LN_OVERRIDE if _FUSED_LN_OVERRIDE is not None else False
 
 
 def build() -> str:
@@ -150,7 +163,6 @@ def _stream(x: torch.Tensor) -> int:
 
 def _forward(a, b, gamma, beta, eps: float) -> torch.Tensor:
     """K3 for CUDA tensors (launches or raises), the plain version on the CPU."""
-    global launches
     _check(a, b, gamma, beta)
     if a.device.type == "cpu":
         return residual_ln_plain(a, b, gamma, beta, eps)
@@ -166,14 +178,13 @@ def _forward(a, b, gamma, beta, eps: float) -> torch.Tensor:
             a.numel() // d, d, float(eps), int(a.dtype == torch.bfloat16), _stream(a))
     if rc != 0:
         raise RuntimeError(f"residual_layer_norm launch failed: CUDA error {rc}")
-    launches += 1
+    count("k3")
     return y
 
 
 def _forward_acc(a, b, gamma, beta, w, acc, eps: float) -> torch.Tensor:
     """K4 for CUDA tensors (launches or raises), the plain version on the
     CPU; returns y, `acc` is updated in place."""
-    global acc_launches
     _check(a, b, gamma, beta, acc, w)
     if a.device.type == "cpu":
         return residual_ln_acc_plain(a, b, gamma, beta, w, acc, eps)[0]
@@ -190,7 +201,7 @@ def _forward_acc(a, b, gamma, beta, w, acc, eps: float) -> torch.Tensor:
             int(a.dtype == torch.bfloat16), _stream(a))
     if rc != 0:
         raise RuntimeError(f"residual_layer_norm_acc launch failed: CUDA error {rc}")
-    acc_launches += 1
+    count("k4")
     return y
 
 

@@ -25,6 +25,7 @@ from diarizen_tpu_torch.models.wavlm import (
     use_conv_chain,
 )
 from diarizen_tpu_torch.ops import conv_chain as k5
+from diarizen_tpu_torch.ops import cuda_build
 
 # float32 on both sides, sums in another order: the JAX kernel's own test limits
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -55,9 +56,9 @@ def test_wrapper_matches_interpreted_pallas_kernel(b, t_out):
     x1, weights = _inputs(b, t_out, seed=1)
     expected = np.asarray(jax_fused_conv_chain(
         jnp.asarray(x1), [jnp.asarray(w) for w in weights], t_out, interpret=True))
-    before = k5.launches
+    before = dict(cuda_build.launches)
     got = k5.fused_conv_chain(torch.from_numpy(x1), [torch.from_numpy(w) for w in weights], t_out)
-    assert k5.launches == before  # a CPU tensor takes the plain version: no launch
+    assert cuda_build.launches == before  # a CPU tensor takes the plain version: no launch
     np.testing.assert_allclose(got.numpy(), expected, **TOL)
 
 

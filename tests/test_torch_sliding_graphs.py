@@ -1,11 +1,13 @@
 """The segmentation's CUDA-graph batches (`diarizen_tpu_torch/infer/sliding.py`).
 
 On the CPU: the batch shapes are a bounded set, the graph path never
-engages, and a file's record counts every batch. On a card (the tests named
-`test_card_*` skip without one): graph replay against the eager forward bit
-for bit at every row count, graphs reused across files, captured again
-after a switch flips or a parameter changes, and K1's launch counters the
-same either way (K3, K4 and K5 too); a pre-LN model with WavLM-Large's
+engages, a file's record counts every batch, every process switch a forward
+reads is in both inference classes' graph key, and a capture's launch counts
+move to its replays. On a card (the tests named `test_card_*` skip without
+one): graph replay against the eager forward bit for bit at every row
+count, graphs reused across files, captured again after a switch flips
+(TF32 too) or a parameter changes, and the launch registry's counts of K1,
+K3, K4 and K5 the same either way; a pre-LN model with WavLM-Large's
 extractor (a LayerNorm after every conv, the waveform normalised) in its
 three stage graphs, with the file's stage events read. This file imports
 nothing of JAX, so on the machine with the card it runs without the suite's
@@ -13,6 +15,8 @@ conftest:
 
     python -m pytest --noconftest -q tests/test_torch_sliding_graphs.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -22,6 +26,8 @@ from diarizen_tpu_torch import tracing
 from diarizen_tpu_torch.cluster import AgglomerativeClustering
 from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
 from diarizen_tpu_torch.infer.sliding import (
+    BatchGraph,
+    GraphedBatches,
     batch_row_spans,
     gather_rows,
     state_stamp,
@@ -33,8 +39,15 @@ from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank_eend import FbankEendConfig, FbankEendModel
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
 from diarizen_tpu_torch.models.sincnet_eend import SincNetEendConfig, SincNetEendModel
-from diarizen_tpu_torch.models.wavlm import WavLMConfig, set_conv_chain, set_fused_ln
-from diarizen_tpu_torch.ops import conv_chain, flash_attention, fused_ln
+from diarizen_tpu_torch.models.wavlm import (
+    WavLMConfig,
+    set_conv_chain,
+    set_fused_ln,
+    use_conv_chain,
+    use_fused_ln,
+)
+from diarizen_tpu_torch.ops import cuda_build
+from diarizen_tpu_torch.ops.flash_attention import set_softmax_mode, softmax_mode
 
 SR = 16000
 
@@ -152,6 +165,14 @@ def cpu_seg():
     return SlidingInference(tiny_eend(), batch_size=8, compute_dtype=torch.float32, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def cpu_emb(cpu_seg):
+    resnet = ResNet(ResNetConfig(m_channels=8, num_blocks=(1, 1, 1, 1), embed_dim=32))
+    resnet.load_state_dict(random_state_dict(resnet, 1))
+    return EmbeddingInference(resnet.eval(), cpu_seg.window_size, num_speakers=4, batch_size=8,
+                              device="cpu")
+
+
 @pytest.mark.parametrize("soft", [False, True])
 def test_cpu_runs_every_batch_eagerly(cpu_seg, soft):
     wave, starts = cpu_seg.prepare_wave(make_wave(30.3))
@@ -210,14 +231,10 @@ def test_halve_batch_drops_the_graphs(cpu_seg):
 
 
 @pytest.mark.parametrize("fused", [True, False])
-def test_records_count_every_batch(cpu_seg, fused):
+def test_records_count_every_batch(cpu_seg, cpu_emb, fused):
     """A streamed file's two counters sum to its segmentation batches, on
     the device-stitch route and on the host route."""
-    resnet = ResNet(ResNetConfig(m_channels=8, num_blocks=(1, 1, 1, 1), embed_dim=32))
-    resnet.load_state_dict(random_state_dict(resnet, 1))
-    emb = EmbeddingInference(resnet.eval(), cpu_seg.window_size, num_speakers=4, batch_size=8,
-                             device="cpu")
-    pipe = DiarizationPipeline(cpu_seg, emb, AgglomerativeClustering(), cpu_seg.cfg,
+    pipe = DiarizationPipeline(cpu_seg, cpu_emb, AgglomerativeClustering(), cpu_seg.cfg,
                                max_speakers=4, fused_stitch=fused)
     waves = [make_wave(12.5), make_wave(9.2, seed=1), make_wave(30.3, seed=2)]
     assert len(list(pipe.stream(iter(waves), SR))) == 3
@@ -227,6 +244,81 @@ def test_records_count_every_batch(cpu_seg, fused):
         total = len(cpu_seg.prepare_wave(w)[1])
         assert r.seg_graph_batches == 0
         assert r.seg_eager_batches == num_batches(total, cpu_seg.batch_size)
+
+
+def set_cudnn_tf32(enabled: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = enabled
+
+
+# each process switch a forward reads (`ops.forward_switches`): how to read
+# it, how to set it, and another value than a given one
+SWITCHES = {
+    "softmax_mode": (softmax_mode, set_softmax_mode, lambda v: "bf16" if v == "f32" else "f32"),
+    "fused_ln": (use_fused_ln, set_fused_ln, lambda v: not v),
+    "conv_chain": (use_conv_chain, set_conv_chain, lambda v: not v),
+    "cudnn_tf32": (lambda: torch.backends.cudnn.allow_tf32, set_cudnn_tf32, lambda v: not v),
+    "matmul_precision": (torch.get_float32_matmul_precision, torch.set_float32_matmul_precision,
+                         lambda v: "high" if v == "highest" else "highest"),
+}
+
+
+@pytest.mark.parametrize("switch", list(SWITCHES))
+def test_every_switch_the_forward_reads_keys_both_graphs(cpu_seg, cpu_emb, switch, monkeypatch):
+    """Flipping a process switch that a forward reads gives the batches of
+    the segmentation and of the embeddings another graph key, and restoring
+    it restores the keys: no graph replays under a switch it was not
+    captured under."""
+    monkeypatch.setattr(GraphedBatches, "_graphs_apply", lambda self, x: True)
+    wave = torch.zeros(8)
+
+    def keys():
+        return (cpu_seg._graph_key(wave, False, cpu_seg.compute_dtype),
+                cpu_emb._graph_key(wave, True, cpu_emb.compute_dtype))
+
+    read, write, other = SWITCHES[switch]
+    before, original = keys(), read()
+    assert None not in before
+    write(other(original))
+    try:
+        flipped = keys()
+    finally:
+        write(original)
+    assert flipped[0] != before[0] and flipped[1] != before[1]
+    assert keys() == before
+
+
+def test_a_capture_moves_its_launch_counts_to_the_replays(monkeypatch):
+    """A capture runs nothing on the card, so the launches its stages count
+    in the registry are taken back out, and each replay adds them, whichever
+    kernels they are; counts from before the capture stay."""
+    class Graph:  # records no kernel: only the bookkeeping around it runs
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph, pool=None: contextlib.nullcontext())
+
+    def extractor(x):
+        cuda_build.count("fwd_deferred")
+        cuda_build.count("k3")
+        cuda_build.count("k3")
+        return x + 1
+
+    def back_end(x):
+        cuda_build.count("k5")
+        return 2 * x
+
+    cuda_build.reset_launches()
+    cuda_build.count("k4")
+    before = dict(cuda_build.launches)
+    graph = BatchGraph([extractor, back_end], (torch.zeros(2),), pool=None)
+    assert cuda_build.launches == before
+    assert graph.launches == {"fwd_deferred": 1, "k3": 2, "k5": 1}
+    for replays in (1, 2):
+        assert torch.equal(graph((torch.ones(2),)), torch.full((2,), 2.0))
+        assert cuda_build.launch_totals() == {"k1": replays, "k1_train": 0, "k2": 0,
+                                              "k3": 2 * replays, "k4": 1, "k5": replays}
+    cuda_build.reset_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -347,36 +439,25 @@ def test_card_staged_graphs_of_a_pre_ln_model(card, soft):
     assert all(len(g.graphs) == 3 for g in seg._graphs.values())
 
 
-def launch_counts() -> dict:
-    """K1's launches by instance, K3's, K4's and K5's."""
-    return {**flash_attention.instance_launches, "k3": fused_ln.launches,
-            "k4": fused_ln.acc_launches, "k5": conv_chain.launches}
-
-
-def reset_counts() -> None:
-    flash_attention.reset_launches()
-    fused_ln.launches = fused_ln.acc_launches = conv_chain.launches = 0
-
-
 @pytest.mark.parametrize("fused", [False, True])
 def test_card_launch_counters_count_alike(card_seg, fused):
-    """Eager, captured and replayed batches count the same launches: K1's,
-    and with the fused-LN route K3's and K4's."""
+    """Eager, captured and replayed batches count the same launches in the
+    registry: K1's, and with the fused-LN route K3's and K4's."""
     seg = card_seg
     wave, starts = on_card(seconds_for(60), seg)
     set_fused_ln(fused)
     try:
-        reset_counts()
+        cuda_build.reset_launches()
         eager(seg, wave, starts)
-        want = launch_counts()
+        want = dict(cuda_build.launches)
         batches = num_batches(60, 32)
         assert want["fwd_deferred"] == 2 * batches  # two attention layers a batch
         assert (want["k3"], want["k4"]) == ((2 * batches, 2 * batches) if fused else (0, 0))
         seg.drop_graphs()
         for what in ("eager passes and captures", "replays"):
-            reset_counts()
+            cuda_build.reset_launches()
             counted(seg, wave, starts)
-            assert launch_counts() == want, what
+            assert cuda_build.launches == want, what
     finally:
         set_fused_ln(None)
 
@@ -399,13 +480,13 @@ def test_card_conv_chain_replays_alike(card):
     wave, starts = seg.prepare_wave(make_wave(seconds_for(44)))
     set_conv_chain(True)
     try:
-        reset_counts()
+        cuda_build.reset_launches()
         want = eager(seg, wave, starts)
-        assert conv_chain.launches == num_batches(44, 32)
+        assert cuda_build.launches["k5"] == num_batches(44, 32)
         for what in ("eager passes and captures", "replays"):
-            reset_counts()
+            cuda_build.reset_launches()
             out, record = counted(seg, wave, starts)
-            assert conv_chain.launches == num_batches(44, 32), what
+            assert cuda_build.launches["k5"] == num_batches(44, 32), what
             assert torch.equal(out, want), what
         assert record.seg_eager_batches == 0
     finally:
@@ -422,7 +503,10 @@ def family_models():
 
 @pytest.mark.parametrize("family", ["sincnet", "fbank"])
 def test_card_other_families_replay_alike(card, family):
-    """SincNet (cuDNN's LSTM) and the fbank EEND capture and replay too."""
+    """SincNet (cuDNN's LSTM) and the fbank EEND capture and replay too, in
+    float32; with cuDNN's TF32 switch flipped between two files the next
+    file's batches are captured afresh, not replayed with the kernels that
+    the old setting chose."""
     model = family_models()[family]
     model.load_state_dict(random_state_dict(model, 4))
     seg = SlidingInference(model.eval(), batch_size=32, compute_dtype=torch.float32, device=card)
@@ -432,3 +516,16 @@ def test_card_other_families_replay_alike(card, family):
     out, record = counted(seg, wave, starts)
     assert record.seg_eager_batches == 0 and record.seg_graph_batches >= 1
     assert torch.equal(out, want)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = not tf32
+    try:
+        graphs = dict(seg._graphs)
+        wave, starts = seg.prepare_wave(make_wave(60.0, seed=1))
+        want = eager(seg, wave, starts)
+        out, record = counted(seg, wave, starts)
+        assert record.seg_eager_batches >= 1 and len(seg._graphs) > len(graphs)
+        assert torch.equal(out, want)
+        out, record = counted(seg, wave, starts)
+        assert record.seg_eager_batches == 0 and torch.equal(out, want)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
