@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero, before the last line is printed):
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build kernels K1 and K2 (csrc/gated_bias_attention.cu), K3 and K4
-     (csrc/residual_layer_norm.cu) and K5 (csrc/conv_chain.cu) with nvcc, the
-     three sources side by side;
+     (csrc/residual_layer_norm.cu), K5 (csrc/conv_chain.cu) and the ResNet
+     stem (csrc/resnet_stem.cu) with nvcc, the four sources side by side;
   3. K1 against its plain PyTorch version on the card at the serving path's
      shapes, with CUDA-event timings of the kernel, the plain version and
      one PyTorch call computing the same function (yardstick only): the 10
@@ -31,9 +31,19 @@ Phases (any failure exits non-zero, before the last line is printed):
      beside the deferred schedule's with the log-sum-exp;
   5. serving: DiariZen-Base-s80 EEND and the WeSpeaker ResNet34 at full
      width with seeded random weights; the card's output checked against
-     the CPU's on two windows; then a 120 s synthetic two-speaker file
-     through DiarizationPipeline once to warm up and once timed, counting
-     K1's launches over the timed call;
+     the CPU's on two windows; the ResNet34 at 32 rows x 8 s with its
+     BatchNorms folded, channels-last and one fused epilogue a convolution
+     (`phase_resnet`): the stem's kernel against its plain version,
+     the forward against the same folds through the plain versions and
+     against the unfolded channels-first formula, the registry's counts of
+     one forward, the forward timed as a CUDA graph beside its bound and
+     beside the unfolded formula's, the stem timed beside its bound, its
+     plain version and cuDNN's fused convolution, and the kernels of one
+     replay, with no cuDNN layout transpose among them; then a 120 s
+     synthetic two-speaker file through DiarizationPipeline once to warm up
+     and once timed, counting K1's launches, the ResNet34's fused
+     convolutions (36 an embedding batch) and its folds (none after the
+     warm-up) over the timed call;
   6. one more pipeline call under torch.profiler: device time by kernel and
      the device's busy share;
   7. training: one float32 train step of a narrow model on the card against
@@ -183,7 +193,7 @@ from scipy.optimize import linear_sum_assignment
 
 from diarizen_tpu_torch.cluster import AgglomerativeClustering
 from diarizen_tpu_torch import config as port_config
-from diarizen_tpu_torch import pipelines
+from diarizen_tpu_torch import pipelines, tracing
 from diarizen_tpu_torch.core.audio import read_audio, write_wav
 from diarizen_tpu_torch.core.io_rttm import load_rttm, write_rttm
 from diarizen_tpu_torch.infer import (
@@ -210,6 +220,7 @@ from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.fbank import wespeaker_fbank
 from diarizen_tpu_torch.models.fbank_eend import FbankEendModel
 from diarizen_tpu_torch.models.mc import McEendModel
+from diarizen_tpu_torch.models import resnet as resnet_module
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
 from diarizen_tpu_torch.models.sincnet_eend import SincNetEendModel
 from diarizen_tpu_torch.models.sserious import SSeRiouSSConfig, SSeRiouSSModel
@@ -224,6 +235,7 @@ from diarizen_tpu_torch.ops import conv_chain as k5
 from diarizen_tpu_torch.ops import cuda_build
 from diarizen_tpu_torch.ops import flash_attention as k1
 from diarizen_tpu_torch.ops import fused_ln as k3
+from diarizen_tpu_torch.ops import resnet_stem
 from diarizen_tpu_torch.ops.binarize import binarize_hysteresis
 from diarizen_tpu_torch.ops.der import der_report
 from diarizen_tpu_torch.prune import (
@@ -1310,6 +1322,145 @@ def phase_reference(eend_sd, resnet_sd, eend_cfg, wave) -> None:
     print(f"ResNet34 f32 card vs CPU: embeddings {tuple(embs['cuda'].shape)}, max abs err {err:.3e}")
     check(bool(torch.isfinite(embs["cuda"]).all()) and err <= 1e-3,
           f"embeddings on the card disagree with the CPU: {err}")
+
+
+def unfolded_resnet(model: ResNet, fbank: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The ResNet34 as the port ran it before its BatchNorms were folded:
+    channels first, each convolution then its BatchNorm's scale and
+    shift computed from the running statistics, the ReLUs and residual adds
+    on their own. `phase_resnet`'s yardstick."""
+    def conv(c, x):
+        return F.conv2d(x, c.weight, stride=c.stride, padding=c.padding)
+
+    def bn(b, x):
+        inv = torch.rsqrt(b.running_var + b.eps)
+        return (x * (b.weight * inv)[:, None, None]
+                + (b.bias - b.running_mean * b.weight * inv)[:, None, None])
+
+    x = torch.relu(bn(model.bn1, conv(model.conv1, fbank.transpose(1, 2)[:, None])))
+    for block in model.blocks():
+        out = torch.relu(bn(block.bn1, conv(block.conv1, x)))
+        out = bn(block.bn2, conv(block.conv2, out))
+        sc = bn(block.shortcut[1], conv(block.shortcut[0], x)) if len(block.shortcut) else x
+        x = torch.relu(out + sc)
+    b, c, h, w = x.shape
+    stats = resnet_module.stats_pool(x.reshape(b, c * h, w), weights)
+    return F.linear(stats, model.seg_1.weight, model.seg_1.bias)
+
+
+def graphed(run):
+    """`run` captured as a CUDA graph after three eager calls on a side
+    stream: the replay, as the serving path runs the ResNet."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return graph.replay
+
+
+RESNET_ROWS, RESNET_FRAMES = 32, 798  # a batch of 8 s windows' fbank frames
+
+
+def phase_resnet(resnet_sd) -> dict:
+    """The ResNet34 at 32 rows x 8 s with its BatchNorms folded, channels-last,
+    each convolution's bias, residual and ReLU in its epilogue: the stem's
+    kernel against its plain version (float32 without TF32, bfloat16), the
+    forward against the same folds through the plain versions and against
+    the unfolded channels-first formula (TF32, as served), the launch
+    registry's counts, the forward's time as a CUDA graph beside its bound
+    and beside the unfolded formula's, the stem's beside its bound, its
+    plain version and cuDNN's fused convolution, and the kernels of one
+    replay: no cuDNN layout transpose among them. Returns the stem's row
+    of the kernels line."""
+    from portbench.flops import resnet_flops
+
+    model = ResNet(ResNetConfig())
+    model.load_state_dict(resnet_sd)
+    model = model.cuda().eval()
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(0)
+    fbank = torch.randn((RESNET_ROWS, RESNET_FRAMES, cfg.feat_dim), generator=gen).cuda()
+    fbank = fbank - fbank.mean(dim=1, keepdim=True)
+    t_out = cfg.num_frames(160 * (RESNET_FRAMES - 1) + 400)
+    weights = (torch.rand((RESNET_ROWS, 4, t_out), generator=gen) < 0.4).float().cuda()
+    with torch.inference_mode():
+        stem = model.folded(torch.float32)[0]
+        for dtype, limit in ((torch.float32, 1e-6), (torch.bfloat16, 2.0**-8)):
+            folded = model.folded(dtype)[0]
+            x = fbank.to(dtype)
+            with strict_float32():
+                want = resnet_stem.stem_conv_reference(x, folded.weight, folded.bias).float()
+            got = resnet_stem.stem_conv(x, folded.weight, folded.bias).float()
+            err = worst_error(got, want)
+            print(f"ResNet stem kernel vs plain version, {dtype}: worst error {err:.3e} "
+                  f"of the largest magnitude")
+            check(err <= limit, f"the stem kernel disagrees with its plain version in {dtype}")
+
+        fused = model(fbank, weights)
+        saved = resnet_module.stem_conv, resnet_module.folded_conv
+        resnet_module.stem_conv = resnet_stem.stem_conv_reference
+        resnet_module.folded_conv = resnet_module.folded_conv_reference
+        try:
+            plain = model(fbank, weights)
+        finally:
+            resnet_module.stem_conv, resnet_module.folded_conv = saved
+        unfolded = unfolded_resnet(model, fbank, weights)
+        with strict_float32():
+            reference = unfolded_resnet(model, fbank, weights)
+        rel = {name: ((out - reference).norm() / reference.norm()).item()
+               for name, out in (("fused", fused), ("plain", plain), ("unfolded", unfolded))}
+        fused_vs_plain = ((fused - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
+        print(f"ResNet34 32 x 8 s, TF32: error against the float32 unfolded formula "
+              f"{rel}; fused against plain versions, worst row {fused_vs_plain:.3e}")
+        check(fused_vs_plain <= 1e-3, "the fused ResNet path disagrees with its plain versions")
+        check(rel["fused"] <= 3e-3, "the fused ResNet path disagrees with the float32 formula")
+
+        cuda_build.reset_launches()
+        model(fbank, weights)
+        counts = {n: cuda_build.launches[n] for n in ("resnet_stem", "resnet_conv", "resnet_fold")}
+        print(f"ResNet34 forward launches: {counts}")
+        check(counts == {"resnet_stem": 1, "resnet_conv": 35, "resnet_fold": 0},
+              f"expected 1 stem, 35 fused convolutions and no fold: {counts}")
+
+        arch = {"resnet": {"m_channels": cfg.m_channels, "feat_dim": cfg.feat_dim,
+                           "num_blocks": list(cfg.num_blocks), "embed_dim": cfg.embed_dim}}
+        bound = resnet_flops(arch, RESNET_FRAMES, 4) * RESNET_ROWS / 495e12 * 1e3
+        new_ms = median_ms(graphed(lambda: model(fbank, weights)))
+        old_ms = median_ms(graphed(lambda: unfolded_resnet(model, fbank, weights)))
+        print(f"ResNet34 forward at 32 x 8 s as a CUDA graph: folded channels-last "
+              f"{new_ms:.4f} ms, unfolded channels-first {old_ms:.4f} ms, bound {bound:.4f} ms "
+              f"(TF32 at 495 TFLOP/s)")
+
+        stem_ms = median_ms(lambda: resnet_stem.stem_conv(fbank, stem.weight, stem.bias))
+        plain_ms = median_ms(lambda: resnet_stem.stem_conv_reference(fbank, stem.weight, stem.bias))
+        library_ms = median_ms(lambda: torch.cudnn_convolution_relu(
+            fbank.transpose(1, 2)[:, None].contiguous(memory_format=torch.channels_last),
+            stem.weight, stem.bias, (1, 1), (1, 1), (1, 1), 1))
+        out_bytes = RESNET_ROWS * cfg.m_channels * cfg.feat_dim * RESNET_FRAMES * 4
+        stem_bound = (out_bytes + fbank.numel() * 4) / 3.35e12 * 1e3
+        print(f"ResNet stem at 32 x 8 s, float32: kernel {stem_ms:.4f} ms, bound {stem_bound:.4f} "
+              f"ms (bytes), plain version {plain_ms:.4f} ms, cuDNN's fused convolution on the "
+              f"channels-last image {library_ms:.4f} ms")
+
+        replay = graphed(lambda: model(fbank, weights))
+        events = profiled_events(replay)
+        rows = kernel_rows(events)
+        print(f"kernels of one ResNet34 replay: {sum(n for _, n, _ in rows)} launches, "
+              f"{sum(ms for ms, _, _ in rows):.4f} ms")
+        for ms, n, name in rows[:12]:
+            print(f"  {ms:9.4f} ms  x{n:<4d} {name[:110]}")
+        transposes = [name for _, _, name in rows if "nchwToNhwc" in name or "nhwcToNchw" in name]
+        check(not transposes, f"cuDNN transposed a layout in the ResNet34: {transposes}")
+    return {"name": "resnet_stem", "route": "cuda",
+            "source": "diarizen_tpu_torch/csrc/resnet_stem.cu", "replaces": None,
+            "ms": stem_ms, "bound_ms": stem_bound, "plain_ms": plain_ms,
+            "library_ms": library_ms, "resnet34_ms": new_ms, "unfolded_resnet34_ms": old_ms,
+            "resnet34_bound_ms": bound}
 
 
 def phase_profile(what: str, run, top: int = 15) -> float:
@@ -3843,10 +3994,10 @@ def run_phases(flac_jobs) -> int:
     print(f"device: {name}; nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source, side by side
+    with ThreadPoolExecutor(max_workers=4) as pool:  # one nvcc per source, side by side
         reports = [f.result() for f in [pool.submit(k1.build), pool.submit(k3.build),
-                                        pool.submit(k5.build)]]
-    print(f"K1 + K2, K3 + K4 and K5 build: {time.perf_counter() - t0:.1f} s")
+                                        pool.submit(k5.build), pool.submit(resnet_stem.build)]]
+    print(f"K1 + K2, K3 + K4, K5 and the ResNet stem build: {time.perf_counter() - t0:.1f} s")
     serialised = print_ptxas("\n".join(reports))
     k2_serialised = [line for line in serialised if "attention_bwd" in line]
     print(f"ptxas: {len(serialised)} wgmma serialisation lines, {len(k2_serialised)} of them K2's")
@@ -3864,6 +4015,8 @@ def run_phases(flac_jobs) -> int:
         schedules = phase_softmax_schedules()
         phase_reference(eend_sd, resnet_sd, eend_cfg, wave)
     elapsed("K1, K2 and the card-against-CPU reference")
+    resnet_row = phase_resnet(resnet_sd)
+    elapsed("ResNet34")
 
     model = EendModel(eend_cfg)
     model.load_state_dict(eend_sd)
@@ -3889,6 +4042,15 @@ def run_phases(flac_jobs) -> int:
     seconds = time.perf_counter() - t0
     launches = cuda_build.launch_totals()["k1"]
     serving_instances = path_run("single-file serving", launched())
+    record = tracing.records()[-1]
+    emb_batches = record.emb_graph_batches + record.emb_eager_batches
+    resnet_counts = launch_counts("resnet_conv", "resnet_fold")
+    print(f"ResNet34 in the timed call: {resnet_counts['resnet_conv']} fused convolutions over "
+          f"{emb_batches} embedding batches ({record.emb_eager_batches} eager), "
+          f"{resnet_counts['resnet_fold']} folds")
+    check(emb_batches > 0 and record.emb_eager_batches == 0
+          and resnet_counts == {"resnet_conv": 36 * emb_batches, "resnet_fold": 0},
+          f"expected 36 fused convolutions a replayed batch and no fold: {resnet_counts}")
 
     num_chunks = sum(seg.num_chunks(wave.shape[1]))
     print("pipeline with PyTorch's float32 defaults: matmul.allow_tf32="
@@ -4000,7 +4162,7 @@ def run_phases(flac_jobs) -> int:
     trainable[0]["tensor_parallel"] = tensor_parallel["k1_train"]
     trainable[1]["tensor_parallel"] = tensor_parallel["k2"]
     print(json.dumps({"kernels": [kernel, *instances[:2], *trainable, *instances[2:], *fused_ln,
-                                  conv_chain]}))
+                                  conv_chain, resnet_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

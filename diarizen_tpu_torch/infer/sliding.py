@@ -41,7 +41,6 @@ takes two static inputs, the windows and their weights.
 from __future__ import annotations
 
 import functools
-import itertools
 from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -63,7 +62,12 @@ from diarizen_tpu_torch.parallel.distributed import (
     in_group,
     process_window_shard,
 )
-from diarizen_tpu_torch.utils import halve_batch_or_raise, resolve_device, to_device_async
+from diarizen_tpu_torch.utils import (
+    halve_batch_or_raise,
+    resolve_device,
+    state_stamp,
+    to_device_async,
+)
 
 
 def batch_row_spans(total: int, batch_size: int,
@@ -99,21 +103,6 @@ def gather_rows(source: torch.Tensor, starts: torch.Tensor, length: int, pad: in
     if pad:
         rows = torch.cat([rows, rows.new_zeros((pad,) + tuple(rows.shape[1:]))])
     return rows
-
-
-def state_stamp(model: nn.Module) -> list:
-    """(address, version) of every parameter and buffer of `model`: it
-    changes when one is replaced, moved or changed in place. A walk of the
-    modules' own dicts: `parameters()` and `buffers()` build every name and
-    cost twice as much, on every file."""
-    stamp, stack = [], [model]
-    while stack:
-        module = stack.pop()
-        for t in itertools.chain(module._parameters.values(), module._buffers.values()):
-            if t is not None:
-                stamp.append((t.data_ptr(), t._version))
-        stack.extend(module._modules.values())
-    return stamp
 
 
 class BatchGraph:

@@ -51,7 +51,12 @@ def build_library(source: Path) -> str:
 # (log-sum-exp output) at a rate above 0 and at 0, K2 (one count a backward:
 # pass A, the sum of its d pos_bias slices and pass B) at a rate above 0 and
 # at 0; K3, K4 and K5 one count a call, whatever CUDA launches the call makes
-# on the card.
+# on the card. The ResNet34's convolutions (`models/resnet.py`), each with
+# its BatchNorm folded in and its epilogue fused: the stem's kernel
+# ("resnet_stem", `ops/resnet_stem.py`) and the trunk's cuDNN calls
+# ("resnet_conv", not the port's kernels but counted all the same), one
+# count a convolution; beside them one count a fold of the BatchNorms into
+# the convolutions ("resnet_fold").
 
 KERNEL_INSTANCES = {
     "k1": ("fwd_f32", "fwd_deferred", "fwd_bf16"),
@@ -60,6 +65,8 @@ KERNEL_INSTANCES = {
     "k3": ("k3",),
     "k4": ("k4",),
     "k5": ("k5",),
+    "resnet_conv": ("resnet_stem", "resnet_conv"),
+    "resnet_fold": ("resnet_fold",),
 }
 launches: Dict[str, int] = {n: 0 for names in KERNEL_INSTANCES.values() for n in names}
 

@@ -5,6 +5,7 @@ environment report)."""
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import random
@@ -84,6 +85,23 @@ class HostFetch:
         if self.event is not None:
             self.event.synchronize()
         return [t.numpy() for t in self.host]
+
+
+def state_stamp(model: torch.nn.Module) -> list:
+    """(address, version) of every parameter and buffer of `model`: it
+    changes when one is replaced, moved or changed in place. A tensor made
+    inside `torch.inference_mode` (a model moved or converted there) has no
+    version counter: its address alone counts, so its changes in place go
+    unseen. A walk of the modules' own dicts: `parameters()` and `buffers()`
+    build every name and cost twice as much, on every file."""
+    stamp, stack = [], [model]
+    while stack:
+        module = stack.pop()
+        for t in itertools.chain(module._parameters.values(), module._buffers.values()):
+            if t is not None:
+                stamp.append((t.data_ptr(), None if t.is_inference() else t._version))
+        stack.extend(module._modules.values())
+    return stamp
 
 
 def is_oom_error(exc: BaseException) -> bool:

@@ -8,8 +8,10 @@ out-of-memory error drops the graphs; the weights' stamp sees the ResNet
 change. On a card (the tests named `test_card_*` skip without one): replay
 against the eager forward bit for bit at every row count, on both fbank
 routes and both compute types, graphs reused across files and captured again
-after the weights change, and `stream` with the graphs on against per-file
-calls. This file imports nothing of JAX, so on the machine with the card it
+after the weights change, a BatchNorm statistic changed in place refolds and
+recaptures, the fused convolutions (`models/resnet.py`) against their plain
+versions and counted 36 a batch on replays, and `stream` with the graphs on
+against per-file calls. This file imports nothing of JAX, so on the machine with the card it
 runs without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_embedding_graphs.py
@@ -25,7 +27,9 @@ from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, Sl
 from diarizen_tpu_torch.infer.sliding import batch_row_spans, gather_rows, state_stamp, tail_size
 from diarizen_tpu_torch.models.convert import random_state_dict
 from diarizen_tpu_torch.models.fbank import FRAME_SHIFT, kaldi_fbank
+from diarizen_tpu_torch.models import resnet as resnet_module
 from diarizen_tpu_torch.models.resnet import ResNet, ResNetConfig
+from diarizen_tpu_torch.ops import cuda_build, resnet_stem
 from test_torch_sliding_graphs import LAST_ROWS, make_wave, num_batches, seconds_for, tiny_eend
 
 SR = 16000
@@ -275,6 +279,85 @@ def test_card_graphs_are_reused_and_recaptured(card):
         assert torch.equal(out, want)
         out, record = counted(emb, wave, starts, weights)
         assert record.emb_eager_batches == 0 and torch.equal(out, want)
+
+
+def test_card_statistic_change_refolds_and_recaptures(card):
+    """A BatchNorm statistic changed in place: the graphs drop, the next
+    file's first batch of each shape runs eagerly and folds once more, the
+    graphs are captured again from the new folds, and the embeddings are the
+    eager forward's with the new statistics."""
+    emb = EmbeddingInference(resnet34(), WINDOW, SPEAKERS, batch_size=32, device=card)
+    wave, starts, weights = file_inputs(45, FRAMES, card, seed=4)  # one batch of 32, one of 16
+    counted(emb, wave, starts, weights)
+    old, record = counted(emb, wave, starts, weights)
+    assert record.emb_eager_batches == 0
+    folds = cuda_build.launches["resnet_fold"]
+    with torch.no_grad():
+        emb.model.layer2[1].bn2.running_var.mul_(4.0)
+    want = eager(emb, wave, starts, weights)
+    assert cuda_build.launches["resnet_fold"] == folds + 1
+    out, record = counted(emb, wave, starts, weights)
+    assert record.emb_eager_batches == 2 and cuda_build.launches["resnet_fold"] == folds + 1
+    assert torch.equal(out, want) and not torch.equal(out, old)
+    out, record = counted(emb, wave, starts, weights)
+    assert record.emb_eager_batches == 0 and record.emb_graph_batches == 2
+    assert torch.equal(out, want) and cuda_build.launches["resnet_fold"] == folds + 1
+
+
+def test_card_replays_count_36_fused_convolutions_a_batch(card):
+    """Every batch of a file, replayed, counts the ResNet34's 36
+    convolutions (the stem's kernel and 35 fused cuDNN calls) in the launch
+    registry, and no fold."""
+    emb = EmbeddingInference(resnet34(), WINDOW, SPEAKERS, batch_size=32, device=card)
+    wave, starts, weights = file_inputs(77, FRAMES, card, seed=8)
+    counted(emb, wave, starts, weights)  # captures
+    cuda_build.reset_launches()
+    _, record = counted(emb, wave, starts, weights)
+    batches = num_batches(77, 32)
+    assert record.emb_graph_batches == batches and record.emb_eager_batches == 0
+    assert cuda_build.launches["resnet_stem"] == batches
+    assert cuda_build.launches["resnet_conv"] == 35 * batches
+    assert cuda_build.launch_totals()["resnet_conv"] == 36 * batches
+    assert cuda_build.launches["resnet_fold"] == 0
+
+
+def test_card_fused_path_matches_the_plain_version(card, card_resnet, monkeypatch):
+    """The ResNet34 at 32 rows x 8 s through the stem's kernel and cuDNN's
+    fused convolutions, against the same folds through the plain versions
+    on the card (`stem_conv_reference`, `folded_conv_reference`). Both round
+    the trunk's convolutions to TF32 (cuDNN's default), in other kernels and
+    other orders of summation: each can move a window's embedding by about
+    TF32's rounding of 2^-11 (4.9e-4) of its norm, the size of the
+    program's own error against the float32 reference (`emb_rel_err`
+    7.5e-4-8.5e-4), so the two may differ by 1e-3 of the norm and no more.
+    The stem alone, in float32 without TF32 on either side, agrees within
+    float32 rounding; in bfloat16 within one rounding of the output."""
+    gen = torch.Generator().manual_seed(0)
+    fbank = torch.randn((32, 798, 80), generator=gen).to(card)
+    fbank = fbank - fbank.mean(dim=1, keepdim=True)
+    weights = (torch.rand((32, SPEAKERS, 100), generator=gen) < 0.4).float().to(card)
+    with torch.inference_mode():
+        fused = card_resnet(fbank, weights)
+        monkeypatch.setattr(resnet_module, "stem_conv", resnet_stem.stem_conv_reference)
+        monkeypatch.setattr(resnet_module, "folded_conv", resnet_module.folded_conv_reference)
+        plain = card_resnet(fbank, weights)
+        monkeypatch.undo()
+        err = ((fused - plain).norm(dim=-1) / plain.norm(dim=-1)).max().item()
+        assert err <= 1e-3, err
+        stem = card_resnet.folded(torch.float32)[0]
+        for dtype, limit in ((torch.float32, 1e-6), (torch.bfloat16, 2.0**-8)):
+            folded = card_resnet.folded(dtype)[0] if dtype != torch.float32 else stem
+            x = fbank.to(dtype)
+            saved = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                want = resnet_stem.stem_conv_reference(x, folded.weight, folded.bias).float()
+            finally:
+                torch.backends.cudnn.allow_tf32 = saved
+            got = resnet_stem.stem_conv(x, folded.weight, folded.bias)
+            assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+            worst = (got.float() - want).abs().max().item() / want.abs().max().item()
+            assert worst <= limit, (dtype, worst)
 
 
 def test_card_stream_matches_per_file_calls(card):

@@ -317,7 +317,8 @@ def test_a_capture_moves_its_launch_counts_to_the_replays(monkeypatch):
     for replays in (1, 2):
         assert torch.equal(graph((torch.ones(2),)), torch.full((2,), 2.0))
         assert cuda_build.launch_totals() == {"k1": replays, "k1_train": 0, "k2": 0,
-                                              "k3": 2 * replays, "k4": 1, "k5": replays}
+                                              "k3": 2 * replays, "k4": 1, "k5": replays,
+                                              "resnet_conv": 0, "resnet_fold": 0}
     cuda_build.reset_launches()
 
 
