@@ -199,8 +199,6 @@ from diarizen_tpu_torch.core.io_rttm import load_rttm, write_rttm
 from diarizen_tpu_torch.infer import (
     DiarizationPipeline,
     EmbeddingInference,
-    McDiarizationPipeline,
-    McSlidingInference,
     MultiLabelSegmentation,
     OverlappedSpeechDetection,
     Resegmentation,
@@ -2924,16 +2922,15 @@ def phase_multichannel(card: str, resnet_sd) -> dict:
         # ---- the float32 reference and the card against the CPU ---------------
         model.load_state_dict(average_checkpoints(sorted((exp / "checkpoints").iterdir())))
         cl = config["clustering"]["args"]
-        seg32 = McSlidingInference(model, MC_CHANNELS, batch_size=MC_BATCH,
-                                   compute_dtype=torch.float32)
+        seg32 = SlidingInference(model, batch_size=MC_BATCH, compute_dtype=torch.float32)
         emb = EmbeddingInference(pipelines.load_resnet(resnet_ckpt), seg32.window_size,
                                  num_speakers=cfg.max_speakers_per_chunk, batch_size=MC_BATCH)
         vbx = recipe_infer.build_clustering(cl, "VBxClustering", fa=0.06, fb=0.9)
         n_windows = len(seg32.prepare_wave(wave)[1])
         t0 = time.perf_counter()
         with strict_float32():
-            reference = McDiarizationPipeline(seg32, emb, vbx, cfg, max_speakers=8)(
-                wave, 16000, uri=uri)
+            reference = DiarizationPipeline(seg32, emb, vbx, cfg, max_speakers=8,
+                                            embedding_exclude_overlap=False)(wave, 16000, uri=uri)
         write_rttm(root / "ref.rttm", [reference])
         print(f"multichannel f32 reference: {check_rttm(reference.to_rttm(), uri)} segments, "
               f"speakers {reference.labels()} ({time.perf_counter() - t0:.1f} s)")
@@ -2968,6 +2965,17 @@ def phase_multichannel(card: str, resnet_sd) -> dict:
         attention_layers = sum(cfg.wavlm.use_attention)
         batches = -(-n_windows // MC_BATCH)
         summary = json.loads((root / "out" / "der.json").read_text())
+        record = tracing.records()[-1]  # the timed call's file, on the serving path
+        print(f"MC record: channels {record.channels}, emb_rows {record.emb_rows}, segmentation "
+              f"batches graph {record.seg_graph_batches} eager {record.seg_eager_batches}, "
+              f"embedding batches graph {record.emb_graph_batches} eager "
+              f"{record.emb_eager_batches}; stream ms: segmentation {record.seg_stream_ms}, "
+              f"extractor {record.seg_extract_ms}, encoder {record.seg_encode_ms} (of it the "
+              f"fused channels {record.seg_fuse_ms}), embeddings {record.embed_stream_ms}")
+        check(record.channels == MC_CHANNELS and record.emb_rows == n_windows * MC_CHANNELS
+              and record.seg_graph_batches + record.seg_eager_batches == batches
+              and record.seg_fuse_ms is not None,
+              f"the MC file's record: {record}")
         print(f"MC recipe CLI {card}: {MC_CHANNELS} x {AUDIO_SECONDS} s, {MC_CHECKPOINTS} "
               f"checkpoints averaged, bf16, VBx: {seconds:.3f} s a file with loading = "
               f"{AUDIO_SECONDS / seconds:.2f} audio-s/s; K1 launches {serving_k1}; segments "

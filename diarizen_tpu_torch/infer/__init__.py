@@ -1,9 +1,8 @@
 """Sliding-window inference, the device-side stitch, the diarization
-pipeline, its multi-channel counterpart and the frame-level pipelines (VAD,
-OSD, multi-label, resegmentation)."""
+pipeline (single- and multi-channel models) and the frame-level pipelines
+(VAD, OSD, multi-label, resegmentation)."""
 
 from diarizen_tpu_torch.infer.fused import FusedStitch, make_fused_stitch
-from diarizen_tpu_torch.infer.mc_pipeline import McDiarizationPipeline, McSlidingInference
 from diarizen_tpu_torch.infer.multilabel import MultiLabelSegmentation
 from diarizen_tpu_torch.infer.pipeline import (
     DiarizationPipeline,
@@ -20,6 +19,5 @@ __all__ = [
     "DiarizationPipeline", "EmbeddingInference", "reconstruct", "speaker_count",
     "to_diarization", "SlidingInference", "receptive_field_window", "FusedStitch",
     "make_fused_stitch", "MultiLabelSegmentation", "Resegmentation",
-    "VoiceActivityDetection", "OverlappedSpeechDetection", "McSlidingInference",
-    "McDiarizationPipeline",
+    "VoiceActivityDetection", "OverlappedSpeechDetection",
 ]

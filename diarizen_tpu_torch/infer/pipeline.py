@@ -1,12 +1,16 @@
 """Speaker diarization pipeline (port of diarizen_tpu/infer/pipeline.py):
 segment -> count -> embed -> cluster -> reconstruct -> Annotation.
 
-1. sliding-window segmentation on channel 0 (hard powerset multilabel);
+1. sliding-window segmentation on channel 0 (hard powerset multilabel); a
+   multi-channel model reads its C channels and also gives one weight a
+   channel for every window;
 2. median filter (size (1, 11, 1), reflect);
 3. frame-level speaker count (overlap-add, rint);
 4. per-(chunk, speaker) masked embeddings, excluding overlapped frames where
    enough clean frames remain; the embedding model runs once per chunk with
-   an (S, frames) weight matrix;
+   an (S, frames) weight matrix (a multi-channel model's: once per (chunk,
+   channel) with the chunk's plain masks, the channels' embeddings then
+   summed under the chunk's channel weights on the device);
 5. global clustering (AHC);
 6. cap the count, mark inactive speakers, reconstruct, keep the top-count
    speakers per frame and binarize into an Annotation.
@@ -19,6 +23,15 @@ plan); the two routes give identical results. `stream` pipelines files: the
 next file's device work is enqueued before this file's host stages run.
 Every file leaves host spans at the stage boundaries and a record of them
 (`tracing.py`).
+
+Single- and multi-channel models share every line of this path: the
+dispatch, the device stitch, the one host wait, the finish, `stream`, the
+spans and records. What differs lies below it: `SlidingInference` keeps a
+multi-channel model's channels and returns its channel weights beside the
+segmentation, and `EmbeddingInference.dispatch` takes (C, N) waves with
+those weights. The multi-channel recipe's stitch gives its embeddings the
+plain masks (`embedding_exclude_overlap=False`, as `from_pretrained` sets
+for such a model).
 
 In a process group (`parallel/distributed.py`; of one process too) every
 process segments the whole file, embeds a strided shard of its windows,
@@ -179,7 +192,13 @@ class EmbeddingInference(GraphedBatches):
     stay outside it. So a batch is enqueued in a handful of launches and
     `dispatch` returns while the card still has the file's embeddings
     queued. The graphs have their own memory pool, dropped with them when
-    the ResNet's parameters or buffers change and when `halve_batch` runs."""
+    the ResNet's parameters or buffers change and when `halve_batch` runs.
+
+    A (C, padded) multi-channel wave runs one row a (window, channel),
+    window by window, in the same batches of `batch_size` rows, each
+    channel's windows read from its own whole-file fbank, with the window's
+    weights for every channel; the channels' embeddings of a window are then
+    summed under its channel weights on the device, one (S, D) a window."""
 
     _what = "embedding inference"
 
@@ -212,33 +231,43 @@ class EmbeddingInference(GraphedBatches):
     @torch.inference_mode()
     def dispatch(self, wave: torch.Tensor, starts: np.ndarray,
                  weights: Union[torch.Tensor, np.ndarray],
-                 hook: Optional[Callable] = None) -> Optional[torch.Tensor]:
+                 hook: Optional[Callable] = None,
+                 channel_weights: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
         """Enqueue every batch: device waveform + (N,) window starts on the
         host + (N, S, F) weights (a device tensor, or a host array that is
         uploaded once) -> (N, S, D) float32 embeddings ON THE DEVICE, without
         waiting for them (None for no windows). Fetch with `collect`. Each
         batch replays its graph where one applies (class docstring); the
         file's record, where this runs inside one of its spans, counts the
-        batches that replayed a graph and those that ran eagerly."""
+        batches that replayed a graph and those that ran eagerly. A (C,
+        padded) wave takes the (N, C) `channel_weights` of its windows
+        (device or host) and counts its rows on the record."""
         n = len(starts)
         if n == 0:
             return None
         starts = np.asarray(starts, np.int64)
+        channels = wave.shape[0] if wave.dim() == 2 else None
         shared = self.shared_fbank and not (starts % FRAME_SHIFT).any()
-        if shared:  # windows of frames of one whole-file fbank
-            source, length = kaldi_fbank(wave[None] * 32768.0)[0], self._frames_per_window
+        if shared:  # windows of frames of one whole-file fbank (a channel)
+            source, length = kaldi_fbank(wave.reshape(-1, wave.shape[-1]) * 32768.0), \
+                self._frames_per_window
             starts = starts // FRAME_SHIFT
         else:  # windows of samples, an fbank each
-            source, length = wave, self.window_size
-        starts_dev = to_device_async(starts, self.device)
+            source, length = wave.reshape(-1, wave.shape[-1]), self.window_size
         if not isinstance(weights, torch.Tensor):
             weights = to_device_async(np.asarray(weights), self.device)
-        out = torch.zeros((n, self.num_speakers, self.embed_dim), device=self.device)
+        if channels is not None:  # a row a (window, channel), window by window
+            starts = (starts[:, None] + source.shape[1] * np.arange(channels)).reshape(-1)
+            weights = weights.repeat_interleave(channels, dim=0)
+        source = source.reshape((-1,) + tuple(source.shape[2:]))
+        starts_dev = to_device_async(starts, self.device)
+        rows = len(starts)
+        out = torch.zeros((rows, self.num_speakers, self.embed_dim), device=self.device)
         key = self._graph_key(wave, shared, self.compute_dtype)
         stages = [functools.partial(self._forward, shared)]
         replayed = eager = 0
         for off, blen, pad in batch_row_spans(
-                n, self.batch_size, lambda m: tail_size(m, self.batch_size)):
+                rows, self.batch_size, lambda m: tail_size(m, self.batch_size)):
             windows = gather_rows(source, starts_dev[off: off + blen], length, pad)
             wb = weights[off: off + blen].float()
             if pad:
@@ -249,12 +278,20 @@ class EmbeddingInference(GraphedBatches):
             eager += not from_graph
             out[off: off + blen] = emb[:blen]
             if hook is not None:
-                hook("embeddings", None, total=n, completed=min(off + blen + pad, n))
+                hook("embeddings", None, total=rows, completed=min(off + blen + pad, rows))
         record = tracing.current()
         if record is not None:
             record.emb_graph_batches += replayed
             record.emb_eager_batches += eager
-        return out
+        if channels is None:
+            return out
+        if record is not None:
+            record.emb_rows += rows
+        if not isinstance(channel_weights, torch.Tensor):
+            channel_weights = to_device_async(np.asarray(channel_weights, np.float32),
+                                              self.device)
+        return torch.einsum("ncsd,nc->nsd", out.view(n, channels, *out.shape[1:]),
+                            channel_weights)
 
     def _forward(self, shared: bool, windows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         """A batch's (rows, S, D) embeddings from its gathered windows
@@ -274,13 +311,15 @@ class EmbeddingInference(GraphedBatches):
 
     def __call__(self, wave: torch.Tensor, starts: np.ndarray,
                  weights: Union[torch.Tensor, np.ndarray],
-                 hook: Optional[Callable] = None) -> np.ndarray:
-        """Device waveform + (N,) window starts + (N, S, F) weights ->
-        (N, S, D) float64 embeddings. A device out-of-memory error halves
-        `batch_size`, drops the graphs and runs the file again."""
+                 hook: Optional[Callable] = None,
+                 channel_weights: Optional[np.ndarray] = None) -> np.ndarray:
+        """Device waveform + (N,) window starts + (N, S, F) weights [+ (N, C)
+        channel weights of a (C, padded) wave] -> (N, S, D) float64
+        embeddings. A device out-of-memory error halves `batch_size`, drops
+        the graphs and runs the file again."""
         while True:
             try:
-                dispatched = self.dispatch(wave, starts, weights, hook)
+                dispatched = self.dispatch(wave, starts, weights, hook, channel_weights)
                 with tracing.span("diarize.wait"):
                     return self.collect(dispatched)
             except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
@@ -413,9 +452,12 @@ class DiarizationPipeline:
             raise ValueError(f"resample to {self.seg_inference.sample_rate} Hz before inference")
         if waveform.ndim == 1:
             waveform = waveform[None]
-        waveform = waveform[0:1]  # channel 0
+        channels = getattr(self.seg_inference, "num_channels", None)
+        if channels is None:
+            waveform = waveform[0:1]  # channel 0
         record = tracing.FileRecord(self._trace_id, self._files_taken,
                                     waveform.shape[-1] / self.seg_inference.sample_rate)
+        record.channels = channels
         self._files_taken += 1
         with tracing.span("diarize.dispatch", record):
             state = self._enqueue_file(waveform, uri, hook)
@@ -439,8 +481,10 @@ class DiarizationPipeline:
             # route, whose two stages halve their own batches until they fit
             self.seg_inference.halve_batch(e)
             with tracing.span("diarize.segment"):
-                segmentations = self.seg_inference(waveform, hook=hook, prepared=prepared)
-            return {"uri": uri, "prepared": prepared, "segmentations": segmentations}
+                segmentations, channel_weights = _with_channel_weights(
+                    self.seg_inference(waveform, hook=hook, prepared=prepared))
+            return {"uri": uri, "prepared": prepared, "segmentations": segmentations,
+                    "channel_weights": channel_weights}
 
     # ---- the device-side stitch route (infer/fused.py) ----------------
 
@@ -485,25 +529,33 @@ class DiarizationPipeline:
             seg_dev = self.seg_inference.dispatch(wave, starts, hook=hook, events=events)
         if seg_dev is None:
             return None
+        seg_dev, channel_weights = _with_channel_weights(seg_dev)
         with tracing.span("diarize.stitch"):
             binarized, counts, weights = fused.stitch(seg_dev, plan)
         events.mark(1)
         with tracing.span("diarize.embed"):
-            emb_dev = self.emb_inference.dispatch(wave, starts, weights, hook=hook)
+            emb_dev = self.emb_inference.dispatch(wave, starts, weights, hook=hook,
+                                                  channel_weights=channel_weights)
         events.mark(2)
         # the copies are queued right behind this file's own kernels: in
         # stream mode the next file's work is enqueued after them
+        fetched = [binarized, counts, emb_dev]
+        if channel_weights is not None:
+            fetched.append(channel_weights)
         return {"uri": uri, "prepared": prepared, "events": events,
-                "fetch": HostFetch([binarized, counts, emb_dev], stream)}
+                "fetch": HostFetch(fetched, stream)}
 
     def _finish_fused(self, state, num_speakers, hook) -> Annotation:
         with tracing.span("diarize.wait"):
-            binary, count_data, embeddings = state["fetch"].wait()  # THE one host wait per file
+            fetched = state["fetch"].wait()  # THE one host wait per file
+        binary, count_data, embeddings = fetched[:3]
         # already reached: no second wait
         state["events"].read(state["record"], self._free_events)
         segmentations = self.seg_inference.to_feature(binary.astype(np.float32))
         if hook is not None:
             hook("segmentation", segmentations)
+            if len(fetched) > 3:
+                hook("channel_weights", fetched[3])
         count = SlidingWindowFeature(count_data.reshape(-1, 1).copy(),
                                      self._get_fused().out_frames)
         if hook is not None:
@@ -530,8 +582,11 @@ class DiarizationPipeline:
     # ---- the host route -----------------------------------------------
 
     def _collect_segmentations(self, state) -> SlidingWindowFeature:
+        """The host route's fetch of the segmentation (and of a
+        multi-channel model's channel weights, kept in `state`)."""
         with tracing.span("diarize.wait", state["record"]):
-            data = self.seg_inference.collect(state["seg_dev"])
+            data, state["channel_weights"] = _with_channel_weights(
+                self.seg_inference.collect(state["seg_dev"]))
         return self.seg_inference.to_feature(data)
 
     def _finish_file(self, state, num_speakers, hook) -> Annotation:
@@ -545,12 +600,13 @@ class DiarizationPipeline:
                 if segmentations is None:
                     segmentations = self._collect_segmentations(state)
                 annotation = self._finish_from_segmentations(
-                    state["prepared"], segmentations, state["uri"], num_speakers, hook)
+                    state["prepared"], segmentations, state["uri"], num_speakers, hook,
+                    state.get("channel_weights"))
         tracing.finished(record)
         return annotation
 
     def _finish_from_segmentations(self, prepared, segmentations, uri, num_speakers,
-                                   hook) -> Annotation:
+                                   hook, channel_weights=None) -> Annotation:
         with tracing.span("diarize.stitch"):
             if self.apply_median_filtering:
                 segmentations.data = median_filter(
@@ -559,6 +615,8 @@ class DiarizationPipeline:
             binarized = segmentations  # powerset output is already binary
             if hook is not None:
                 hook("segmentation", binarized)
+                if channel_weights is not None:
+                    hook("channel_weights", channel_weights)
 
             count = speaker_count(binarized, receptive_field_window(self.eend_cfg),
                                   warm_up=(0.0, 0.0))
@@ -568,7 +626,8 @@ class DiarizationPipeline:
         if count.data.size == 0 or np.nanmax(count.data) == 0:
             return self._no_speech(uri)  # no speech at all
         with tracing.span("diarize.embed"):
-            embeddings = self.get_embeddings(binarized, prepared, hook=hook)
+            embeddings = self.get_embeddings(binarized, prepared, hook=hook,
+                                             channel_weights=channel_weights)
         return self._cluster_and_reconstruct(
             segmentations, count, embeddings, uri, num_speakers, hook)
 
@@ -619,10 +678,12 @@ class DiarizationPipeline:
 
     def get_embeddings(self, binarized: SlidingWindowFeature,
                        prepared: Tuple[torch.Tensor, np.ndarray],
-                       hook: Optional[Callable] = None) -> np.ndarray:
+                       hook: Optional[Callable] = None,
+                       channel_weights: Optional[np.ndarray] = None) -> np.ndarray:
         """(num_chunks, S, D) embeddings, each speaker's frames weighted by
         its activity with overlapped frames left out where enough clean
-        frames remain."""
+        frames remain; a multi-channel model's channels fused under its
+        (num_chunks, C) `channel_weights`."""
         num_chunks, num_frames, _ = binarized.data.shape
         masks = np.nan_to_num(binarized.data, nan=0.0).astype(np.float32)
         if self.embedding_exclude_overlap:
@@ -641,5 +702,16 @@ class DiarizationPipeline:
         # group): over the data axis of a mesh, over the world without one
         group = None if self.mesh is None else self.mesh.data_group
         shard = process_window_shard(num_chunks, group=group)
-        local = self.emb_inference(wave, starts[:num_chunks][shard], weights[shard], hook=hook)
+        if channel_weights is None:
+            local = self.emb_inference(wave, starts[:num_chunks][shard], weights[shard],
+                                       hook=hook)
+        else:
+            local = self.emb_inference(wave, starts[:num_chunks][shard], weights[shard],
+                                       hook=hook, channel_weights=channel_weights[shard])
         return gather_window_shards(local, num_chunks, group)
+
+
+def _with_channel_weights(segmentation) -> tuple:
+    """(segmentation, a multi-channel model's channel weights or None) of
+    what a `SlidingInference` gave."""
+    return segmentation if isinstance(segmentation, tuple) else (segmentation, None)

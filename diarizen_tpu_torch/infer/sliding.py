@@ -36,6 +36,15 @@ file. A file's record (`tracing.py`) counts its batches of each kind.
 `GraphedBatches` holds that discipline for this class and for the
 speaker embeddings' `EmbeddingInference` (`infer/pipeline.py`), whose graph
 takes two static inputs, the windows and their weights.
+
+A multi-channel model (`models/mc.py`: `num_channels`) takes the same path
+on (C, num_samples) recordings: a recording's channels are wrapped around
+or cut to the model's (`fit_channels`), every window is gathered for all of
+them on the device, its four stages replay a graph each (extractor on B·C
+streams, the fused encoder through the channel mean, the single-stream
+rest, back end), and each window also gives one float32 weight a channel,
+reduced on the device inside the last graph, which `dispatch` returns beside
+the multilabel activity.
 """
 
 from __future__ import annotations
@@ -92,6 +101,16 @@ def tail_size(n_real: int, batch_size: int) -> int:
     """Rows of a partial last batch: n_real rounded up to a multiple of 8,
     capped at batch_size."""
     return min(batch_size, ((n_real + 7) // 8) * 8)
+
+
+def fit_channels(waveform: np.ndarray, channels: int) -> np.ndarray:
+    """(C', num_samples) -> (channels, num_samples): channels wrapped around
+    where the recording has fewer, the first `channels` where it has more
+    (the multi-channel dataset's rule)."""
+    waveform = np.atleast_2d(waveform)
+    if waveform.shape[0] < channels:
+        waveform = np.pad(waveform, ((0, channels - waveform.shape[0]), (0, 0)), mode="wrap")
+    return waveform[:channels]
 
 
 def gather_rows(source: torch.Tensor, starts: torch.Tensor, length: int, pad: int) -> torch.Tensor:
@@ -226,7 +245,11 @@ class SlidingInference(GraphedBatches):
     """Callable: (waveform (C, num_samples), sample_rate) ->
     SlidingWindowFeature (num_chunks, num_frames, K), for a segmentation
     model of any family (its forward takes `compute_dtype=`; the model
-    carries its config as `cfg`)."""
+    carries its config as `cfg`). A single-channel model reads channel 0.
+    A multi-channel model (one with `num_channels`, or `num_channels=`
+    given) reads that many channels (`fit_channels`), and every result
+    comes with its windows' channel weights: (feature, (num_chunks, C)
+    float32)."""
 
     _what = "segmentation inference"
 
@@ -239,10 +262,15 @@ class SlidingInference(GraphedBatches):
         compute_dtype: torch.dtype = torch.bfloat16,
         device: Optional[Union[str, torch.device]] = None,
         mesh=None,
+        num_channels: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.mesh = mesh
+        # the channels a recording is served on; None: channel 0 alone
+        self.num_channels = num_channels or getattr(model, "num_channels", None)
+        if self.num_channels is not None and mesh is not None:
+            raise NotImplementedError("a multi-channel model is served without a mesh")
         self.cfg = cfg = model.cfg
         self.duration = duration if duration is not None else cfg.chunk_size
         self.step = step if step is not None else 0.1 * self.duration
@@ -266,26 +294,33 @@ class SlidingInference(GraphedBatches):
         return n_complete, has_last
 
     def prepare_wave(self, waveform: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
-        """Zero-pad channel 0 so every window is in bounds and copy it to the
-        device once, through pinned memory, without waiting for the device;
-        returns (wave on device, window start samples on the host). The
-        device copy is shared with the embedding stage."""
-        if waveform.ndim == 2:
+        """Zero-pad channel 0 (a multi-channel model: its `num_channels`
+        channels, `fit_channels`) so every window is in bounds and copy it
+        to the device once, through pinned memory, without waiting for the
+        device; returns (wave on device, (padded,) or (C, padded), window
+        start samples on the host). The device copy is shared with the
+        embedding stage."""
+        if self.num_channels is not None:
+            waveform = fit_channels(waveform, self.num_channels)
+        elif waveform.ndim == 2:
             waveform = waveform[0]
-        n_complete, has_last = self.num_chunks(waveform.shape[0])
+        n_complete, has_last = self.num_chunks(waveform.shape[-1])
         starts = np.arange(n_complete + has_last, dtype=np.int64) * self.step_size
-        wave = np.zeros(max(starts[-1] + self.window_size, waveform.shape[0]), np.float32)
-        wave[: waveform.shape[0]] = waveform
+        wave = np.zeros(waveform.shape[:-1] + (max(starts[-1] + self.window_size,
+                                                   waveform.shape[-1]),), np.float32)
+        wave[..., : waveform.shape[-1]] = waveform
         return to_device_async(wave, self.device), starts
 
     @torch.inference_mode()
     def dispatch(self, wave: torch.Tensor, starts: np.ndarray,
                  hook: Optional[Callable] = None, soft: bool = False,
-                 events=tracing.NO_EVENTS) -> Optional[torch.Tensor]:
+                 events=tracing.NO_EVENTS):
         """Enqueue every batch; returns the multilabel activity
         (num_chunks, num_frames, K) ON THE DEVICE, without waiting for it
         (None for no chunks): hard as uint8, or with `soft` the float32
-        probabilities exp(scores) @ mapping. Fetch it with `collect`;
+        probabilities exp(scores) @ mapping; a multi-channel model's with
+        its (num_chunks, C) float32 channel weights, as a pair. Fetch it
+        with `collect`;
         splitting the two lets a caller overlap this file's device work with
         another file's host stages (`DiarizationPipeline.stream`). On a
         mesh this rank's data-axis shard of the windows runs, and the
@@ -311,13 +346,18 @@ class SlidingInference(GraphedBatches):
         return torch.from_numpy(gather_window_shards(local, len(starts), group)).to(self.device)
 
     def _dispatch(self, wave: torch.Tensor, starts: np.ndarray, hook: Optional[Callable],
-                  soft: bool, events=tracing.NO_EVENTS) -> Optional[torch.Tensor]:
+                  soft: bool, events=tracing.NO_EVENTS):
         total = len(starts)
         if total == 0:
             return None
         starts_dev = to_device_async(np.asarray(starts, np.int64), self.device)
         out = torch.zeros((total, self._frames_per_chunk, self.powerset.num_classes),
                           dtype=torch.float32 if soft else torch.uint8, device=self.device)
+        channel_weights = None
+        source = wave
+        if self.num_channels is not None:  # windows are rows of the time axis, every channel
+            channel_weights = torch.zeros((total, wave.shape[0]), device=self.device)
+            source = wave.t()
         key = self._graph_key(wave, soft, self.compute_dtype)
         stages = self._stages(soft)
         if len(stages) == 1:  # no boundary inside the forward to time
@@ -325,12 +365,17 @@ class SlidingInference(GraphedBatches):
         replayed = eager = 0
         for off, blen, pad in batch_row_spans(
                 total, self.batch_size, lambda n: tail_size(n, self.batch_size)):
-            chunks = gather_rows(wave, starts_dev[off: off + blen], self.window_size, pad)
+            chunks = gather_rows(source, starts_dev[off: off + blen], self.window_size, pad)
+            if channel_weights is not None:
+                chunks = chunks.transpose(1, 2)  # (rows, C, window)
             events.batch()
             multilabel, from_graph = self._run_batch(
                 None if key is None else key + (len(chunks),), stages, (chunks,), events)
             replayed += from_graph
             eager += not from_graph
+            if channel_weights is not None:
+                multilabel, weights = multilabel
+                channel_weights[off: off + blen] = weights[:blen]
             out[off: off + blen] = multilabel[:blen]
             if hook is not None:
                 hook("segmentation", None, total=total, completed=min(off + blen + pad, total))
@@ -338,10 +383,17 @@ class SlidingInference(GraphedBatches):
         if record is not None:
             record.seg_graph_batches += replayed
             record.seg_eager_batches += eager
-        return out
+        return out if channel_weights is None else (out, channel_weights)
 
-    def _forward(self, chunks: torch.Tensor, soft: bool) -> torch.Tensor:
-        """The batch forward in one piece, what its stages give in turn."""
+    def _forward(self, chunks: torch.Tensor, soft: bool):
+        """The batch forward in one piece, what its stages give in turn; a
+        multi-channel model's stages in turn, eagerly (its one-piece forward
+        gives every fusion's attention, not the channel weights)."""
+        if self.num_channels is not None:
+            x = (chunks,)
+            for s, stage in enumerate(self._stages(soft)):
+                x = stage(*x) if s == 0 else stage(x)
+            return x
         scores = self.model(chunks, compute_dtype=self.compute_dtype)
         return self.powerset.to_multilabel(scores, soft=soft)
 
@@ -359,21 +411,28 @@ class SlidingInference(GraphedBatches):
         back_end = stages[-1]
 
         def to_multilabel(x):
-            return self.powerset.to_multilabel(back_end(x), soft=soft)
+            scores = back_end(x)
+            if self.num_channels is not None:  # (scores, channel weights)
+                return self.powerset.to_multilabel(scores[0], soft=soft), scores[1]
+            return self.powerset.to_multilabel(scores, soft=soft)
         return stages[:-1] + [to_multilabel]
 
     @staticmethod
-    def collect(dispatched: Optional[torch.Tensor]) -> Optional[np.ndarray]:
-        """The one device-to-host copy of a dispatched result, as float32."""
+    def collect(dispatched):
+        """The one device-to-host copy of a dispatched result, as float32
+        (a multi-channel model's pair: both)."""
         if dispatched is None:
             return None
+        if isinstance(dispatched, tuple):
+            return tuple(t.cpu().numpy().astype(np.float32) for t in dispatched)
         return dispatched.cpu().numpy().astype(np.float32)
 
     def infer(self, wave: torch.Tensor, starts: np.ndarray,
-              hook: Optional[Callable] = None, soft: bool = False) -> np.ndarray:
+              hook: Optional[Callable] = None, soft: bool = False):
         """Multilabel activity (num_chunks, num_frames, K) as float32, hard
-        or soft. A device out-of-memory error halves `batch_size` and runs
-        the file again; anything else is raised unchanged."""
+        or soft (a multi-channel model's with its channel weights, a pair).
+        A device out-of-memory error halves `batch_size` and runs the file
+        again; anything else is raised unchanged."""
         while True:
             try:
                 data = self.collect(self.dispatch(wave, starts, hook, soft))
@@ -381,7 +440,9 @@ class SlidingInference(GraphedBatches):
             except Exception as e:  # noqa: BLE001 - the helper re-raises all but OOM
                 self.halve_batch(e)
         if data is None:
-            return np.zeros((0, self._frames_per_chunk, self.powerset.num_classes), np.float32)
+            data = np.zeros((0, self._frames_per_chunk, self.powerset.num_classes), np.float32)
+            if self.num_channels is not None:
+                data = data, np.zeros((0, self.num_channels), np.float32)
         return data
 
     def to_feature(self, data: np.ndarray) -> SlidingWindowFeature:
@@ -399,14 +460,17 @@ class SlidingInference(GraphedBatches):
         soft: bool = False,
         hook: Optional[Callable] = None,
         prepared: Optional[Tuple[torch.Tensor, np.ndarray]] = None,
-    ) -> SlidingWindowFeature:
+    ):
         """`hook(step_name, artifact, total=, completed=)` is called after
         each batch. `prepared` is an optional `prepare_wave(waveform)`
         result, so a caller can share one device copy of the waveform across
-        stages."""
+        stages. A multi-channel model gives (feature, channel weights)."""
         self._check_rate(sample_rate)
         wave, starts = prepared if prepared is not None else self.prepare_wave(waveform)
-        return self.to_feature(self.infer(wave, starts, hook, soft))
+        data = self.infer(wave, starts, hook, soft)
+        if self.num_channels is not None:
+            return self.to_feature(data[0]), data[1]
+        return self.to_feature(data)
 
     @torch.inference_mode()
     def whole(self, waveform: np.ndarray, sample_rate: Optional[int] = None,
@@ -414,8 +478,10 @@ class SlidingInference(GraphedBatches):
         """One forward over the whole file, no windows: (num_frames, K)
         multilabel, uint8 or (soft) float32. Memory grows with the file's
         length, and WavLM's relative-position buckets saturate at 800
-        frames, so it is meant for short files."""
+        frames, so it is meant for short files. Single-channel models only."""
         self._check_rate(sample_rate)
+        if self.num_channels is not None:
+            raise NotImplementedError("whole-file inference of a multi-channel model")
         if waveform.ndim == 2:
             waveform = waveform[self.cfg.selected_channel]
         wave = to_device_async(np.asarray(waveform, np.float32)[None], self.device)

@@ -11,8 +11,12 @@ walk and the multi-channel EEND model (port of diarizen_tpu/models/mc.py).
   0..N-2, the channel mean after layer N-1, one stream a recording after
   that. The relative-position bias does not depend on the channel, so one
   padded bias serves every stream. No layer drop in this walk, as in JAX.
+  `mc_extract`, `mc_fuse` and `mc_rest` are its three parts, which the
+  serving path's stages also run.
 - `McEendModel`: the EEND model with `channel_fusions`; returns the
-  log-powerset scores and the head-mean spatial attention of each fusion.
+  log-powerset scores and the head-mean spatial attention of each fusion,
+  or, stage by stage for the serving path, the scores and one weight a
+  channel reduced on the device.
 - `attention_weighted_embeddings`: per-channel speaker embeddings fused
   with channel weights read from one fusion's spatial attention.
 """
@@ -139,23 +143,48 @@ def wavlm_hidden_states_mc(
     compute type, one float32 spatial attention (B, F, H, C, C) a fusion).
     The first len(fusions) hidden states are channel means of the fused
     states, the rest single-stream."""
-    cfg = wavlm.cfg
     if wavlm.mesh is not None:
         raise NotImplementedError(
             "wavlm_hidden_states_mc on a model axis: the multi-channel family runs data "
             "parallel only")
+    b, c, _ = waveforms.shape
+    x = mc_extract(wavlm, waveforms, compute_dtype, train, rng)
+    hidden, attentions, x, position_bias = mc_fuse(wavlm, fusions, x, b, c, train, rng)
+    hidden += mc_rest(wavlm, x, position_bias, len(fusions), train, rng)
+    wavlm.layers_run = list(range(wavlm.cfg.num_layers))
+    return hidden, attentions
+
+
+def mc_extract(wavlm: WavLM, waveforms: torch.Tensor, compute_dtype: torch.dtype,
+               train: bool = False, rng: Optional[TrainRandom] = None) -> torch.Tensor:
+    """(B, C, num_samples) -> (B·C, F, D): every channel's stream through the
+    waveform's norm, the extractor and the feature projection."""
+    cfg = wavlm.cfg
     b, c, n = waveforms.shape
     if cfg.num_frames(n) < 1:
         raise ValueError(f"input of {n} samples is shorter than the conv receptive field")
     if cfg.normalize_waveform:
         waveforms = F.layer_norm(waveforms.float(), (n,), eps=1e-5)
     gen = rng.device if (train and rng is not None) else None
-
     x = wavlm._feature_extractor(waveforms.reshape(b * c, 1, n).to(compute_dtype), train)
     if train:
         x = grad_multiply(x, FEATURE_GRAD_MULT)
     fp = wavlm.encoder.feature_projection
-    x = dropout(linear(fp.projection, layer_norm(fp.layer_norm, x)), cfg.projection_dropout, gen)
+    return dropout(linear(fp.projection, layer_norm(fp.layer_norm, x)), cfg.projection_dropout,
+                   gen)
+
+
+def mc_fuse(wavlm: WavLM, fusions: nn.ModuleList, x: torch.Tensor, b: int, c: int,
+            train: bool = False, rng: Optional[TrainRandom] = None):
+    """The encoder on B·C streams: `mc_extract`'s (B·C, F, D) through the
+    positional conv, fusion 0, then WavLM layers 0..N-1 each followed by
+    fusion i + 1 but the last, which the channel mean follows (N fusions).
+    Returns (the N + 1 hidden states so far (B, F, D): the fused states'
+    channel means, then the channel mean after layer N-1; the fusions'
+    float32 attentions (B, F, H, C, C); the single stream (B, F, D); the
+    position bias every layer reads)."""
+    cfg = wavlm.cfg
+    gen = rng.device if (train and rng is not None) else None
     transformer = wavlm.encoder.transformer
     x = x + wavlm._pos_conv(x)
     if not cfg.layer_norm_first:
@@ -174,49 +203,112 @@ def wavlm_hidden_states_mc(
         return x4.reshape(b * c, f, -1)
 
     x = fuse(0, x)
-    for i, layer in enumerate(transformer.layers):
+    for i, layer in enumerate(transformer.layers[:len(fusions)]):
         x, _ = wavlm._layer(i, layer, x, position_bias, train, rng)
         if i + 1 < len(fusions):
             x = fuse(i + 1, x)
-        else:
-            if i + 1 == len(fusions):  # the channel mean: one stream a recording from here
-                x = x.reshape(b, c, f, -1).mean(dim=1)
-            hidden.append(x)
-    wavlm.layers_run = list(range(cfg.num_layers))
-    return hidden, attentions
+    # the channel mean: one stream a recording from here
+    x = x.reshape(b, c, f, -1).mean(dim=1)
+    hidden.append(x)
+    return hidden, attentions, x, position_bias
+
+
+def mc_rest(wavlm: WavLM, x: torch.Tensor, position_bias: torch.Tensor, start: int,
+            train: bool = False, rng: Optional[TrainRandom] = None) -> List[torch.Tensor]:
+    """WavLM layers `start`.. on the single stream (B, F, D): their hidden
+    states."""
+    hidden = []
+    for i, layer in enumerate(wavlm.encoder.transformer.layers[start:], start=start):
+        x, _ = wavlm._layer(i, layer, x, position_bias, train, rng)
+        hidden.append(x)
+    return hidden
 
 
 class McEendModel(EendModel):
     """EEND over (B, C, num_samples): `channel_fusions` inside the WavLM
     walk, then the weighted sum of the hidden states, the Conformer and the
-    powerset head as in `EendModel`."""
+    powerset head as in `EendModel`.
 
-    inference_stages = None  # the forward runs in one piece
+    `forward(..., stage=)` runs the inference forward in four parts, which
+    in turn give the one-piece forward's scores exactly: "extract" the
+    (B, C, num_samples) waveforms on B·C streams through the extractor and
+    the feature projection (B, C, F, D); "fuse" that through the positional
+    conv, the fusions and WavLM layers 0..N-1 to the channel mean, with the
+    weighted sum of the hidden states so far and the channel weights;
+    "encode" the single stream through the remaining layers to the float32
+    weighted sum; "back_end" that through the projection, the Conformer and
+    the classifier. Each stage hands the next one tuple of tensors, and the
+    last gives (scores, channel weights): fusion `weight_fusion`'s
+    head-mean attention averaged over frames and querying channels, (B, C)
+    float32, the weights `attention_weighted_embeddings` reads."""
+
+    inference_stages = ("extract", "fuse", "encode", "back_end")
+    # the fusion whose attention weighs the channels' embeddings: the
+    # reference reads fusion 3 of 4; clamped to the model's last
+    weight_fusion = 3
 
     def __init__(self, cfg: McEendConfig):
         super().__init__(cfg)
         self.channel_fusions = make_fusions(cfg.wavlm.embed_dim, cfg.fusion)
 
-    def forward(self, waveforms: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+    @property
+    def num_channels(self) -> int:
+        """The microphones a recording is served on (its channels wrapped or
+        cut to these)."""
+        return self.cfg.num_channels
+
+    def forward(self, waveforms, compute_dtype: torch.dtype = torch.float32,
                 train: bool = False, generator: Optional[torch.Generator] = None,
-                num_train_channels: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                num_train_channels: Optional[int] = None, stage: Optional[str] = None):
         """(B, C, num_samples) -> (float32 log-powerset scores (B, F, P),
         float32 head-mean spatial attention (B, L, F, C, C), L the fusions).
         `num_train_channels` keeps the first k channels (the training-time
-        channel truncation); `train` and `generator` as in `EendModel`."""
+        channel truncation); `train` and `generator` as in `EendModel`;
+        `stage` runs one of `inference_stages` (class docstring)."""
+        if stage is not None:
+            return self._stage(stage, waveforms, compute_dtype)
         if num_train_channels is not None:
             waveforms = waveforms[:, :num_train_channels]
         rng = TrainRandom(generator, waveforms.device) if (train and generator is not None) else None
         hidden, atts = wavlm_hidden_states_mc(self.wavlm_model, self.channel_fusions, waveforms,
                                               compute_dtype, train, rng)
-        w = self.weight_sum.weight.reshape(-1).float()
-        feat = w[0] * hidden[0].float()
-        for wl, h in zip(w[1:], hidden[1:]):
-            feat = feat + wl * h.float()
-        x = layer_norm(self.lnorm, linear(self.proj, feat.to(compute_dtype)))
-        x = self.conformer(x, train=train, rng=rng)
-        scores = torch.log_softmax(linear(self.classifier, x).float(), dim=-1)
+        feat = self._weighted_sum(hidden)
+        scores = self._back_end(feat, compute_dtype, train, rng)
         return scores, torch.stack([a.mean(dim=2) for a in atts], dim=1)
+
+    def _weighted_sum(self, hidden: List[torch.Tensor], start: int = 0,
+                      acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The float32 sum of `hidden` (states start, start + 1, ...) under
+        the layer weights, added to `acc` in order."""
+        w = self.weight_sum.weight.reshape(-1).float()
+        for wl, h in zip(w[start:], hidden):
+            acc = wl * h.float() if acc is None else acc + wl * h.float()
+        return acc
+
+    def channel_weights(self, attention: torch.Tensor) -> torch.Tensor:
+        """(B, F, H, C, C) float32 attention of fusion `weight_fusion` ->
+        (B, C): the heads' mean, then the mean over frames and querying
+        channels."""
+        return attention.mean(dim=2).mean(dim=(1, 2))
+
+    def _stage(self, stage: str, x, compute_dtype: torch.dtype):
+        wavlm, fusions = self.wavlm_model, self.channel_fusions
+        if stage == "extract":
+            b, c = x.shape[:2]
+            return mc_extract(wavlm, x, compute_dtype).reshape(b, c, -1, wavlm.cfg.embed_dim)
+        if stage == "fuse":
+            b, c, f, d = x.shape
+            hidden, atts, x, bias = mc_fuse(wavlm, fusions, x.reshape(b * c, f, d), b, c)
+            weights = self.channel_weights(atts[min(self.weight_fusion, len(atts) - 1)])
+            return x, self._weighted_sum(hidden), weights, bias
+        if stage == "encode":
+            x, acc, weights, bias = x
+            hidden = mc_rest(wavlm, x, bias, len(fusions))
+            return self._weighted_sum(hidden, len(fusions) + 1, acc), weights
+        if stage == "back_end":
+            feat, weights = x
+            return self._back_end(feat, compute_dtype), weights
+        raise ValueError(f"unknown stage {stage!r}; the stages are {self.inference_stages}")
 
 
 def attention_weighted_embeddings(per_channel_embeddings: np.ndarray,

@@ -5,7 +5,12 @@ A model directory, laid out like a released DiariZen snapshot, holds
 `config.toml` (model, inference and clustering sections), the segmentation
 checkpoint `pytorch_model.bin` (or, failing that, the JAX trainer's
 `params.npz`), and a `plda/` directory for VBx; the WeSpeaker
-ResNet34 embedding checkpoint is a separate file. `from_pretrained` takes a
+ResNet34 embedding checkpoint is a separate file. A `config.toml` whose
+model is the multi-channel one (`wavlm_conformer_mc`, DiariZen's
+`recipes/diar_ssl_mc`) gives the same pipeline on (C, N) recordings: its
+segmentation reads the model's microphones, its embeddings run every
+(window, microphone) and are fused under the model's channel weights, with
+the recipe's plain masks. `from_pretrained` takes a
 local directory or a Hugging Face repo id: an id resolves through
 `huggingface_hub.snapshot_download` (cache first, so a populated cache works
 offline), with an actionable error when the package or the model is missing.
@@ -89,7 +94,8 @@ def from_pretrained(
     override dicts layer on top of the directory's `[inference.args]` and
     `[clustering.args]` sections (None values are ignored). With `mesh`
     (`parallel/mesh.py`) both models shard their windows over its data
-    axis, parameters replicated."""
+    axis, parameters replicated. A multi-channel model's pipeline serves
+    (C, N) recordings, its channels wrapped or cut to the model's."""
     device = resolve_device(device)
     model_dir = resolve_model_dir(model_dir)
     config = load_toml(model_dir / "config.toml")
@@ -155,6 +161,8 @@ def from_pretrained(
         min_speakers=cl.get("min_speakers", 1),
         max_speakers=cl.get("max_speakers", 8),
         apply_median_filtering=inference_args.get("apply_median_filtering", True),
+        # the multi-channel recipe embeds with the plain masks
+        embedding_exclude_overlap=seg_inf.num_channels is None,
         mesh=mesh,
     )
     pipeline.rttm_out_dir = Path(rttm_out_dir) if rttm_out_dir else None

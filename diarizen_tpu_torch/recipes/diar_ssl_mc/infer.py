@@ -2,11 +2,11 @@
 recipes/diar_ssl_mc/infer.py).
 
 Averages the N best / previous / centred checkpoints of an experiment,
-diarizes a wav.scp of multi-channel recordings through McDiarizationPipeline
-(a recording with fewer than `--num_channels` channels is padded by
-wrapping its channels around, one with more is cut), writes one RTTM per
-recording and, with a reference RTTM, scores DER (collar 0, overlap scored)
-into `der.json`.
+diarizes a wav.scp of multi-channel recordings through the serving path,
+`DiarizationPipeline.stream` (a recording with fewer than `--num_channels`
+channels is padded by wrapping its channels around, one with more is cut;
+`SlidingInference.prepare_wave`), writes one RTTM per recording and, with a
+reference RTTM, scores DER (collar 0, overlap scored) into `der.json`.
 
     python -m diarizen_tpu_torch.recipes.diar_ssl_mc.infer \\
         -C recipes/diar_ssl_mc/conf/wavlm_mc_chatt.toml \\
@@ -24,12 +24,10 @@ import json
 from pathlib import Path
 from typing import Optional, Sequence
 
-import numpy as np
-
 from diarizen_tpu_torch.config import load_toml
 from diarizen_tpu_torch.core.audio import read_audio
 from diarizen_tpu_torch.core.io_rttm import load_rttm, load_scp
-from diarizen_tpu_torch.infer import EmbeddingInference, McDiarizationPipeline, McSlidingInference
+from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
 from diarizen_tpu_torch.logger import init_logging
 from diarizen_tpu_torch.pipelines import load_resnet
 from diarizen_tpu_torch.recipes.diar_ssl.infer import (
@@ -42,14 +40,14 @@ from diarizen_tpu_torch.utils import resolve_device
 
 
 def build_pipeline(args: argparse.Namespace, config: dict,
-                   device: Device = None) -> McDiarizationPipeline:
+                   device: Device = None) -> DiarizationPipeline:
     device = resolve_device(device)
     cfg, model = load_averaged_model(args, config)
     inference_args = config.get("inference", {}).get("args", {})
     batch_size = inference_args.get("batch_size", 16)
-    seg_inf = McSlidingInference(model, args.num_channels,
-                                 duration=float(inference_args.get("seg_duration", 8)),
-                                 batch_size=batch_size, device=device)
+    seg_inf = SlidingInference(model, duration=float(inference_args.get("seg_duration", 8)),
+                               batch_size=batch_size, device=device,
+                               num_channels=args.num_channels)
     if not args.embedding_ckpt:
         print("WARNING: no --embedding_ckpt; random embedding weights (smoke mode)")
     emb_inf = EmbeddingInference(load_resnet(args.embedding_ckpt or None),
@@ -57,12 +55,13 @@ def build_pipeline(args: argparse.Namespace, config: dict,
                                  num_speakers=cfg.max_speakers_per_chunk,
                                  batch_size=batch_size, device=device)
     cl = config.get("clustering", {}).get("args", {})
-    return McDiarizationPipeline(
+    return DiarizationPipeline(
         seg_inference=seg_inf, emb_inference=emb_inf,
         clustering=build_clustering(cl, cl.get("method", "VBxClustering"), fa=0.06, fb=0.9),
         eend_cfg=cfg, min_speakers=cl.get("min_speakers", 1),
         max_speakers=cl.get("max_speakers", 8),
         apply_median_filtering=inference_args.get("apply_median_filtering", True),
+        embedding_exclude_overlap=False,  # the multi-channel recipe embeds with plain masks
     )
 
 
@@ -91,12 +90,18 @@ def main(argv: Optional[Sequence[str]] = None, device: Device = None) -> dict:
     init_logging(out_dir, filename="infer.log")
     pipeline = build_pipeline(args, config, device)
 
+    scp = list(load_scp(args.wav_scp).items())[: args.max_files]
+
+    def waves():
+        for _, path in scp:
+            wave, sr = read_audio(path)
+            if sr != pipeline.seg_inference.sample_rate:
+                raise ValueError(f"{path}: resample {sr} -> {pipeline.seg_inference.sample_rate}")
+            yield wave
+
     hyps = {}
-    for uri, path in list(load_scp(args.wav_scp).items())[: args.max_files]:
-        wave, sr = read_audio(path)
-        if wave.shape[0] < args.num_channels:  # wrap-pad, as the dataset does
-            wave = np.pad(wave, ((0, args.num_channels - wave.shape[0]), (0, 0)), mode="wrap")
-        ann = pipeline(wave[: args.num_channels], sr, uri=uri)
+    uris = [uri for uri, _ in scp]
+    for uri, ann in zip(uris, pipeline.stream(waves(), uris=uris)):
         hyps[uri] = ann
         (out_dir / f"{uri}.rttm").write_text(ann.to_rttm())
         print(f"{uri}: {len(ann.labels())} speakers", flush=True)

@@ -35,7 +35,11 @@ route on a CUDA device, the stream milliseconds of its segmentation (with
 the device stitch) and of its embeddings: `StageEvents` between the stages'
 enqueues; and, for a segmentation model that runs in stages (WavLM +
 Conformer), those of the extractor and of the encoder, from timing events at
-the stage boundaries of every batch, summed over the file's batches.
+the stage boundaries of every batch, summed over the file's batches, and for
+a multi-channel model also those of the encoder's stretch on every
+channel's stream, from the event before the encoder to the one after the
+channel mean. A multi-channel model's file also records the microphones it
+was served on and the (window, microphone) rows its embeddings ran.
 `records()` returns the most recent `KEEP`; nothing is written anywhere.
 """
 
@@ -80,7 +84,12 @@ class FileRecord:
     forward eagerly, `emb_graph_batches` and `emb_eager_batches` the same
     of the embedding batches; the stream milliseconds (`StageEvents`) are
     None off the fused route or off CUDA, and `seg_extract_ms` and
-    `seg_encode_ms` also for a segmentation model without stages."""
+    `seg_encode_ms` also for a segmentation model without stages.
+    A multi-channel model's file: `channels` the microphones served,
+    `emb_rows` the (window, microphone) rows through the embedding model,
+    and on the fused route on CUDA `seg_fuse_ms`, the part of
+    `seg_encode_ms` on every channel's stream, through the channel mean;
+    None, 0 and None for a single-channel model."""
 
     pipeline: int
     file: int
@@ -94,6 +103,9 @@ class FileRecord:
     embed_stream_ms: Optional[float] = None
     seg_extract_ms: Optional[float] = None
     seg_encode_ms: Optional[float] = None
+    channels: Optional[int] = None
+    emb_rows: int = 0
+    seg_fuse_ms: Optional[float] = None
 
     def ms(self, name: str) -> float:
         """Host milliseconds inside the spans called `name`, summed."""
@@ -143,9 +155,11 @@ class StageEvents:
     """Three CUDA timing events on a file's stream: `mark(0)` before the
     segmentation's enqueue, `mark(1)` after the device stitch's, `mark(2)`
     after the embeddings'; and for every segmentation batch that runs in
-    stages three more, `batch()` then `mark_batch(0)` before its extractor,
-    `mark_batch(1)` before its encoder and `mark_batch(2)` before its back
-    end. Once the host has waited for work queued behind the last mark (the
+    stages one more a stage, `batch()` then `mark_batch(0)` before its
+    extractor, `mark_batch(1)` before its encoder and `mark_batch(s)` before
+    each later stage, the last its back end (a multi-channel model's
+    `mark_batch(2)` after the channel mean: four stages, four events). Once
+    the host has waited for work queued behind the last mark (the
     file's `HostFetch`), `read(record, free)` stores the stages'
     milliseconds without another wait and hands the events back to `free`,
     the pipeline's list that `take` draws from; a batch's events go back to
@@ -157,13 +171,14 @@ class StageEvents:
     host to enqueue more of the stage: while the host's launches set the
     pace they read the host's pace, not the card's busy time."""
 
-    __slots__ = ("events", "stream", "batches", "spare")
+    __slots__ = ("events", "stream", "batches", "spare", "stages")
 
     def __init__(self):
         self.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         self.stream = None
         self.batches: list = []  # the file's batches' events, in order
         self.spare: list = []
+        self.stages = 0  # the events a batch marks
 
     @staticmethod
     def take(free: list, stream) -> "StageEvents":
@@ -180,21 +195,28 @@ class StageEvents:
 
     def batch(self) -> None:
         """Starts the events of the next segmentation batch."""
-        self.batches.append(self.spare.pop() if self.spare else
-                            [torch.cuda.Event(enable_timing=True) for _ in range(3)])
+        self.batches.append(self.spare.pop() if self.spare else [])
 
     def mark_batch(self, boundary: int) -> None:
-        self.batches[-1][boundary].record(self.stream)
+        events = self.batches[-1]
+        while len(events) <= boundary:
+            events.append(torch.cuda.Event(enable_timing=True))
+        events[boundary].record(self.stream)
+        self.stages = max(self.stages, boundary + 1)
 
     def read(self, record: FileRecord, free: list) -> None:
         first, between, last = self.events
         record.seg_stream_ms = first.elapsed_time(between)
         record.embed_stream_ms = between.elapsed_time(last)
         if self.batches:
-            record.seg_extract_ms = sum(a.elapsed_time(b) for a, b, _ in self.batches)
-            record.seg_encode_ms = sum(b.elapsed_time(c) for _, b, c in self.batches)
+            n = self.stages
+            record.seg_extract_ms = sum(b[0].elapsed_time(b[1]) for b in self.batches)
+            record.seg_encode_ms = sum(b[1].elapsed_time(b[n - 1]) for b in self.batches)
+            if n > 3:  # the encoder's stretch on every channel's stream
+                record.seg_fuse_ms = sum(b[1].elapsed_time(b[2]) for b in self.batches)
             self.spare.extend(self.batches)
             self.batches.clear()
+            self.stages = 0
         free.append(self)
 
 

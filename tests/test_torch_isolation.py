@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from diarizen_tpu_torch import config
-from diarizen_tpu_torch.infer import EmbeddingInference, McSlidingInference, SlidingInference
+from diarizen_tpu_torch.infer import EmbeddingInference, SlidingInference
 from diarizen_tpu_torch.models.conformer import ConformerConfig
 from diarizen_tpu_torch.models.eend import EendConfig, EendModel
 from diarizen_tpu_torch.models.mc import FusionConfig, McEendConfig, McEendModel
@@ -53,7 +53,7 @@ PRUNING_SLICE = ("prune", "prune.hardconcrete", "prune.gates", "prune.distill", 
                  "recipes.diar_ssl_pruning.apply_pruning",
                  "recipes.diar_ssl_pruning.get_wavlm_from_finetuned")
 # and those of the multi-channel slice
-MC_SLICE = ("models.mc", "models.forward", "infer.mc_pipeline", "recipes.diar_ssl_mc",
+MC_SLICE = ("models.mc", "models.forward", "infer.sliding", "recipes.diar_ssl_mc",
             "recipes.diar_ssl_mc.run", "recipes.diar_ssl_mc.infer")
 # and those of the remaining model families
 FAMILIES_SLICE = ("models.fbank_eend", "models.sincnet_eend", "models.sserious",
@@ -127,16 +127,17 @@ def test_entry_points_default_to_cuda(tmp_path):
     model, mc_model, resnet = _tiny_models()
     if torch.cuda.is_available():
         assert SlidingInference(model).device.type == "cuda"
-        assert McSlidingInference(mc_model, num_channels=2).device.type == "cuda"
+        assert SlidingInference(mc_model).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SlidingInference(model)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EmbeddingInference(resnet, 32000, num_speakers=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        McSlidingInference(mc_model, num_channels=2)
+        SlidingInference(mc_model)
     assert SlidingInference(model, device="cpu").device.type == "cpu"
-    assert McSlidingInference(mc_model, num_channels=2, device="cpu").device.type == "cpu"
+    mc_seg = SlidingInference(mc_model, device="cpu")
+    assert mc_seg.device.type == "cpu" and mc_seg.num_channels == 2
     # the multi-channel recipe CLIs, on the repository's TOML
     conf = tmp_path / MC_TOML.name
     config.dump_toml(config.apply_overrides(config.load_toml(MC_TOML),

@@ -2,8 +2,9 @@
 float32: both channel fusions, the multi-channel WavLM hidden states, the
 multi-channel EEND scores and spatial attention (all channels and the
 training-time truncation to 2), the state-dict round trip, the
-attention-weighted embeddings, and 3-channel audio through
-McDiarizationPipeline to an RTTM equal to the JAX pipeline's."""
+attention-weighted embeddings, and 3-channel audio through the serving
+path (`DiarizationPipeline` on a multi-channel `SlidingInference`) to an
+RTTM equal to the JAX pipeline's."""
 
 import dataclasses
 
@@ -34,7 +35,7 @@ from diarizen_tpu.models.resnet import ResNetConfig as JaxResNetConfig
 from diarizen_tpu.models.resnet import init_resnet_params
 from diarizen_tpu.models.wavlm import WavLMConfig as JaxWavLMConfig
 from diarizen_tpu_torch.cluster import AgglomerativeClustering
-from diarizen_tpu_torch.infer import EmbeddingInference, McDiarizationPipeline, McSlidingInference
+from diarizen_tpu_torch.infer import DiarizationPipeline, EmbeddingInference, SlidingInference
 from diarizen_tpu_torch.models.build import wavlm_conformer, wavlm_conformer_mc
 from diarizen_tpu_torch.models.conformer import ConformerConfig
 from diarizen_tpu_torch.models.convert import (
@@ -221,12 +222,13 @@ def test_mc_pipeline_rttm_equals_jax():
     model.load_state_dict(eend_mc_state_dict_from_jax(params, state, cfg), strict=True)
     resnet = ResNet(ResNetConfig(m_channels=8, num_blocks=(1, 1, 1, 1), embed_dim=32))
     resnet.load_state_dict(resnet_state_dict_from_jax(rparams, rcfg))
-    seg = McSlidingInference(model, num_channels=3, batch_size=4, compute_dtype=torch.float32,
-                             device="cpu")
+    seg = SlidingInference(model, batch_size=4, compute_dtype=torch.float32, device="cpu")
+    assert seg.num_channels == 3
     emb = EmbeddingInference(resnet, seg.window_size, num_speakers=4, batch_size=4, device="cpu")
-    pipe = McDiarizationPipeline(seg, emb, AgglomerativeClustering(threshold=0.7,
-                                                                   min_cluster_size=2),
-                                 model.cfg, max_speakers=4, fusion_layer=1)
+    # the multi-channel recipe's plain masks; fusion 1, the last of two, weighs the channels
+    pipe = DiarizationPipeline(seg, emb, AgglomerativeClustering(threshold=0.7,
+                                                                 min_cluster_size=2),
+                               model.cfg, max_speakers=4, embedding_exclude_overlap=False)
     got = pipe(wave, 16000, uri="mc").to_rttm()
     assert len({line.split()[7] for line in expected.splitlines()}) == 2  # two speakers found
     assert got == expected

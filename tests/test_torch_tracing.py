@@ -227,12 +227,15 @@ def test_spans_records_and_events_alone(monkeypatch):
 
 def test_stage_fields_are_none_off_cuda(small):
     """Off CUDA no event is recorded: the extractor's and the encoder's
-    stream milliseconds stay None, and the record keeps its other fields."""
+    stream milliseconds stay None, and the record keeps its other fields; a
+    single-channel model's file has no microphones, (window, microphone)
+    rows or fused-channel stream milliseconds."""
     build, waves = small
     pipe = build()
     list(pipe.stream(iter(waves[:2]), 16000, trim_every=0))
     for r, w in zip(mine(pipe), waves):
         assert r.seg_extract_ms is r.seg_encode_ms is r.seg_stream_ms is None
+        assert r.channels is None and r.emb_rows == 0 and r.seg_fuse_ms is None
         assert r.audio_s == w.shape[1] / 16000 and r.seg_eager_batches > 0
         assert r.seg_graph_batches == 0 and r.ms("diarize.dispatch") > 0
 
@@ -290,3 +293,49 @@ def test_batch_events_sum_over_a_files_batches(monkeypatch):
     rec3 = tracing.FileRecord(7, 2, 1.0)
     plain.read(rec3, free)
     assert rec3.seg_extract_ms is rec3.seg_encode_ms is None and rec3.seg_stream_ms == 1.0
+
+
+def test_batch_events_of_four_stages(monkeypatch):
+    """A multi-channel model's batches mark four stages: the extractor, the
+    encoder on every channel's stream through the channel mean (fused), the
+    single-stream rest; the encoder's milliseconds hold the fused part."""
+
+    class Event:  # as above
+        def __init__(self, enable_timing=False):
+            self.t = None
+
+        def record(self, stream):
+            self.t = stream.pop(0)
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    free = []
+    # mark 0; two batches (extract 1 + 2, fused 4 + 3, rest 2 + 1); marks 1 and 2
+    stream = [0.0, 1.0, 2.0, 6.0, 8.0, 9.0, 11.0, 14.0, 15.0, 16.0, 17.0]
+    events = tracing.StageEvents.take(free, stream)
+    events.mark(0)
+    for _ in range(2):
+        events.batch()
+        for boundary in range(4):
+            events.mark_batch(boundary)
+    events.mark(1)
+    events.mark(2)
+    rec = tracing.FileRecord(8, 0, 2.0)
+    events.read(rec, free)
+    assert (rec.seg_extract_ms, rec.seg_fuse_ms, rec.seg_encode_ms) == (3.0, 7.0, 10.0)
+    assert (rec.seg_stream_ms, rec.embed_stream_ms) == (16.0, 1.0)
+    # the next file, of a three-stage model, on the same events: no fused part
+    stream = [20.0, 21.0, 22.0, 25.0, 26.0, 27.0]
+    again = tracing.StageEvents.take(free, stream)
+    again.mark(0)
+    again.batch()
+    for boundary in range(3):
+        again.mark_batch(boundary)
+    again.mark(1)
+    again.mark(2)
+    rec2 = tracing.FileRecord(8, 1, 1.0)
+    again.read(rec2, free)
+    assert again is events and rec2.seg_fuse_ms is None
+    assert (rec2.seg_extract_ms, rec2.seg_encode_ms) == (1.0, 3.0)
